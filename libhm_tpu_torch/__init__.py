@@ -3,17 +3,22 @@
 `libhm_tpu` (JAX) stays the reference; this package mirrors its module
 names so each counterpart is easy to find:
 
-    parallel/dag_decode.py      decode_batch entry point (reference-DAG levels)
+    parallel/dag_decode.py      decode_batch / decode_batch_device entry
+                                points (reference-DAG levels, inter + intra)
     parallel/batch_decode.py    residual planes + batched intra wavefront
     parallel/device_filters.py  deblocking V/H + SAO per level
     parallel/intra_wavefront.py host levelization of intra blocks
-    ops/{transform,intra,deblock,sao}.py  plain torch versions + kernel wrappers
+    ops/{transform,intra,deblock,sao,interp,checksum}.py
+                                plain torch versions + kernel wrappers
     csrc/*.cu                   hand-written Hopper (sm_90a) kernels
     kernels/build.py            nvcc build + ctypes binding of csrc/
+    hostdec/                    the host half (Annex-B/CABAC parse in native
+                                C++, control plane, boundary-strength maps):
+                                a copy of libhm_tpu/hostdec, one file each
 
-The host half (Annex-B/CABAC parse, control plane) is shared with
-`libhm_tpu.hostdec`, which imports no JAX.  Nothing in this package imports
-JAX, directly or indirectly.
+Nothing in this package imports JAX or the JAX package, directly or
+indirectly.  The entry points run on the card (device="cuda") unless the
+caller asks for the CPU.
 
 Each kernel wrapper runs its plain torch version for a CPU tensor and
 launches its CUDA kernel for a CUDA tensor; there is no fallback between

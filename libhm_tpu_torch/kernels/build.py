@@ -1,9 +1,10 @@
 """Build and bind the port's hand-written CUDA kernels.
 
-Every `csrc/*.cu` file is compiled by `nvcc` at first use into ONE shared
-library with a plain C interface, `_build/libhm_kernels.so`, which is
-loaded with ctypes.  Nothing includes PyTorch's headers, so a full build
-takes seconds, not minutes.  The library is rebuilt when any source under
+Every `csrc/*.cu` file is compiled by its own `nvcc` process at first use
+(all started together), and the objects are linked into ONE shared library
+with a plain C interface, `_build/libhm_kernels.so`, which is loaded with
+ctypes.  Nothing includes PyTorch's headers, so a full build takes
+seconds, not minutes.  The library is rebuilt when any source under
 `csrc/` is newer than it.
 
 Each C entry point takes raw device pointers and the CUDA stream (both as
@@ -24,7 +25,7 @@ CSRC = os.path.join(PKG, "csrc")
 BUILD = os.path.join(PKG, "_build")
 LIB_PATH = os.path.join(BUILD, "libhm_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC"]
+              "-std=c++17", "-Xcompiler", "-fPIC"]
 
 _LIB = None
 
@@ -51,16 +52,36 @@ def stale():
 
 
 def build(verbose=False):
-    """Compile csrc/*.cu into LIB_PATH (atomically replaced)."""
+    """Compile csrc/*.cu in parallel and link LIB_PATH (atomically
+    replaced).  Returns the compilers' output (ptxas lines when verbose)."""
     os.makedirs(BUILD, exist_ok=True)
-    tmp = LIB_PATH + f".tmp{os.getpid()}"
-    cmd = [_nvcc()] + NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else []) + \
-        ["-o", tmp] + [s for s in _sources() if s.endswith(".cu")]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError("nvcc failed:\n" + r.stdout + r.stderr)
-    os.replace(tmp, LIB_PATH)
-    return r.stdout + r.stderr
+    nvcc = _nvcc()
+    tag = f".tmp{os.getpid()}"
+    srcs = [s for s in _sources() if s.endswith(".cu")]
+    objs = [os.path.join(BUILD, os.path.basename(s)[:-3] + tag + ".o")
+            for s in srcs]
+    procs = [subprocess.Popen(
+        [nvcc] + NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else []) +
+        ["-c", src, "-o", obj], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for src, obj in zip(srcs, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    try:
+        bad = [(s, log) for s, p, log in zip(srcs, procs, logs)
+               if p.returncode != 0]
+        if bad:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{os.path.basename(s)}:\n{log}" for s, log in bad))
+        tmp = LIB_PATH + tag
+        r = subprocess.run([nvcc] + NVCC_FLAGS + ["-shared", "-o", tmp] +
+                           objs, capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + r.stdout + r.stderr)
+        os.replace(tmp, LIB_PATH)
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
+    return "".join(logs) + r.stdout + r.stderr
 
 
 def library():

@@ -10,7 +10,7 @@ planes.
 """
 import torch
 
-from libhm_tpu.hostdec.loopfilter_np import BETA_TABLE, TC_TABLE
+from ..hostdec.loopfilter_np import BETA_TABLE, TC_TABLE
 
 from ..kernels.build import I, P, Kernel, check, ptr
 

@@ -14,7 +14,7 @@ import functools
 import numpy as np
 import torch
 
-from libhm_tpu.hostdec.refimpl import ANG_TABLE
+from ..hostdec.refimpl import ANG_TABLE
 
 from ..kernels.build import I, P, Kernel, check, ptr
 

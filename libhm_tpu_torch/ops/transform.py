@@ -9,7 +9,7 @@ CUDA tensor and as the plain functions for a CPU tensor.
 """
 import torch
 
-from libhm_tpu.hostdec.tables import DCT, DST4, INV_QUANT_SCALES
+from ..hostdec.tables import DCT, DST4, INV_QUANT_SCALES
 
 from ..kernels.build import I, P, Kernel, check, ptr
 

@@ -14,7 +14,7 @@ Port of the device-resident half of libhm_tpu/parallel/batch_decode.py:
 import numpy as np
 import torch
 
-from libhm_tpu.hostdec.picture import MODE_INTRA
+from ..hostdec.picture import MODE_INTRA
 
 from ..ops import intra as IK
 from ..ops import transform as TK
@@ -30,7 +30,7 @@ def _tu_bucket_entries(items):
     Returns {(n, use_dst, path, bd, rotate, scal, max_dyn):
              [(b, i, scal_mats), ...]}.
     """
-    from libhm_tpu.hostdec.tables import build_scaling_matrices
+    from ..hostdec.tables import build_scaling_matrices
     buckets = {}
     mats_cache = {}
     for b, it in enumerate(items):

@@ -13,8 +13,8 @@ Boundary-strength derivation stays host-side numpy
 import numpy as np
 import torch
 
-from libhm_tpu.hostdec.deblock_maps import compute_bs_maps
-from libhm_tpu.hostdec.tables import CHROMA_QP_SCALE
+from ..hostdec.deblock_maps import compute_bs_maps
+from ..hostdec.tables import CHROMA_QP_SCALE
 
 from ..ops import deblock as DK
 from ..ops import sao as SK

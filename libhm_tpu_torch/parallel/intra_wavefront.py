@@ -14,8 +14,8 @@ as a bit-packed [4n+1] mask per block.
 import numpy as np
 import torch
 
-from libhm_tpu.hostdec import refimpl
-from libhm_tpu.hostdec.picture import MODE_INTRA
+from ..hostdec import refimpl
+from ..hostdec.picture import MODE_INTRA
 
 from ..ops.intra import _border_offsets
 
@@ -51,7 +51,7 @@ def prepare_component(sps, pic, zmap, tile_map, comp, res_planes,
     tq_bypass = np.asarray(pic.tq_bypass)
 
     if comp and sps.chroma_format_idc == 2:
-        from libhm_tpu.hostdec.slicedec import CHROMA422_ANGLE_MAP
+        from ..hostdec.slicedec import CHROMA422_ANGLE_MAP
         mode_map = np.asarray(CHROMA422_ANGLE_MAP)
     else:
         mode_map = None

@@ -8,9 +8,10 @@ JAX package's jnp tables element by element.
 """
 import torch
 
-from libhm_tpu.hostdec.tables import DCT, DST4, INV_QUANT_SCALES
+from .hostdec.tables import DCT, DST4, INV_QUANT_SCALES
 
 from .ops import deblock as DK
+from .ops import interp as MK
 from .ops import intra as IK
 
 
@@ -22,6 +23,10 @@ def tables_from_numpy(device):
     t["inv_quant_scales"] = torch.as_tensor(INV_QUANT_SCALES, device=device)
     t["beta"] = torch.as_tensor(DK.BETA_TABLE, device=device)
     t["tc"] = torch.as_tensor(DK.TC_TABLE, device=device)
+    t["luma_filter"] = torch.as_tensor(MK.LUMA_FILTER, dtype=torch.int32,
+                                       device=device)
+    t["chroma_filter"] = torch.as_tensor(MK.CHROMA_FILTER, dtype=torch.int32,
+                                         device=device)
     for n in (4, 8, 16, 32):
         ext, row, frac, vert = IK._ang_tables(n)
         wc, we = IK._strong_weights(n)

@@ -3,7 +3,8 @@
 Each all-intra stream must match its HM golden MD5 and equal the JAX
 decode_batch plane by plane (exact).  The 1080p stream runs only under
 HEVC_SLOW_TESTS, as in test_dag_decode.py.  Streams outside the ported
-slice raise NotImplementedError.
+slice raise NotImplementedError; the entry point runs on the card unless
+the CPU is asked for.
 """
 import hashlib
 import json
@@ -13,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from libhm_tpu_torch.parallel import dag_decode as DD
 from libhm_tpu_torch.parallel.dag_decode import decode_batch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -56,8 +58,7 @@ def test_decode_1080p_golden():
 def test_sei_hash_check():
     """The control plane's decoded-picture-hash SEI check passes on the
     port's pixels."""
-    from libhm_tpu.hostdec.decoder import Decoder
-    from libhm_tpu_torch.parallel import dag_decode as DD
+    from libhm_tpu_torch.hostdec.decoder import Decoder
     dec = Decoder(parse="native", recon="collect", check_sei_hash=True)
     dec.decode_annexb(_data("intra_main10_416x240"))
     pending = DD._recon_levels(dec.collected, CPU)
@@ -67,8 +68,14 @@ def test_sei_hash_check():
 
 
 def test_inter_stream_raises():
-    with pytest.raises(NotImplementedError, match="inter prediction"):
-        decode_batch(_data("randomaccess_416x240"), device=CPU)
+    """An inter stream outside the slice (4:2:2) is refused by name."""
+    with pytest.raises(NotImplementedError, match="chroma format 2"):
+        decode_batch(_data("rext422_lowdelayP_416x240"), device=CPU)
+
+
+def test_tiles_stream_raises():
+    with pytest.raises(NotImplementedError, match="tiles"):
+        decode_batch(_data("tiles_832x480"), device=CPU)
 
 
 def test_cuda_without_gpu_raises():
@@ -76,3 +83,14 @@ def test_cuda_without_gpu_raises():
         pytest.skip("a GPU is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         decode_batch(_data("intra_416x240"), device="cuda")
+
+
+def test_default_device_is_cuda():
+    """Both entry points run on the card unless the CPU is asked for:
+    without a card they refuse rather than fall back."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        decode_batch(_data("intra_416x240"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DD.decode_batch_device(_data("intra_416x240"))

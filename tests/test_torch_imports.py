@@ -1,7 +1,8 @@
 """Port hygiene and shared state.
 
-- libhm_tpu_torch imports no JAX, directly or indirectly, and takes from
-  libhm_tpu only the JAX-free host half (libhm_tpu.hostdec);
+- libhm_tpu_torch and chip_smoke.py import neither JAX nor anything of
+  the JAX package (libhm_tpu), directly or indirectly: the port keeps its
+  own copy of the host half (libhm_tpu_torch.hostdec);
 - the port's constant tables (state.tables_from_numpy) equal the JAX
   package's jnp tables element by element, and the literal tables in the
   CUDA sources equal the numpy ones;
@@ -17,6 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+from libhm_tpu_torch.ops import interp as MK
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "libhm_tpu_torch")
 
@@ -26,6 +29,7 @@ def _py_files():
         for f in files:
             if f.endswith(".py"):
                 yield os.path.join(d, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
 
 
 def _imports(path):
@@ -47,19 +51,24 @@ def _imports(path):
 @pytest.mark.parametrize("path", sorted(_py_files()),
                          ids=lambda p: os.path.relpath(p, PKG))
 def test_no_jax_and_only_hostdec(path):
+    """No JAX, and of the host half only the port's own hostdec copy."""
     for mod in _imports(path):
         top = mod.split(".")[0]
-        assert top not in ("jax", "jaxlib"), (path, mod)
-        if top == "libhm_tpu":
-            assert mod.startswith("libhm_tpu.hostdec"), (path, mod)
+        assert top not in ("jax", "jaxlib", "libhm_tpu"), (path, mod)
 
 
 def test_import_leaves_jax_out():
+    """Importing the entry points and decoding a stream on the CPU loads
+    neither JAX nor the JAX package."""
     code = ("import sys\n"
-            "import libhm_tpu_torch.parallel.dag_decode, libhm_tpu_torch.state\n"
-            "import libhm_tpu_torch.recon_torch\n"
+            "import libhm_tpu_torch.state, libhm_tpu_torch.recon_torch\n"
+            "from libhm_tpu_torch.parallel.dag_decode import decode_batch, "
+            "decode_batch_device\n"
+            "data = open('testdata/intra_64x64.bin', 'rb').read()\n"
+            "assert decode_batch(data, device='cpu')\n"
+            "assert decode_batch_device(data, device='cpu')[3]\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib')]\n"
+            "('jax', 'jaxlib', 'libhm_tpu')]\n"
             "assert not bad, bad\n"
             "print('clean')\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -70,6 +79,7 @@ def test_import_leaves_jax_out():
 def test_tables_equal_jax():
     """state.tables_from_numpy == the JAX package's jnp/numpy tables."""
     from libhm_tpu.ops import deblock as JD
+    from libhm_tpu.ops import interp as JM
     from libhm_tpu.ops import intra as JI
     from libhm_tpu.ops import transform as JT
     from libhm_tpu_torch.state import tables_from_numpy
@@ -92,6 +102,11 @@ def test_tables_equal_jax():
     np.testing.assert_array_equal(t["tc"], np.asarray(JD.TC_TABLE))
     np.testing.assert_array_equal(t["inv_quant_scales"],
                                   np.asarray(JT.INV_QUANT_SCALES))
+    np.testing.assert_array_equal(t["luma_filter"],
+                                  np.asarray(JM.LUMA_FILTER))
+    np.testing.assert_array_equal(t["chroma_filter"],
+                                  np.asarray(JM.CHROMA_FILTER))
+    assert (JM.IF_PREC, JM.IF_OFFS) == (MK.IF_PREC, MK.IF_OFFS)
 
 
 def _cuda_table(fname, name):
@@ -102,7 +117,7 @@ def _cuda_table(fname, name):
 
 
 def test_cuda_tables_equal_numpy():
-    from libhm_tpu.hostdec.refimpl import ANG_TABLE
+    from libhm_tpu_torch.hostdec.refimpl import ANG_TABLE
     from libhm_tpu_torch.state import tables_from_numpy
     t = {k: v.numpy() for k, v in tables_from_numpy("cpu").items()}
     np.testing.assert_array_equal(_cuda_table("residual.cu", "kDct32"),
@@ -116,6 +131,10 @@ def test_cuda_tables_equal_numpy():
     np.testing.assert_array_equal(_cuda_table("deblock.cu", "kTc"), t["tc"])
     np.testing.assert_array_equal(_cuda_table("intra.cu", "kAng"),
                                   np.asarray(ANG_TABLE))
+    np.testing.assert_array_equal(_cuda_table("mc.cu", "kLumaFilter"),
+                                  t["luma_filter"].ravel())
+    np.testing.assert_array_equal(_cuda_table("mc.cu", "kChromaFilter"),
+                                  t["chroma_filter"].ravel())
 
 
 def test_wrappers_refuse_cpu_tensors():
@@ -127,6 +146,36 @@ def test_wrappers_refuse_cpu_tensors():
 def test_build_rule_sees_every_source():
     from libhm_tpu_torch.kernels import build
     names = sorted(os.path.basename(s) for s in build._sources())
-    assert names == ["deblock.cu", "errors.cu", "intra.cu", "residual.cu",
-                     "sao.cu"]
+    assert names == ["checksum.cu", "deblock.cu", "errors.cu", "intra.cu",
+                     "mc.cu", "residual.cu", "sao.cu"]
     assert build.LIB_PATH.startswith(os.path.join(PKG, "_build"))
+
+
+def _hostdec_copies():
+    src = os.path.join(ROOT, "libhm_tpu", "hostdec")
+    dst = os.path.join(PKG, "hostdec")
+    for d, _, files in os.walk(dst):
+        for f in sorted(files):
+            if f.endswith((".py", ".cpp", ".h")) or f == "Makefile":
+                rel = os.path.relpath(os.path.join(d, f), dst)
+                if rel != "__init__.py":
+                    yield rel, src, dst
+    yield "envvar.py", os.path.join(ROOT, "libhm_tpu", "utils"), \
+        os.path.join(PKG, "utils")
+
+
+# the two copies that were changed: decoder.py lost the JAX package's
+# recon="tpu" backend, native_bridge.py builds only the parser libraries
+_EDITED = {"decoder.py", "native_bridge.py"}
+
+
+@pytest.mark.parametrize("rel,src,dst", list(_hostdec_copies()),
+                         ids=[rel for rel, _, _ in _hostdec_copies()])
+def test_hostdec_copy_names_its_source(rel, src, dst):
+    """Each copied host file names its source on its first line and, unless
+    it is one of the edited copies, equals it below that line."""
+    lines = open(os.path.join(dst, rel)).read().split("\n")
+    origin = os.path.relpath(os.path.join(src, rel), ROOT)
+    assert lines[0] in (f"# Copied from {origin}", f"// Copied from {origin}")
+    if rel not in _EDITED:
+        assert "\n".join(lines[1:]) == open(os.path.join(src, rel)).read()

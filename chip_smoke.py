@@ -11,10 +11,13 @@ result line is not printed):
  1. card name and power limit (nvidia-smi); CUDA must be available;
  2. build the port's native host parser (libhm_tpu_torch/hostdec/native)
     and every kernel of csrc/ (one nvcc per source), all at once, timed;
- 3. K1-K7 against their plain torch versions on the card, at the shapes of
-    the 1080p main path, on seeded inputs: exact equality, with both times,
-    the bound (bytes or operations at the card's peak rates) and, for K7,
-    the time of the library call that computes the same sum;
+ 3. K1-K9 against their plain torch versions on the card, at the shapes of
+    the 1080p main paths, on seeded inputs: exact equality, with both times,
+    the bound (bytes or operations at the card's peak rates) and, for K7
+    and K8, the time of the library call that computes the same function;
+    K1's scaled and bypass modes on the TU buckets of the 1080p tool
+    stream, K4's multi form with that stream's slice/tile maps, K8 and K9
+    on a seeded mask and block table at 1920x1088;
  4. the main paths, each with the launch counters reset just before it and
     read just after:
     - testdata/randomaccess_main10_1080p.bin through
@@ -24,8 +27,16 @@ result line is not printed):
     - decode_batch_device on the 1080p RA stream: its checksum equals
       cropped_checksum of the decoded pictures, K7 launched, 4 bytes down;
     - the all-intra 1080p and 416x240 streams: golden MD5, K1-K4;
- 5. a timed run and a breakdown (cProfile, torch.profiler) of the RA
-    stream;
+    - testdata/tools_main10_1080p.bin (6 slices, 2 tiles, scaling lists;
+      testdata/port_streams.json) through decode_batch(device="cuda",
+      check_sei_hash=True): its MD5, K1 scaled and K4 multi launched, and
+      decode_batch_device on it: the checksum of those pictures;
+    - the slice, tile, PCM, lossless and scaling-list goldens and the PCM
+      stream of port_streams.json: their MD5s, each with the launches of
+      the modes it needs (K1 scaled / bypass, K4 multi, K8, K9);
+ 5. timed runs of the RA stream and of the tool stream (every picture's
+    hash SEI checked OK), and a breakdown (cProfile, torch.profiler) of
+    the RA stream;
  6. one JSON line of per-kernel results, then the result line
     {"ok": true, "device": {...}}.
 """
@@ -42,6 +53,24 @@ STREAM = "randomaccess_main10_1080p"      # the main path: timed, broken down
 INTRA = "intra_main10_1080p"              # the all-intra path of PR 1
 SMALL = ("intra_main10_416x240", "intra_416x240")
 WP = "wp_lowdelayP_416x240"               # the only weighted-prediction golden
+TOOLS = "tools_main10_1080p"    # slices, tiles, scaling lists (port_streams)
+# small streams of the tools path, and the kernel modes each must launch
+TOOL_SMALL = {"slices_416x240": ["sao_apply_multi"],
+              "tiles_832x480": ["sao_apply_multi"],
+              "tiles_nolfcross_512x128": ["sao_apply_multi"],
+              "pcm_intra_416x240": ["restore_unfiltered"],
+              "pcm_reduceddepth_160x96": [],
+              "pcm_port_416x240": ["pcm_scatter"],
+              "lossless_intra_416x240": ["residual_bypass",
+                                         "restore_unfiltered"],
+              "scaling_intra_416x240": ["residual_scatter_scaled"],
+              "customsl_lowdelay_160x96": ["residual_scatter_scaled"],
+              "wppdep_lowdelay_160x96": ["residual_scatter"]}
+# the main path whose launches the kernel table reports, for the modes
+# that the tool stream does not run
+LAUNCHES_FROM = {"residual_bypass": "lossless_intra_416x240",
+                 "restore_unfiltered": "lossless_intra_416x240",
+                 "pcm_scatter": "pcm_port_416x240"}
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and the
 # CUDA-core rate (67 TFLOP/s float32 outside the tensor cores; the table
@@ -150,6 +179,83 @@ def check_k1(items, card, rng):
                        n * n * 4)
             r.add(e, bms, pms, nbytes, ops)
     return r
+
+
+def check_k1_modes(items, card, rng):
+    """K1's scaled and bypass modes on every TU bucket of the tool stream
+    (seeded coefficients): the scaled mode with the stream's own matrix
+    table and per-TU rows, the bypass mode at the same TU positions with
+    rotation on 4x4 and a seeded RDPCM direction per TU."""
+    import numpy as np
+    import torch
+    from libhm_tpu_torch.ops import transform as TK
+    from libhm_tpu_torch.parallel.batch_decode import (
+        _MatrixTable, _bucket_inputs, _tu_bucket_entries)
+    sps = items[0]["sps"]
+    Hp = sps.pic_height_ctbs << sps.log2_ctb
+    Wp = sps.pic_width_ctbs << sps.log2_ctb
+    B = len(items)
+    buckets = _tu_bucket_entries(items)
+    table = _MatrixTable(buckets, DEV)
+    out = {"residual_scatter_scaled": Result(), "residual_bypass": Result()}
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEV)  # noqa
+    for (n, use_dst, path, bd, _, scal, _), entries in sorted(
+            buckets.items(), key=lambda kv: kv[0]):
+        for c in range(3):
+            sel = [e for e in entries
+                   if items[e[0]]["pic"].tu_list[e[1]].comp == c]
+            if not sel:
+                continue
+            tus = [items[b]["pic"].tu_list[i] for b, i, _ in sel]
+            P = len(sel)
+            _, _, _, midx = _bucket_inputs(items, sel, n,
+                                           table.row if scal else None)
+            bsel = t(np.asarray([b for b, _, _ in sel], np.int32))
+            ysel = t(np.asarray([u.y for u in tus], np.int32))
+            xsel = t(np.asarray([u.x for u in tus], np.int32))
+            shape = (B, Hp >> (1 if c else 0), Wp >> (1 if c else 0))
+            modes = []
+            if scal:
+                kw = dict(n=n, use_dst=use_dst, tskip=path == "tskip", bd=bd,
+                          mats=table.tables[n], midx=t(midx))
+                coeffs = t(rng.integers(-2048, 2048, (P, n, n))
+                           .astype(np.int16))
+                qp = t(rng.integers(0, 52 + 6 * (bd - 8), P).astype(np.int8))
+                # coefficients, qp, row, 3 indices in; n*n int32 out; the
+                # rows' matrices once; dequant (2 multiplies) + 2 n^3 MACs
+                nbytes = P * (n * n * 6 + 14) + \
+                    len(np.unique(midx)) * n * n
+                ops = P * (n * n * 7 if path == "tskip" else
+                           4 * n ** 3 + n * n * 5)
+                modes.append(("residual_scatter_scaled", coeffs, qp, kw,
+                              nbytes, ops))
+            rot = n == 4
+            rdpcm = rng.integers(0, 3, P).astype(np.int8)
+            kw = dict(n=n, use_dst=False, tskip=False, bd=bd, bypass=True,
+                      rotate=rot, rdpcm=t(rdpcm))
+            coeffs = t(rng.integers(-512, 512, (P, n, n)).astype(np.int16))
+            # coefficients, direction, 3 indices in; n*n int32 out; the
+            # RDPCM running sums (n(n+1)/2 adds per row or column)
+            nbytes = P * (n * n * 6 + 13)
+            ops = P * n * n * 2 + int((rdpcm != 0).sum()) * n * n * (n + 1) // 2
+            modes.append(("residual_bypass", coeffs, None, kw, nbytes, ops))
+            for name, coeffs, qp, kw, nbytes, ops in modes:
+                args = (coeffs, qp, bsel, ysel, xsel)
+                got = torch.zeros(shape, dtype=torch.int32, device=DEV)
+                want = torch.zeros(shape, dtype=torch.int32, device=DEV)
+                TK.residual_scatter(got, *args, **kw)
+                TK.residual_scatter_plain(want, *args, **kw)
+                torch.cuda.synchronize()
+                e = max_abs_err(got, want)
+                bms = cuda_ms(lambda: TK.residual_scatter(got, *args, **kw),
+                              20)
+                pms = cuda_ms(lambda: TK.residual_scatter_plain(
+                    want, *args, **kw), 5)
+                log(f"K1 {name} n={n} {path} comp={c} TUs={P}: mismatches="
+                    f"{int((got != want).sum())} kernel {bms:.4f} ms, plain "
+                    f"{pms:.4f} ms ({card})")
+                out[name].add(e, bms, pms, nbytes, ops)
+    return out
 
 
 def check_k2(items, card, rng):
@@ -299,6 +405,137 @@ def check_k4(card, rng, bd=10):
         # ~20 operations per sample
         r.add(e, bms, pms, plane.numel() * 8 + hc * wc * 6,
               plane.numel() * 20)
+    return r
+
+
+def check_k4_multi(items, card, rng, bd=10):
+    """K4's multi form on 1920x1088 luma and 960x544 chroma planes, with
+    the tool stream's own slice, loop-filter-across and tile maps."""
+    import numpy as np
+    import torch
+    from libhm_tpu_torch.ops import sao as SK
+    from libhm_tpu_torch.parallel.device_filters import prepare_filter_maps
+    it = items[-1]
+    sps = it["sps"]
+    m = prepare_filter_maps(it["pic"], sps, it["pps"], it["tile_map"])
+    hc, wc, log2_ctb = sps.pic_height_ctbs, sps.pic_width_ctbs, sps.log2_ctb
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)[None]).to(DEV)  # noqa
+    s4, lf4 = t(m["s4"]), t(m["lf4"].astype(np.uint8))
+    tm = t(m["tm"].reshape(hc, wc))
+    lft = torch.tensor([int(it["pps"].loop_filter_across_tiles)],
+                       dtype=torch.uint8, device=DEV)
+    r = Result()
+    for (Hp, Wp, H, W, sh) in ((1088, 1920, 1080, 1920, 0),
+                               (544, 960, 540, 960, 1)):
+        plane = t(rng.integers(0, 1 << bd, (Hp, Wp)).astype(np.int32))
+        typ = t(rng.integers(-1, 5, (hc, wc)).astype(np.int8))
+        band = t(rng.integers(0, 32, (hc, wc)).astype(np.int8))
+        offs = t(rng.integers(-31, 32, (hc, wc, 4)).astype(np.int8))
+        scale = torch.zeros(1, dtype=torch.int32, device=DEV)
+        kw = dict(log2cx=log2_ctb - sh, log2cy=log2_ctb - sh, bd=bd, W=W,
+                  H=H, sx=sh, sy=sh, log2_ctb=log2_ctb)
+        args = (plane, typ, band, offs, scale, s4, lf4, tm, lft)
+        got = SK.sao_multi(*args, **kw)
+        want = SK.sao_multi_plain(*args, **kw)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        bms = cuda_ms(lambda: SK.sao_multi(*args, **kw), 20)
+        pms = cuda_ms(lambda: SK.sao_multi_plain(*args, **kw), 3)
+        log(f"K4 sao_apply_multi {(Hp, Wp)} slices "
+            f"{int(m['s4'].max()) + 1}, tiles {int(m['tm'].max()) + 1}: "
+            f"mismatches={int((got != want).sum())} kernel {bms:.4f} ms, "
+            f"plain {pms:.4f} ms ({card})")
+        # the plane in and out (int32), 6 bytes of SAO map per CTB, the
+        # slice/loop-filter maps (3 bytes per 4x4) and the tile map; ~30
+        # operations per sample (the pairwise rules on top of K4's 20)
+        r.add(e, bms, pms, plane.numel() * 8 + hc * wc * 8 +
+              s4.numel() * 3, plane.numel() * 30)
+    return r
+
+
+def check_k8(card, rng, B=3):
+    """K8 on a level of three 1920x1088 luma and 960x544 chroma planes with
+    a seeded restore mask (one 4x4 in ten), against its plain version and
+    torch.where (the mask expanded to samples beforehand, not timed)."""
+    import numpy as np
+    import torch
+    from libhm_tpu_torch.ops import pcm as PK
+    h4, w4 = 1088 // 4, 1920 // 4
+    rmask_np = (rng.random((B, h4, w4)) < 0.1).astype(np.uint8)
+    rmask = torch.from_numpy(rmask_np).to(DEV)
+    r = Result()
+    lib = 0.0
+    for Hp, Wp, sh in ((1088, 1920, 0), (544, 960, 1)):
+        planes = torch.from_numpy(rng.integers(0, 1024, (B, Hp, Wp))
+                                  .astype(np.int32)).to(DEV)
+        pre = torch.from_numpy(rng.integers(0, 1024, (B, Hp, Wp))
+                               .astype(np.int32)).to(DEV)
+        got, want = planes.clone(), planes.clone()
+        PK.restore_unfiltered(got, pre, rmask, sx=sh, sy=sh)
+        PK.restore_unfiltered_plain(want, pre, rmask, sx=sh, sy=sh)
+        ys = torch.clamp((torch.arange(Hp, device=DEV) << sh) >> 2, max=h4 - 1)
+        xs = torch.clamp((torch.arange(Wp, device=DEV) << sh) >> 2, max=w4 - 1)
+        mask = rmask[:, ys[:, None], xs[None, :]] != 0
+        lib_out = torch.where(mask, pre, planes)
+        torch.cuda.synchronize()
+        e = max(max_abs_err(got, want), max_abs_err(got, lib_out))
+        scratch = planes.clone()
+        bms = cuda_ms(lambda: PK.restore_unfiltered(scratch, pre, rmask,
+                                                    sx=sh, sy=sh), 20)
+        pms = cuda_ms(lambda: PK.restore_unfiltered_plain(
+            scratch, pre, rmask, sx=sh, sy=sh), 5)
+        lms = cuda_ms(lambda: torch.where(mask, pre, planes), 20)
+        lib += lms
+        masked = int(mask.sum())
+        log(f"K8 restore_unfiltered {(Hp, Wp)} B={B} masked samples "
+            f"{masked}: mismatches={int((got != want).sum())} kernel "
+            f"{bms:.4f} ms, plain {pms:.4f} ms, torch.where on the expanded "
+            f"mask (expansion not timed) {lms:.4f} ms ({card})")
+        # the mask (one byte per 4x4), and at masked samples one int32 read
+        # and one written; ~8 operations per sample for the index and test
+        r.add(e, bms, pms, rmask.numel() + masked * 8, planes.numel() * 8)
+    r.library_ms = lib
+    return r
+
+
+def check_k9(card, rng, bd=10, bits=8):
+    """K9 on one 1920x1088 luma and 960x544 chroma plane: a seeded table
+    of non-overlapping PCM blocks (8, 16 and 32 luma) covering about a
+    third of the picture, at a PCM bit depth below the bit depth."""
+    import numpy as np
+    import torch
+    from libhm_tpu_torch.ops import pcm as PK
+    cells = [(y, x) for y in range(0, 1088, 32) for x in range(0, 1920, 32)]
+    pick = rng.choice(len(cells), len(cells) // 3, replace=False)
+    r = Result()
+    for Hp, Wp, sh in ((1088, 1920, 0), (544, 960, 1)):
+        rows, samples, offsets, o = [], [], [], 0
+        for k in pick:
+            y, x = cells[k]
+            n = (8, 16, 32)[k % 3] >> sh
+            rows.append((0, x >> sh, y >> sh, n, n, bd - bits))
+            samples.append(rng.integers(0, 1 << bits, n * n))
+            offsets.append(o)
+            o += n * n
+        blocks = torch.tensor(rows, dtype=torch.int32, device=DEV)
+        samp = torch.from_numpy(np.concatenate(samples).astype(np.int16)) \
+            .to(DEV)
+        offs = torch.tensor(offsets, dtype=torch.int32, device=DEV)
+        got = torch.zeros((1, Hp, Wp), dtype=torch.int32, device=DEV)
+        want = got.clone()
+        PK.pcm_scatter(got, blocks, samp, offs)
+        PK.pcm_scatter_plain(want, blocks, samp, offs)
+        torch.cuda.synchronize()
+        e = max_abs_err(got, want)
+        bms = cuda_ms(lambda: PK.pcm_scatter(got, blocks, samp, offs), 20)
+        pms = cuda_ms(lambda: PK.pcm_scatter_plain(want, blocks, samp, offs),
+                      2)
+        log(f"K9 pcm_scatter {(Hp, Wp)} blocks={len(rows)} samples={o} "
+            f"shift={bd - bits}: mismatches={int((got != want).sum())} "
+            f"kernel {bms:.4f} ms, plain {pms:.4f} ms ({card})")
+        # int16 samples in, int32 samples out, the table and offsets; a
+        # shift and the address arithmetic, ~6 operations per sample
+        r.add(e, bms, pms, o * 6 + len(rows) * 28, o * 6)
     return r
 
 
@@ -516,12 +753,13 @@ def breakdown(data, card):
         log(f"  {key[:60]:60s} {us / 1e3:9.3f} ms  ({cnt})")
 
 
-def decode_md5(name, gold):
+def decode_md5(name, gold, check_sei_hash=False):
     import torch
     from libhm_tpu_torch.parallel.dag_decode import decode_batch
     data = open(os.path.join(ROOT, "testdata", gold[name]["bitstream"]),
                 "rb").read()
-    outs = decode_batch(data, device=torch.device("cuda"))
+    outs = decode_batch(data, device=torch.device("cuda"),
+                        check_sei_hash=check_sei_hash)
     torch.cuda.synchronize()
     for pic in outs:
         for p in pic:
@@ -536,6 +774,39 @@ def decode_md5(name, gold):
     if got != want:
         raise AssertionError(f"{name}: MD5 {got} != golden {want}")
     return len(outs), outs
+
+
+def timed_run(name, data, md5, card, check_sei_hash=False):
+    """Parse, device recon and download of one stream, timed apart, with
+    H2D/D2H bytes; returns the pictures' hash SEI statuses when checked."""
+    import torch
+    from libhm_tpu_torch.hostdec.decoder import Decoder
+    from libhm_tpu_torch.parallel import dag_decode as DD
+    from libhm_tpu_torch.utils import xfer
+    xfer.reset()
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    dec = Decoder(parse="native", recon="collect",
+                  check_sei_hash=check_sei_hash)
+    dec.decode_annexb(data)
+    t1 = time.monotonic()
+    pending = DD._recon_levels(dec.collected, torch.device("cuda"))
+    torch.cuda.synchronize()
+    t2 = time.monotonic()
+    outs = DD._materialize(dec, pending, check_sei_hash)
+    t3 = time.monotonic()
+    buf = b"".join(p.tobytes() for pic in outs for p in pic)
+    if hashlib.md5(buf).hexdigest() != md5:
+        raise AssertionError(f"timed run of {name}: MD5 mismatch")
+    log(f"{name}: intra blocks per picture (decode order) "
+        f"{[len(it['pic'].intra_list) for it in dec.collected]}")
+    log(f"timed {name} ({card}): parse {t1 - t0:.3f} s, device recon "
+        f"{t2 - t1:.3f} s (host prep + launches), download {t3 - t2:.3f} s, "
+        f"{len(outs) / (t3 - t0):.2f} fps end to end; H2D "
+        f"{xfer.H2D / len(outs) / 1e6:.3f} MB/picture, D2H "
+        f"{xfer.D2H / len(outs) / 1e6:.3f} MB/picture; H2D by tag (MB) "
+        f"{ {k: round(v / 1e6, 3) for k, v in sorted(xfer.BY_TAG.items())} }")
+    return [dp.hash_status for dp, _, _ in pending]
 
 
 def main():
@@ -586,15 +857,27 @@ def main():
     items = dec.collected
     log(f"{INTRA}: intra blocks per picture "
         f"{[len(it['pic'].intra_list) for it in items]}")
+    ports = json.load(open(os.path.join(ROOT, "testdata",
+                                        "port_streams.json")))
+    tools_data = open(os.path.join(ROOT, "testdata",
+                                   ports[TOOLS]["bitstream"]), "rb").read()
+    dec = Decoder(parse="native", recon="collect")
+    dec.decode_annexb(tools_data)
+    tool_items = dec.collected
     rng = np.random.default_rng(2024)
     results = {}
     results["residual_scatter"] = check_k1(items, card, rng)
+    results.update(check_k1_modes(tool_items, card, rng))
     results["intra_level"] = check_k2(items, card, rng)
     results.update(check_k3(card, rng))
     results["sao_apply"] = check_k4(card, rng)
+    results["sao_apply_multi"] = check_k4_multi(tool_items, card, rng)
     results["mc_grid"] = check_k5(card, rng)
     results["mc_weighted"] = check_k6(card, rng)
     results["plane_checksum"] = check_k7(card, rng)
+    results["restore_unfiltered"] = check_k8(card, rng)
+    results["pcm_scatter"] = check_k9(card, rng)
+    del tool_items
     bad = {k: v.err for k, v in results.items() if v.err != 0}
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
@@ -604,14 +887,19 @@ def main():
     from libhm_tpu_torch.ops import deblock as DK
     from libhm_tpu_torch.ops import interp as MK
     from libhm_tpu_torch.ops import intra as IK
+    from libhm_tpu_torch.ops import pcm as PK
     from libhm_tpu_torch.ops import sao as SK
     from libhm_tpu_torch.ops import transform as TK
     from libhm_tpu_torch.parallel import dag_decode as DD
     from libhm_tpu_torch.utils import xfer
-    kernels = {"residual_scatter": TK._K1, "intra_level": IK._K2,
+    kernels = {"residual_scatter": TK._K1,
+               "residual_scatter_scaled": TK._K1_SCAL,
+               "residual_bypass": TK._K1_BYPASS, "intra_level": IK._K2,
                "deblock_luma": DK._K3_LUMA, "deblock_chroma": DK._K3_CHROMA,
-               "sao_apply": SK._K4, "mc_grid": MK._K5,
-               "mc_weighted": MK._K6, "plane_checksum": CK._K7}
+               "sao_apply": SK._K4, "sao_apply_multi": SK._K4_MULTI,
+               "mc_grid": MK._K5, "mc_weighted": MK._K6,
+               "plane_checksum": CK._K7, "restore_unfiltered": PK._K8,
+               "pcm_scatter": PK._K9}
     k1_k4 = ["residual_scatter", "intra_level", "deblock_luma",
              "deblock_chroma", "sao_apply"]
 
@@ -661,30 +949,47 @@ def main():
                              lambda: decode_md5(name, gold), k1_k4)
         log(f"{name}: {n} pictures, MD5 matches golden")
 
-    # ---- timed run of the RA stream: parse and device phases ----
+    # the tools path: several slices and tiles, scaling lists (1080p), then
+    # the small slice/tile/PCM/lossless/scaling streams
+    (n, tool_outs), counts = run_path(
+        f"{TOOLS} decode_batch",
+        lambda: decode_md5(TOOLS, ports, check_sei_hash=True),
+        ["residual_scatter_scaled", "intra_level", "deblock_luma",
+         "deblock_chroma", "sao_apply_multi", "mc_grid"])
+    log(f"{TOOLS}: {n} pictures, MD5 matches port_streams.json")
+    for k in ("residual_scatter_scaled", "sao_apply_multi"):
+        launches[k] = counts[k]
     xfer.reset()
-    torch.cuda.synchronize()
-    t0 = time.monotonic()
-    dec = Decoder(parse="native", recon="collect")
-    dec.decode_annexb(data)
-    t1 = time.monotonic()
-    pending = DD._recon_levels(dec.collected, torch.device("cuda"))
-    torch.cuda.synchronize()
-    t2 = time.monotonic()
-    outs = DD._materialize(dec, pending, False)
-    t3 = time.monotonic()
-    buf = b"".join(p.tobytes() for pic in outs for p in pic)
-    if hashlib.md5(buf).hexdigest() != gold[STREAM]["decoded_yuv_md5"]:
-        raise AssertionError("timed run: MD5 mismatch")
-    log(f"{STREAM}: intra blocks per picture (decode order) "
-        f"{[len(it['pic'].intra_list) for it in dec.collected]}")
-    log(f"timed {STREAM} ({card}): parse {t1 - t0:.3f} s, device recon "
-        f"{t2 - t1:.3f} s (host prep + launches), download {t3 - t2:.3f} s, "
-        f"{len(outs) / (t3 - t0):.2f} fps end to end; H2D "
-        f"{xfer.H2D / len(outs) / 1e6:.3f} MB/picture, D2H "
-        f"{xfer.D2H / len(outs) / 1e6:.3f} MB/picture; H2D by tag (MB) "
-        f"{ {k: round(v / 1e6, 3) for k, v in sorted(xfer.BY_TAG.items())} }")
-    del outs, pending, dec
+    (parse_s, comp_s, csum, n), _ = run_path(
+        f"{TOOLS} decode_batch_device",
+        lambda: DD.decode_batch_device(tools_data, device="cuda"),
+        ["residual_scatter_scaled", "sao_apply_multi", "plane_checksum"])
+    want = DD.cropped_checksum(tool_outs)
+    if csum != want or n != len(tool_outs) or xfer.D2H != 4:
+        raise AssertionError(f"{TOOLS} decode_batch_device: checksum {csum} "
+                             f"vs {want}, {n} pictures, {xfer.D2H} bytes")
+    log(f"decode_batch_device {TOOLS} ({card}): checksum {csum} equals "
+        f"cropped_checksum; parse {parse_s:.3f} s, device recon + checksum "
+        f"{comp_s:.3f} s")
+    del tool_outs
+    for name, modes in TOOL_SMALL.items():
+        table = ports if name in ports else gold
+        (n, _), counts = run_path(
+            f"{name} decode_batch", lambda: decode_md5(name, table),
+            ["intra_level", "deblock_luma", "deblock_chroma"] + modes)
+        for k, src in LAUNCHES_FROM.items():
+            if src == name:
+                launches[k] = counts[k]
+        log(f"{name}: {n} pictures, MD5 matches "
+            f"{'port_streams.json' if table is ports else 'golden'}")
+
+    # ---- timed runs: parse and device phases ----
+    timed_run(STREAM, data, gold[STREAM]["decoded_yuv_md5"], card)
+    statuses = timed_run(TOOLS, tools_data, ports[TOOLS]["decoded_yuv_md5"],
+                         card, check_sei_hash=True)
+    if statuses != ["OK"] * ports[TOOLS]["frames"]:
+        raise AssertionError(f"{TOOLS}: hash SEI statuses {statuses}")
+    log(f"{TOOLS}: every picture's hash SEI checks OK")
 
     breakdown(data, card)
 
@@ -703,7 +1008,17 @@ def main():
            "mc_weighted": ("libhm_tpu_torch/csrc/mc.cu",
                            "libhm_tpu/parallel/dag_decode.py:73"),
            "plane_checksum": ("libhm_tpu_torch/csrc/checksum.cu",
-                              "libhm_tpu/parallel/dag_decode.py:620")}
+                              "libhm_tpu/parallel/dag_decode.py:620"),
+           "residual_scatter_scaled": ("libhm_tpu_torch/csrc/residual.cu",
+                                       "libhm_tpu/ops/transform.py:81"),
+           "residual_bypass": ("libhm_tpu_torch/csrc/residual.cu",
+                               "libhm_tpu/recon_tpu.py:63"),
+           "sao_apply_multi": ("libhm_tpu_torch/csrc/sao.cu",
+                               "libhm_tpu/parallel/device_filters.py:169"),
+           "restore_unfiltered": ("libhm_tpu_torch/csrc/pcm.cu",
+                                  "libhm_tpu/parallel/device_filters.py:191"),
+           "pcm_scatter": ("libhm_tpu_torch/csrc/pcm.cu",
+                           "libhm_tpu/parallel/dag_decode.py:483")}
     rows = []
     for name in kernels:
         r = results[name]

@@ -1,8 +1,9 @@
 // K1: fused dequant + inverse transform + residual-plane scatter.
 //
 // Replaces: libhm_tpu/recon_tpu.py _residual_fn (ops/transform.py
-//   dequant_batch, inverse_transform_batch, inverse_transform_skip_batch)
-//   followed by libhm_tpu/parallel/batch_decode.py _scatter_tu_fn.
+//   dequant_batch, dequant_batch_scaling, inverse_transform_batch,
+//   inverse_transform_skip_batch, inverse_rdpcm_batch, and the bypass
+//   branch) followed by libhm_tpu/parallel/batch_decode.py _scatter_tu_fn.
 // What bounds it on the card: bytes.  Each TU reads n*n int16 coefficients
 //   and writes n*n int32 residual samples; the arithmetic is at most 2*n
 //   integer MACs per sample (two 1-D passes), far below the int32 ALU rate,
@@ -14,6 +15,15 @@
 //   sample is read once and written once straight into the stacked
 //   [Bp, Hc, Wc] plane.  The TPU's int8-limb matmul split and the
 //   pad-and-drop scatter are gone: entries with bsel >= Bp are skipped.
+// Three entry points, one kernel template:
+//   residual_scatter         flat dequant (Rec. 8.6.3, m = 16);
+//   residual_scatter_scaled  scaling lists: the level's distinct matrices
+//     are one small uint8 table [M, n, n] and each TU carries a one-byte
+//     row index, instead of the JAX path's [P, n, n] int32 matrix per TU;
+//   residual_bypass          transquant bypass: the coefficients are the
+//     residual (no dequant, no transform).
+// Each takes the per-TU RDPCM direction (NULL: none) and the bucket's
+// transform-skip rotation flag (4x4 tskip/bypass TUs of intra CUs).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -68,11 +78,16 @@ __device__ __forceinline__ int tmat(int use_dst, int n, int k, int c) {
   return use_dst ? kDst4[k][c] : kDct32[k * (32 / n)][c];
 }
 
-__global__ void residual_scatter_kernel(
+enum Mode { kFlat = 0, kScaled = 1, kBypass = 2 };
+
+template <int MODE>
+__global__ void residual_kernel(
     const int16_t* __restrict__ coeffs, const int8_t* __restrict__ qp,
-    const int32_t* __restrict__ bsel, const int32_t* __restrict__ ysel,
-    const int32_t* __restrict__ xsel, int n, int log2n, int use_dst,
-    int tskip, int bd, int32_t* __restrict__ planes, int Bp, int H, int W) {
+    const uint8_t* __restrict__ mats, const uint8_t* __restrict__ midx,
+    const int8_t* __restrict__ rdpcm, const int32_t* __restrict__ bsel,
+    const int32_t* __restrict__ ysel, const int32_t* __restrict__ xsel,
+    int n, int log2n, int use_dst, int tskip, int rotate, int bd,
+    int32_t* __restrict__ planes, int Bp, int H, int W) {
   const int k = blockIdx.x;
   const int b = bsel[k];
   if (b < 0 || b >= Bp) return;               // padding entry
@@ -80,64 +95,130 @@ __global__ void residual_scatter_kernel(
   __shared__ int s_st1[32 * 32];
   const int nn = n * n;
   const int t = threadIdx.x;                  // blockDim.x == n * n
-
-  // dequant (Rec. 8.6.3, non-extended precision: max_dyn_range 15)
-  const int q = qp[k];
-  const int per = q / 6, rem = q % 6;
-  const int tshift = 15 - bd - log2n;
-  const int right = 6 - (tshift + per);
-  const int tbits = min(16, 32 + right - 7);
-  const int hi = (1 << (tbits - 1)) - 1, lo = -hi - 1;
-  {
-    const int c = clip3(lo, hi, (int)coeffs[(long long)k * nn + t]);
-    const int prod = c * kInvQuantScales[rem];
-    // a negative int must not be shifted left: multiply by 1 << -right
-    const int v = right > 0 ? (prod + (1 << (right - 1))) >> right
-                            : prod * (1 << -right);
-    s_deq[t] = clip3(-32768, 32767, v);
-  }
-  __syncthreads();
-
   const int r = t / n, c = t % n;
+  // rotation (Rec. 8.6.2): the block is read back to front
+  const int src = rotate ? nn - 1 - t : t;
   int res;
-  if (tskip) {
-    const int v = s_deq[t];
-    int o;
-    if (tshift >= 0) {
-      const int off = tshift == 0 ? 0 : (1 << (tshift - 1));
-      o = (v + off) >> tshift;
-    } else {
-      o = v * (1 << -tshift);
-    }
-    res = clip3(-32768, 32767, o);
+  if (MODE == kBypass) {
+    res = coeffs[(long long)k * nn + src];    // int16: already clipped
   } else {
-    // stage 1: S1 = T^T @ C, shift 7, clip to int16
-    int s = 0;
-    for (int i = 0; i < n; ++i) s += tmat(use_dst, n, i, r) * s_deq[i * n + c];
-    s_st1[t] = clip3(-32768, 32767, (s + 64) >> 7);
+    // dequant (Rec. 8.6.3, non-extended precision: max_dyn_range 15)
+    const int q = qp[k];
+    const int per = q / 6, rem = q % 6;
+    const int tshift = 15 - bd - log2n;
+    int right, tbits, scale;
+    if (MODE == kScaled) {
+      // m[x][y] from the table; + 4 = log2 of the neutral factor 16
+      right = 6 - (tshift + per) + 4;
+      tbits = min(16, 32 + right - 15);
+      scale = (int)mats[(long long)midx[k] * nn + t] * kInvQuantScales[rem];
+    } else {
+      right = 6 - (tshift + per);
+      tbits = min(16, 32 + right - 7);
+      scale = kInvQuantScales[rem];
+    }
+    const int hi = (1 << (tbits - 1)) - 1, lo = -hi - 1;
+    {
+      const int cf = clip3(lo, hi, (int)coeffs[(long long)k * nn + t]);
+      const int prod = cf * scale;
+      // a negative int must not be shifted left: multiply by 1 << -right
+      const int v = right > 0 ? (prod + (1 << (right - 1))) >> right
+                              : prod * (1 << -right);
+      s_deq[t] = clip3(-32768, 32767, v);
+    }
     __syncthreads();
-    // stage 2: S1 @ T, shift 20 - bd, clip to int16
-    const int shift2 = 20 - bd;
-    s = 0;
-    for (int i = 0; i < n; ++i) s += s_st1[r * n + i] * tmat(use_dst, n, i, c);
-    res = clip3(-32768, 32767, (s + (1 << (shift2 - 1))) >> shift2);
+
+    if (tskip) {
+      const int v = s_deq[src];
+      int o;
+      if (tshift >= 0) {
+        const int off = tshift == 0 ? 0 : (1 << (tshift - 1));
+        o = (v + off) >> tshift;
+      } else {
+        o = v * (1 << -tshift);
+      }
+      res = clip3(-32768, 32767, o);
+    } else {
+      // stage 1: S1 = T^T @ C, shift 7, clip to int16
+      int s = 0;
+      for (int i = 0; i < n; ++i) s += tmat(use_dst, n, i, r) * s_deq[i * n + c];
+      s_st1[t] = clip3(-32768, 32767, (s + 64) >> 7);
+      __syncthreads();
+      // stage 2: S1 @ T, shift 20 - bd, clip to int16
+      const int shift2 = 20 - bd;
+      s = 0;
+      for (int i = 0; i < n; ++i) s += s_st1[r * n + i] * tmat(use_dst, n, i, c);
+      res = clip3(-32768, 32767, (s + (1 << (shift2 - 1))) >> shift2);
+    }
+  }
+  // RDPCM (Rec. 8.6.8): a running sum along rows (1) or columns (2), the
+  // direction uniform over the block, clipped to int16 at the end
+  const int dir = rdpcm ? rdpcm[k] : 0;
+  if (dir) {
+    __syncthreads();                          // s_deq reads are done
+    s_deq[t] = res;
+    __syncthreads();
+    int s = 0;
+    if (dir == 1) {
+      for (int i = 0; i <= c; ++i) s += s_deq[r * n + i];
+    } else {
+      for (int i = 0; i <= r; ++i) s += s_deq[i * n + c];
+    }
+    res = clip3(-32768, 32767, s);
   }
   const int y = ysel[k] + r, x = xsel[k] + c;
   if (y < H && x < W) planes[((long long)b * H + y) * W + x] = res;
 }
 
+int log2_of(int n) {
+  int l = 0;
+  while ((1 << l) < n) ++l;
+  return l;
+}
+
+template <int MODE>
+int launch(const void* coeffs, const void* qp, const void* mats,
+           const void* midx, const void* rdpcm, const void* bsel,
+           const void* ysel, const void* xsel, int P, int n, int use_dst,
+           int tskip, int rotate, int bd, void* planes, int Bp, int H, int W,
+           void* stream) {
+  residual_kernel<MODE><<<P, n * n, 0, (cudaStream_t)stream>>>(
+      (const int16_t*)coeffs, (const int8_t*)qp, (const uint8_t*)mats,
+      (const uint8_t*)midx, (const int8_t*)rdpcm, (const int32_t*)bsel,
+      (const int32_t*)ysel, (const int32_t*)xsel, n, log2_of(n), use_dst,
+      tskip, rotate, bd, (int32_t*)planes, Bp, H, W);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int residual_scatter(const void* coeffs, const void* qp,
-                                const void* bsel, const void* ysel,
-                                const void* xsel, int P, int n, int use_dst,
-                                int tskip, int bd, void* planes, int Bp, int H,
-                                int W, void* stream) {
-  int log2n = 0;
-  while ((1 << log2n) < n) ++log2n;
-  residual_scatter_kernel<<<P, n * n, 0, (cudaStream_t)stream>>>(
-      (const int16_t*)coeffs, (const int8_t*)qp, (const int32_t*)bsel,
-      (const int32_t*)ysel, (const int32_t*)xsel, n, log2n, use_dst, tskip, bd,
-      (int32_t*)planes, Bp, H, W);
-  return (int)cudaGetLastError();
+                                const void* rdpcm, const void* bsel,
+                                const void* ysel, const void* xsel, int P,
+                                int n, int use_dst, int tskip, int rotate,
+                                int bd, void* planes, int Bp, int H, int W,
+                                void* stream) {
+  return launch<kFlat>(coeffs, qp, nullptr, nullptr, rdpcm, bsel, ysel, xsel,
+                       P, n, use_dst, tskip, rotate, bd, planes, Bp, H, W,
+                       stream);
+}
+
+extern "C" int residual_scatter_scaled(
+    const void* coeffs, const void* qp, const void* mats, const void* midx,
+    const void* rdpcm, const void* bsel, const void* ysel, const void* xsel,
+    int P, int n, int use_dst, int tskip, int rotate, int bd, void* planes,
+    int Bp, int H, int W, void* stream) {
+  return launch<kScaled>(coeffs, qp, mats, midx, rdpcm, bsel, ysel, xsel, P,
+                         n, use_dst, tskip, rotate, bd, planes, Bp, H, W,
+                         stream);
+}
+
+extern "C" int residual_bypass(const void* coeffs, const void* rdpcm,
+                               const void* bsel, const void* ysel,
+                               const void* xsel, int P, int n, int rotate,
+                               void* planes, int Bp, int H, int W,
+                               void* stream) {
+  return launch<kBypass>(coeffs, nullptr, nullptr, nullptr, rdpcm, bsel, ysel,
+                         xsel, P, n, 0, 0, rotate, 8, planes, Bp, H, W,
+                         stream);
 }

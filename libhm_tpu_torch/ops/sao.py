@@ -1,10 +1,11 @@
 """Whole-picture SAO, and the SAO kernel (K4).
 
-Port of libhm_tpu/ops/sao.py in its single-slice form: edge-offset
-neighbours are limited by the picture bounds and `valid_mask` only (the
-pairwise slice/tile rules of the multi-slice form are not ported yet).
-`sao` is the kernel wrapper over stacked [B, Hp, Wp] planes: csrc/sao.cu
-for CUDA planes, `sao_component` per picture for CPU planes.
+Port of libhm_tpu/ops/sao.py: edge-offset neighbours are limited by the
+picture bounds and either `valid_mask` (the single-slice form) or the
+pairwise slice/tile rules of the multi-slice form (`slice_map`, `lf_map`,
+`tile_map`, `lf_across_tiles`).  `sao` and `sao_multi` are the kernel
+wrappers over stacked [B, Hp, Wp] planes: csrc/sao.cu (one kernel, two
+entry points) for CUDA planes, `sao_component` per picture for CPU planes.
 """
 import torch
 
@@ -19,22 +20,30 @@ EO_NB = [[0, -1, 0, 1],
 
 def sao_component(plane, valid_mask, ctu_type, ctu_band, ctu_offsets,
                   log2_ctb_c, bit_depth, offset_scale, W, H,
-                  log2_ctb_cy=None, slice_map=None):
+                  log2_ctb_cy=None, slice_map=None, lf_map=None,
+                  tile_map=None, lf_across_tiles=True):
     """Apply SAO to one component plane.
 
     plane: [Hp, Wp] int32 (deblocked)
     valid_mask: [Hp, Wp] bool or None (all true) — neighbour validity for EO
+      (ignored when slice_map is given)
     ctu_type: [hc, wc] int32 (-1 off, 0 BO, 1..4 EO)
     ctu_band: [hc, wc] int32
     ctu_offsets: [hc, wc, 4] int32
     log2_ctb_c: CTB width log2 in this component's units; log2_ctb_cy the
       height log2 when different (4:2:2 chroma CTBs are 32x64)
+    slice_map / lf_map / tile_map: [Hp, Wp] slice index, loop filter
+      across slices (bool) and tile index per sample; a neighbour is usable
+      iff it is in the same slice or both samples filter across slices,
+      and in the same tile or lf_across_tiles is set
     Returns the new plane.
     """
-    if slice_map is not None:
-        raise NotImplementedError(
-            "sao_component: the multi-slice/tile form (slice_map) is not "
-            "ported")
+    if slice_map is not None and any(
+            m is None or tuple(m.shape) != tuple(plane.shape)
+            for m in (slice_map, lf_map) +
+            (() if tile_map is None else (tile_map,))):
+        raise ValueError("sao_component: the slice, loop-filter and tile "
+                         "maps must have the plane's shape")
     if log2_ctb_cy is None:
         log2_ctb_cy = log2_ctb_c
     dev = plane.device
@@ -64,7 +73,17 @@ def sao_component(plane, valid_mask, ctu_type, ctu_band, ctu_offsets,
     n1yc, n1xc = torch.clamp(n1y, 0, Hp - 1), torch.clamp(n1x, 0, Wp - 1)
     n2yc, n2xc = torch.clamp(n2y, 0, Hp - 1), torch.clamp(n2x, 0, Wp - 1)
     ok = inb
-    if valid_mask is not None:
+    if slice_map is not None:
+        # pairwise slice/tile crossing rules (Rec. 8.7.3)
+        def pair_ok(nyc, nxc):
+            r = (slice_map == slice_map[nyc, nxc]) | \
+                (lf_map & lf_map[nyc, nxc])
+            if tile_map is not None:
+                r = r & ((tile_map == tile_map[nyc, nxc]) |
+                         bool(lf_across_tiles))
+            return r
+        ok = ok & pair_ok(n1yc, n1xc) & pair_ok(n2yc, n2xc)
+    elif valid_mask is not None:
         ok = ok & valid_mask[n1yc, n1xc] & valid_mask[n2yc, n2xc]
     cat = torch.sign(src - src[n1yc, n1xc]) + torch.sign(src - src[n2yc, n2xc]) + 2
     # category 0, 1, (2: none), 3, 4 -> offsets 0, 1, 2, 3
@@ -80,8 +99,11 @@ def sao_component(plane, valid_mask, ctu_type, ctu_band, ctu_offsets,
 
 
 # ---------------------------------------------------------------------------
-# K4: SAO kernel (reads the deblocked planes, writes new ones)
+# K4: SAO kernel (reads the deblocked planes, writes new ones); the
+# multi-slice/tile form is its own entry point with its own launch count
 _K4 = Kernel("sao_apply", [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I])
+_K4_MULTI = Kernel("sao_apply_multi",
+                   [P] * 10 + [I] * 15)
 
 
 def sao_plain(planes, sao_t, sao_b, sao_o, scale, *, log2cx, log2cy, bd, W,
@@ -123,4 +145,84 @@ def sao(planes, sao_t, sao_b, sao_o, scale, *, log2cx, log2cy, bd, W, H):
     out = torch.empty_like(planes)
     _K4(ptr(planes), ptr(out), ptr(sao_t), ptr(sao_b), ptr(sao_o), ptr(scale),
         B, Hp, Wp, hc, wc, log2cx, log2cy, bd, W, H)
+    return out
+
+
+def sample_maps(s4, lf4, tm, Hp, Wp, sx, sy, log2_ctb):
+    """Per-sample slice, loop-filter-across and tile maps of one picture's
+    component plane from its luma-grid maps, as the JAX _filter_fn builds
+    them (libhm_tpu/parallel/device_filters.py:169-179): the 4x4 row is
+    (y << sy) >> 2 clamped to h4 - 1, the CTB row (y << sy) >> log2_ctb
+    clamped to hc - 1, the same for columns.
+
+    s4: [h4, w4] int16; lf4: [h4, w4] uint8/bool; tm: [hc, wc] int16.
+    """
+    dev = s4.device
+    h4, w4 = s4.shape
+    hc, wc = tm.shape
+    ys = torch.arange(Hp, device=dev) << sy
+    xs = torch.arange(Wp, device=dev) << sx
+    y4 = torch.clamp(ys >> 2, max=h4 - 1)[:, None]
+    x4 = torch.clamp(xs >> 2, max=w4 - 1)[None, :]
+    yc = torch.clamp(ys >> log2_ctb, max=hc - 1)[:, None]
+    xc = torch.clamp(xs >> log2_ctb, max=wc - 1)[None, :]
+    return (s4[y4, x4].to(torch.int32), lf4[y4, x4] != 0,
+            tm[yc, xc].to(torch.int32))
+
+
+def sao_multi_plain(planes, sao_t, sao_b, sao_o, scale, s4, lf4, tm, lft, *,
+                    log2cx, log2cy, bd, W, H, sx, sy, log2_ctb):
+    """Plain torch version of sao_multi (any device)."""
+    out = torch.empty_like(planes)
+    Hp, Wp = planes.shape[1:]
+    for b in range(planes.shape[0]):
+        sm, lf, tmm = sample_maps(s4[b], lf4[b], tm[b], Hp, Wp, sx, sy,
+                                  log2_ctb)
+        out[b] = sao_component(
+            planes[b], None, sao_t[b].to(torch.int32),
+            sao_b[b].to(torch.int32), sao_o[b].to(torch.int32), log2cx, bd,
+            int(scale[b]), W, H, log2_ctb_cy=log2cy, slice_map=sm,
+            lf_map=lf, tile_map=tmm, lf_across_tiles=bool(lft[b]))
+    return out
+
+
+def sao_multi(planes, sao_t, sao_b, sao_o, scale, s4, lf4, tm, lft, *,
+              log2cx, log2cy, bd, W, H, sx, sy, log2_ctb):
+    """SAO of one component of every picture under the multi-slice/tile
+    rules; returns new planes.
+
+    As `sao`, plus the luma-grid maps of prepare_filter_maps: s4 [B, h4,
+    w4] int16 slice index and lf4 [B, h4, w4] uint8 loop filter across
+    slices per 4x4; tm [B, hc, wc] int16 tile index per CTB; lft [B] uint8
+    loop_filter_across_tiles per picture.  sx, sy: this component's
+    subsampling shifts; log2_ctb: the luma CTB size log2.
+    """
+    if not planes.is_cuda:
+        return sao_multi_plain(planes, sao_t, sao_b, sao_o, scale, s4, lf4,
+                               tm, lft, log2cx=log2cx, log2cy=log2cy, bd=bd,
+                               W=W, H=H, sx=sx, sy=sy, log2_ctb=log2_ctb)
+    dev = planes.device
+    check(planes, "planes", torch.int32, 3)
+    check(sao_t, "sao_t", torch.int8, 3, dev)
+    check(sao_b, "sao_b", torch.int8, 3, dev)
+    check(sao_o, "sao_o", torch.int8, 4, dev)
+    check(scale, "scale", torch.int32, 1, dev)
+    check(s4, "s4", torch.int16, 3, dev)
+    check(lf4, "lf4", torch.uint8, 3, dev)
+    check(tm, "tm", torch.int16, 3, dev)
+    check(lft, "lft", torch.uint8, 1, dev)
+    B, Hp, Wp = planes.shape
+    _, hc, wc = sao_t.shape
+    _, h4, w4 = s4.shape
+    if sao_t.shape[0] != B or sao_b.shape != sao_t.shape or \
+            sao_o.shape != (B, hc, wc, 4) or scale.shape[0] != B or \
+            (hc << log2cy) < Hp or (wc << log2cx) < Wp or \
+            W > Wp or H > Hp or not 8 <= bd <= 12 or \
+            s4.shape[0] != B or lf4.shape != s4.shape or \
+            tm.shape != (B, hc, wc) or lft.shape[0] != B:
+        raise ValueError("sao_multi: inconsistent plane/map shapes")
+    out = torch.empty_like(planes)
+    _K4_MULTI(ptr(planes), ptr(out), ptr(sao_t), ptr(sao_b), ptr(sao_o),
+              ptr(scale), ptr(s4), ptr(lf4), ptr(tm), ptr(lft), B, Hp, Wp,
+              hc, wc, log2cx, log2cy, bd, W, H, h4, w4, sx, sy, log2_ctb)
     return out

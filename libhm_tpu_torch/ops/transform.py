@@ -3,9 +3,11 @@
 Port of libhm_tpu/ops/transform.py.  The plain functions keep the JAX
 semantics on [N, n, n] int32 tensors; the TPU's int8-limb matmul split is
 dropped (an int64 matmul is exact here).  `residual_scatter` is the
-kernel wrapper: dequant -> inverse DCT/DST or transform skip -> write into
-the stacked residual planes, as one CUDA kernel (csrc/residual.cu) for a
-CUDA tensor and as the plain functions for a CPU tensor.
+kernel wrapper: dequant (flat, or with scaling matrices) -> inverse
+DCT/DST or transform skip (or, for transquant-bypass TUs, the
+coefficients as they are) -> RDPCM -> write into the stacked residual
+planes; one CUDA kernel (csrc/residual.cu) for a CUDA tensor and the plain
+functions for a CPU tensor.
 """
 import torch
 
@@ -27,6 +29,31 @@ def dequant_batch(coeffs, qp, bit_depth, log2_size, max_dyn_range=15):
     hi = (1 << (target_bits - 1).long()) - 1
     c = torch.maximum(torch.minimum(coeffs.long(), hi), -hi - 1)
     prod = c * scale.long()[:, None, None]
+    rp = torch.clamp(right, min=0).long()
+    rn = torch.clamp(-right, min=0).long()
+    add = torch.where(right > 0, 1 << torch.clamp(rp - 1, min=0), 0)
+    q = torch.where(right > 0, (prod + add) >> rp, prod << rn)
+    tmin, tmax = -(1 << max_dyn_range), (1 << max_dyn_range) - 1
+    return torch.clamp(q, tmin, tmax).to(torch.int32)
+
+
+def dequant_batch_scaling(coeffs, qp, mat, bit_depth, log2_size,
+                          max_dyn_range=15):
+    """Dequant with per-TU scaling matrices (Rec. 8.6.3 with m[x][y]).
+
+    coeffs: [N, n, n] int32; qp: [N]; mat: [N, n, n] scaling factors.
+    Exact (int64) for any max_dyn_range; the JAX version is int32-exact
+    only at 15, the one value the batched path takes.
+    """
+    per = torch.div(qp, 6, rounding_mode="floor")
+    rem = qp % 6
+    scale = torch.as_tensor(INV_QUANT_SCALES, device=qp.device)[rem.long()]
+    tshift = max_dyn_range - bit_depth - log2_size
+    right = (6 - (tshift + per) + 4)[:, None, None]  # + log2(16), the neutral
+    target_bits = torch.clamp(32 + right - 15, max=max_dyn_range + 1)
+    hi = (1 << (target_bits - 1).long()) - 1
+    c = torch.maximum(torch.minimum(coeffs.long(), hi), -hi - 1)
+    prod = c * (mat.long() * scale.long()[:, None, None])
     rp = torch.clamp(right, min=0).long()
     rn = torch.clamp(-right, min=0).long()
     add = torch.where(right > 0, 1 << torch.clamp(rp - 1, min=0), 0)
@@ -80,12 +107,26 @@ def inverse_rdpcm_batch(res, mode):
     return torch.clamp(out, I16MIN, I16MAX).to(torch.int32)
 
 
+def bypass_blocks(coeffs, rotate=False):
+    """Transquant-bypass residual: the coefficients, clipped to int16."""
+    res = coeffs.to(torch.int32)
+    if rotate:
+        res = torch.flip(res, (1, 2))
+    return torch.clamp(res, I16MIN, I16MAX)
+
+
 def residual_blocks(coeffs, qp, n, use_dst, tskip, bd, max_dyn_range=15,
-                    rotate=False):
-    """Plain dequant + (transform skip | inverse DCT/DST) of one bucket."""
+                    rotate=False, mat=None):
+    """Plain dequant (with scaling matrices `mat` [N, n, n] when given) +
+    (transform skip | inverse DCT/DST) of one bucket."""
     log2n = n.bit_length() - 1
-    deq = dequant_batch(coeffs.to(torch.int32), qp.to(torch.int32), bd, log2n,
-                        max_dyn_range)
+    if mat is None:
+        deq = dequant_batch(coeffs.to(torch.int32), qp.to(torch.int32), bd,
+                            log2n, max_dyn_range)
+    else:
+        deq = dequant_batch_scaling(coeffs.to(torch.int32),
+                                    qp.to(torch.int32), mat, bd, log2n,
+                                    max_dyn_range)
     if tskip:
         return inverse_transform_skip_batch(deq, bd, log2n, max_dyn_range,
                                             rotate)
@@ -93,9 +134,17 @@ def residual_blocks(coeffs, qp, n, use_dst, tskip, bd, max_dyn_range=15,
 
 
 def residual_scatter_plain(planes, coeffs, qp, bsel, ysel, xsel, *, n,
-                           use_dst, tskip, bd):
+                           use_dst, tskip, bd, bypass=False, mats=None,
+                           midx=None, rotate=False, rdpcm=None):
     """Plain torch version of residual_scatter (any device)."""
-    res = residual_blocks(coeffs, qp, n, use_dst, tskip, bd)
+    if bypass:
+        res = bypass_blocks(coeffs, rotate)
+    else:
+        mat = None if mats is None else mats[midx.long()]
+        res = residual_blocks(coeffs, qp, n, use_dst, tskip, bd,
+                              rotate=rotate, mat=mat)
+    if rdpcm is not None:
+        res = inverse_rdpcm_batch(res, rdpcm.to(torch.int32))
     keep = bsel < planes.shape[0]
     res, b, y, x = res[keep], bsel[keep].long(), ysel[keep].long(), \
         xsel[keep].long()
@@ -107,42 +156,77 @@ def residual_scatter_plain(planes, coeffs, qp, bsel, ysel, xsel, *, n,
 
 
 # ---------------------------------------------------------------------------
-# K1: fused residual kernel
-_K1 = Kernel("residual_scatter", [P, P, P, P, P, I, I, I, I, I, P, I, I, I])
+# K1: fused residual kernel, one C entry point (and launch count) per mode
+_K1 = Kernel("residual_scatter", [P] * 6 + [I] * 6 + [P] + [I] * 3)
+_K1_SCAL = Kernel("residual_scatter_scaled", [P] * 8 + [I] * 6 + [P] +
+                  [I] * 3)
+_K1_BYPASS = Kernel("residual_bypass", [P] * 5 + [I] * 3 + [P] + [I] * 3)
 
 
 def residual_scatter(planes, coeffs, qp, bsel, ysel, xsel, *, n, use_dst,
-                     tskip, bd):
+                     tskip, bd, bypass=False, mats=None, midx=None,
+                     rotate=False, rdpcm=None):
     """Residuals of one TU bucket written into the stacked planes, in place.
 
     planes: [Bp, Hc, Wc] int32 residual planes of one component (updated).
     coeffs: [P, n, n] int16 coefficient levels; qp: [P] int8 (incl. the
     bit-depth offset); bsel/ysel/xsel: [P] int32 picture index and sample
     origin of each TU.  Entries with bsel >= Bp (padding) are skipped.
-    Non-extended precision only (max_dyn_range 15), no scaling lists.
+    Three modes, each its own kernel entry point and launch count:
+    flat dequant (the default); scaling lists, with `mats` [M, n, n]
+    uint8 the level's matrices of this size and `midx` [P] uint8 each TU's
+    row of it; `bypass` (transquant bypass: qp, use_dst and tskip unused,
+    the coefficients are the residual).  `rotate`: the bucket's
+    transform-skip rotation; `rdpcm`: [P] int8 RDPCM direction per TU
+    (0 off, 1 horizontal, 2 vertical) or None.  Non-extended precision
+    only (max_dyn_range 15).
     """
     if not planes.is_cuda:
         return residual_scatter_plain(planes, coeffs, qp, bsel, ysel, xsel,
                                       n=n, use_dst=use_dst, tskip=tskip,
-                                      bd=bd)
+                                      bd=bd, bypass=bypass, mats=mats,
+                                      midx=midx, rotate=rotate, rdpcm=rdpcm)
     dev = planes.device
     check(planes, "planes", torch.int32, 3)
     check(coeffs, "coeffs", torch.int16, 3, dev)
-    check(qp, "qp", torch.int8, 1, dev)
     for t, name in ((bsel, "bsel"), (ysel, "ysel"), (xsel, "xsel")):
         check(t, name, torch.int32, 1, dev)
     npad = coeffs.shape[0]
     if coeffs.shape[1:] != (n, n) or not (
-            qp.shape[0] == bsel.shape[0] == ysel.shape[0] == xsel.shape[0]
-            == npad):
+            bsel.shape[0] == ysel.shape[0] == xsel.shape[0] == npad):
         raise ValueError("residual_scatter: inconsistent bucket shapes")
-    if n not in (4, 8, 16, 32) or (use_dst and n != 4) or \
-            not 8 <= bd <= 12:
+    if rdpcm is not None:
+        check(rdpcm, "rdpcm", torch.int8, 1, dev)
+        if rdpcm.shape[0] != npad:
+            raise ValueError("residual_scatter: inconsistent bucket shapes")
+    if n not in (4, 8, 16, 32) or (rotate and n != 4):
+        raise ValueError(f"residual_scatter: unsupported n={n} "
+                         f"rotate={rotate}")
+    Bp, H, W = planes.shape
+    tail = (ptr(rdpcm), ptr(bsel), ptr(ysel), ptr(xsel), npad, n)
+    if bypass:
+        if mats is not None:
+            raise ValueError("residual_scatter: bypass TUs take no matrix")
+        if npad:
+            _K1_BYPASS(ptr(coeffs), *tail, int(rotate), ptr(planes), Bp, H,
+                       W)
+        return planes
+    check(qp, "qp", torch.int8, 1, dev)
+    if qp.shape[0] != npad:
+        raise ValueError("residual_scatter: inconsistent bucket shapes")
+    if (use_dst and n != 4) or not 8 <= bd <= 12:
         raise ValueError(f"residual_scatter: unsupported n={n} "
                          f"use_dst={use_dst} tskip={tskip} bd={bd}")
     if npad == 0:
         return planes
-    Bp, H, W = planes.shape
-    _K1(ptr(coeffs), ptr(qp), ptr(bsel), ptr(ysel), ptr(xsel), npad, n,
-        int(use_dst and not tskip), int(tskip), bd, ptr(planes), Bp, H, W)
+    tail += (int(use_dst and not tskip), int(tskip), int(rotate), bd,
+             ptr(planes), Bp, H, W)
+    if mats is None:
+        _K1(ptr(coeffs), ptr(qp), *tail)
+        return planes
+    check(mats, "mats", torch.uint8, 3, dev)
+    check(midx, "midx", torch.uint8, 1, dev)
+    if mats.shape[1:] != (n, n) or midx.shape[0] != npad:
+        raise ValueError("residual_scatter: inconsistent matrix shapes")
+    _K1_SCAL(ptr(coeffs), ptr(qp), ptr(mats), ptr(midx), *tail)
     return planes

@@ -4,8 +4,10 @@ Port of the device-resident half of libhm_tpu/parallel/batch_decode.py:
 
  - residual build: TU buckets keyed by (size, path, ...) over the union of
    every picture's tu_list; each (bucket, component) is one K1 launch
-   (ops/transform.py residual_scatter) that dequantizes, inverse
-   transforms and writes straight into the stacked [Bp, Hc, Wc] planes;
+   (ops/transform.py residual_scatter) that dequantizes (with the level's
+   scaling matrices where the bucket has them), inverse transforms and
+   writes straight into the stacked [Bp, Hc, Wc] planes, or writes the
+   coefficients of transquant-bypass TUs as they are;
  - intra wavefront: each picture's levelized blocks (intra_wavefront.
    prepare_component) are stacked over the picture axis, and every
    (level, block size) is one K2 launch (ops/intra.py intra_level), in
@@ -67,16 +69,19 @@ def _tu_bucket_entries(items):
     return buckets
 
 
-def _bucket_inputs(items, entries, n, scal, P):
-    """Host-side padded input tensors for one TU bucket.
+def _bucket_inputs(items, entries, n, mat_row):
+    """Host-side input arrays for one TU bucket.
 
-    Copied from libhm_tpu/parallel/batch_decode.py (_bucket_inputs).
+    From libhm_tpu/parallel/batch_decode.py (_bucket_inputs), without the
+    pow2 padding and, instead of a [P, n, n] matrix per TU, each TU's row
+    of the level's scaling-matrix table: `mat_row(scal_mats, matrix_id)`
+    (None when the bucket takes no matrix).
     """
+    P = len(entries)
     coeffs = np.zeros((P, n, n), np.int32)
     qp = np.zeros(P, np.int32)
     rdpcm = np.zeros(P, np.int32)
-    mat = np.ones((P, n, n), np.int32) * 16 if scal else \
-        np.zeros((1, 1, 1), np.int32)
+    midx = np.zeros(P, np.uint8) if mat_row else None
     for k, (b, i, scal_mats) in enumerate(entries):
         pic = items[b]["pic"]
         sps = items[b]["sps"]
@@ -84,21 +89,60 @@ def _bucket_inputs(items, entries, n, scal, P):
         coeffs[k] = tu.coeffs
         qp[k] = tu.qp
         rdpcm[k] = tu.rdpcm_mode
-        if scal:
+        if mat_row:
             sxr = sps.chroma_shift_x() if tu.comp else 0
             syr = sps.chroma_shift_y() if tu.comp else 0
             intra = np.asarray(pic.pred_mode)[(tu.y << syr) >> 2,
                                               (tu.x << sxr) >> 2] \
                 == MODE_INTRA
-            size_id = tu.w.bit_length() - 3
-            mat[k] = scal_mats[(size_id, (0 if intra else 3) + tu.comp)]
-    return coeffs, qp, rdpcm, mat
+            midx[k] = mat_row(scal_mats, (0 if intra else 3) + tu.comp)
+    return coeffs, qp, rdpcm, midx
+
+
+class _MatrixTable:
+    """The level's distinct scaling matrices, uploaded once as one uint8
+    table: per size, [L * 6, n, n] rows (list l, matrixId m at l * 6 + m),
+    the lists keyed by object as _tu_bucket_entries caches them (a PPS
+    list overrides the SPS one)."""
+
+    def __init__(self, buckets, device):
+        lists = {}
+        for (_, _, _, _, _, scal, _), entries in buckets.items():
+            if scal:
+                for _, _, mats in entries:
+                    lists.setdefault(id(mats), mats)
+        if len(lists) * 6 > 256:
+            raise ValueError("more scaling lists in a level than a one-byte "
+                             "row index holds")
+        self.row_of = {k: j for j, k in enumerate(lists)}
+        self.tables = {}
+        if not lists:
+            return
+        parts, offs, o = [], {}, 0
+        for size_id in range(4):
+            t = np.stack([mats[(size_id, m)] for mats in lists.values()
+                          for m in range(6)])
+            if t.min() < 1 or t.max() > 255:
+                raise ValueError("scaling factor outside 1..255")
+            parts.append(t.astype(np.uint8).reshape(-1))
+            offs[size_id] = (o, t.shape)
+            o += t.size
+        flat = xfer.up(np.concatenate(parts), "coeff", device)
+        for size_id, (o, shape) in offs.items():
+            self.tables[4 << size_id] = flat[o:o + int(np.prod(shape))] \
+                .view(shape)
+
+    def row(self, mats, matrix_id):
+        return self.row_of[id(mats)] * 6 + matrix_id
 
 
 def _residual_planes_batch_device(items, Bp, device):
     """Device-resident residual build: every TU of every picture written
     into stacked [Bp, Hc, Wc] int32 device planes, one K1 launch per
-    (bucket, component).  Only the coefficient buckets are uploaded.
+    (bucket, component): flat dequant, scaling lists (one matrix table per
+    level, a one-byte row per TU) or transquant bypass, with the bucket's
+    rotation and each TU's RDPCM direction.  Only the coefficient buckets,
+    the table and the indices are uploaded.
     """
     sps0 = items[0]["sps"]
     Wp = sps0.pic_width_ctbs << sps0.log2_ctb
@@ -111,15 +155,13 @@ def _residual_planes_batch_device(items, Bp, device):
         res_stacked.append(torch.zeros((Bp, Hp >> sy, Wp >> sx),
                                        dtype=torch.int32, device=device))
     buckets = _tu_bucket_entries(items)
+    table = _MatrixTable(buckets, device)
     for (n, use_dst, path, bd, rotate, scal, max_dyn), entries \
             in buckets.items():
-        coeffs, qp, rdpcm, _ = _bucket_inputs(items, entries, n, False,
-                                              len(entries))
-        if path == "bypass" or rotate or scal or max_dyn != 15 or \
-                rdpcm.any():
-            raise NotImplementedError(
-                "transquant bypass, transform-skip rotation, scaling lists, "
-                "extended precision and RDPCM are not ported")
+        coeffs, qp, rdpcm, midx = _bucket_inputs(
+            items, entries, n, table.row if scal else None)
+        if max_dyn != 15:
+            raise NotImplementedError("not ported: extended precision")
         if coeffs.min(initial=0) < -32768 or coeffs.max(initial=0) > 32767:
             raise ValueError("coefficient level outside the int16 range")
         comp_arr = np.asarray([items[b]["pic"].tu_list[i].comp
@@ -129,6 +171,7 @@ def _residual_planes_batch_device(items, Bp, device):
                            for b, i, _ in entries], np.int32)
         xsel = np.asarray([items[b]["pic"].tu_list[i].x
                            for b, i, _ in entries], np.int32)
+        bypass = path == "bypass"
         for c in range(ncomp):
             sel = np.nonzero(comp_arr == c)[0]
             if not len(sel):
@@ -136,11 +179,17 @@ def _residual_planes_batch_device(items, Bp, device):
             TK.residual_scatter(
                 res_stacked[c],
                 xfer.up(coeffs[sel].astype(np.int16), "coeff", device),
+                None if bypass else
                 xfer.up(qp[sel].astype(np.int8), "coeff", device),
                 xfer.up(bsel[sel], "idx", device),
                 xfer.up(ysel[sel], "idx", device),
                 xfer.up(xsel[sel], "idx", device),
-                n=n, use_dst=use_dst, tskip=path == "tskip", bd=bd)
+                n=n, use_dst=use_dst, tskip=path == "tskip", bd=bd,
+                bypass=bypass, mats=table.tables[n] if scal else None,
+                midx=xfer.up(midx[sel], "idx", device) if scal else None,
+                rotate=rotate,
+                rdpcm=xfer.up(rdpcm[sel].astype(np.int8), "coeff", device)
+                if rdpcm[sel].any() else None)
     return res_stacked
 
 

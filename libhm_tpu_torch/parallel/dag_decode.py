@@ -7,10 +7,13 @@ level"); every level reconstructs in shared device launches and its pixels
 stay on the device:
 
     coeff buckets --upload--> residual planes          (K1 per bucket)
+    PCM samples into the zeroed planes                 (K9 per component)
     MC + residual add from the per-4x4 maps            (K5 per component,
                                                         K6 for WP levels)
     intra wavefront, levels x sizes                    (K2 per launch)
     deblock V/H + SAO, fed by int8 syntax maps          (K3, K4)
+    PCM / lossless samples back to their pre-deblock    (K8)
+    values
     filtered planes --(stay on device)--> next level's reference planes
     final planes --int16 download--> output pictures    (decode_batch)
     or a uint32 checksum of them --4 bytes-->           (K7, decode_batch_device)
@@ -24,6 +27,7 @@ import torch
 from ..hostdec.picture import MODE_INTER
 from ..ops import checksum as CK
 from ..ops import interp as IK
+from ..ops import pcm as PK
 from ..recon_torch import _device_plane
 from ..utils import xfer
 
@@ -59,28 +63,15 @@ def reference_levels(items):
 def _check_slice(items):
     """Raise NotImplementedError for coding tools the port lacks."""
     for it in items:
-        sps, pps, pic = it["sps"], it["pps"], it["pic"]
+        sps, pps = it["sps"], it["pps"]
         missing = []
-        if pic.pcm_list or (sps.pcm_enabled and
-                            sps.pcm_loop_filter_disabled):
-            missing.append("PCM")
-        if pps.transquant_bypass_enabled:
-            missing.append("transquant bypass")
-        if sps.scaling_list_enabled:
-            missing.append("scaling lists")
         if pps.cross_component_prediction:
             missing.append("cross-component prediction")
-        if np.asarray(pic.slice_idx).max() > 0:
-            missing.append("several slices per picture")
-        if pps.tiles_enabled:
-            missing.append("tiles")
         if sps.chroma_format_idc != 1:
             missing.append(f"chroma format {sps.chroma_format_idc} "
                            "(only 4:2:0)")
-        if sps.extended_precision or sps.implicit_rdpcm or \
-                sps.explicit_rdpcm or sps.transform_skip_rotation:
-            missing.append("RExt residual tools (extended precision, "
-                           "RDPCM, transform-skip rotation)")
+        if sps.extended_precision:
+            missing.append("extended precision")
         if max(sps.bit_depth_luma, sps.bit_depth_chroma) > 12:
             missing.append("bit depths above 12")
         if missing:
@@ -291,6 +282,28 @@ def _inter_level_gathered(items, stacked_all, res_all, device):
                            W=W, H=H)
 
 
+def _pcm_level(items, stacked, device):
+    """PCM samples of a level into its zeroed planes, before MC (K9, one
+    launch per component that has PCM blocks)."""
+    per_comp = {}
+    for b, it in enumerate(items):
+        sps = it["sps"]
+        for (c, x, y, w, h, samples, bits) in it["pic"].pcm_list:
+            bd = sps.bit_depth_luma if c == 0 else sps.bit_depth_chroma
+            per_comp.setdefault(c, []).append(
+                ((b, x, y, w, h, bd - bits),
+                 np.asarray(samples, np.int16).reshape(-1)))
+    for c, blks in sorted(per_comp.items()):
+        sizes = [len(s) for _, s in blks]
+        offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+        PK.pcm_scatter(
+            stacked[c],
+            xfer.up(np.asarray([row for row, _ in blks], np.int32), "pcm",
+                    device),
+            xfer.up(np.concatenate([s for _, s in blks]), "pcm", device),
+            xfer.up(offsets.astype(np.int32), "pcm", device))
+
+
 # ---------------------------------------------------------------------------
 def _recon_levels(items, device, download=True):
     """Device-resident reconstruction of collect items grouped into
@@ -315,6 +328,7 @@ def _recon_levels(items, device, download=True):
         B = len(lv_items)
         res_stacked = _residual_planes_batch_device(lv_items, B, device)
         stacked = [torch.zeros_like(r) for r in res_stacked]
+        _pcm_level(lv_items, stacked, device)
         # MC first: intra blocks of inter pictures predict from
         # MC-reconstructed neighbours
         _inter_level(lv_items, stacked, res_stacked, device)

@@ -1,11 +1,14 @@
 """Device-resident in-loop filters for a reference-DAG level.
 
-Port of libhm_tpu/parallel/device_filters.py for single-slice, single-tile
-pictures without PCM/lossless restoration (`multi=False`,
-`restore=False`).  The host uploads compact per-4x4 syntax maps (int8 /
-uint8) and the stacked planes never leave the device:
+Port of libhm_tpu/parallel/device_filters.py.  The host uploads compact
+per-4x4 syntax maps (int8 / uint8 / int16) and the stacked planes never
+leave the device:
 
-    deblock V (luma K3, chroma K3 x2) -> deblock H (same) -> SAO (K4 x3)
+    deblock V (luma K3, chroma K3 x2) -> deblock H (same)
+    -> SAO (K4 x3; its multi form where a picture of the level has
+       several slices or tiles)
+    -> restore (K8 x3, where PCM without loop filter or transquant bypass
+       is enabled): masked samples take back their pre-deblock value
 
 Boundary-strength derivation stays host-side numpy
 (hostdec/deblock_maps.compute_bs_maps).
@@ -17,6 +20,7 @@ from ..hostdec.deblock_maps import compute_bs_maps
 from ..hostdec.tables import CHROMA_QP_SCALE
 
 from ..ops import deblock as DK
+from ..ops import pcm as PK
 from ..ops import sao as SK
 from ..utils import xfer
 
@@ -91,21 +95,14 @@ def picture_filter_flags(items):
 
 
 # ---------------------------------------------------------------------------
-_SKIP = {"s4", "lf4", "tm", "rmask"}
-
-
 def filter_level(items, stacked, sps, device):
-    """Deblock (V, then H) and SAO a level's stacked device planes.
+    """Deblock (V, then H), SAO and restore a level's stacked device planes.
 
     items: the level's collect items; stacked: list per component of
     [Bp, Hp, Wp] int32 device planes.  Deblocking updates them in place;
     returns the filtered planes.
     """
     multi, restore, sao_on = picture_filter_flags(items)
-    if multi or restore:
-        raise NotImplementedError(
-            "filter_level: multi-slice/tile SAO rules and PCM/lossless "
-            "restoration are not ported")
     ncomp = 3 if sps.chroma_format_idc else 1
     if ncomp > 1 and sps.bit_depth_chroma > 11:
         raise NotImplementedError("chroma deblocking above 11 bits")
@@ -118,13 +115,24 @@ def filter_level(items, stacked, sps, device):
 
     def up(k):
         proto = next(mp[k] for mp in maps if k in mp)
-        a = np.zeros((Bp,) + proto.shape, proto.dtype)
+        # bool maps (lf4) go up as uint8
+        a = np.zeros((Bp,) + proto.shape,
+                     np.uint8 if proto.dtype == bool else proto.dtype)
         for b, mp in enumerate(maps):
             if k in mp:
                 a[b] = mp[k]
         return xfer.up(a, "filter", device)
-    keys = {k for mp in maps for k in mp} - _SKIP
+    # the slice/tile maps and the restore mask only where they are read,
+    # as the JAX `skip` set
+    skip = set()
+    if not (sao_on and multi):
+        skip |= {"s4", "lf4", "tm"}
+    if not restore:
+        skip.add("rmask")
+    keys = {k for mp in maps for k in mp} - skip
     mb = {k: up(k) for k in sorted(keys)}
+    # pre-deblock copies of the planes (restore writes them back)
+    pre = [p.clone() for p in stacked] if restore else None
 
     # ---- deblocking: V pass then H pass (spec order) ----
     for tag, vertical in (("v", True), ("h", False)):
@@ -138,25 +146,50 @@ def filter_level(items, stacked, sps, device):
                               ssx=ssx, ssy=ssy)
 
     # ---- SAO ----
-    if not sao_on:
-        return stacked
+    out = stacked
+    if sao_on:
+        out = _sao_level(items, stacked, sps, mb, multi, Bp, device)
+
+    # ---- PCM / transquant-bypass restoration ----
+    if restore:
+        for c in range(ncomp):
+            PK.restore_unfiltered(out[c], pre[c], mb["rmask"],
+                                  sx=ssx if c else 0, sy=ssy if c else 0)
+    return out
+
+
+def _sao_level(items, stacked, sps, mb, multi, Bp, device):
+    """SAO of every component (K4, its multi form when `multi`)."""
+    B = len(items)
+    ncomp = len(stacked)
+    ssx = sps.chroma_shift_x() if ncomp > 1 else 0
+    ssy = sps.chroma_shift_y() if ncomp > 1 else 0
     hc, wc = sps.pic_height_ctbs, sps.pic_width_ctbs
     scales = []
     for key in ("sao_offset_scale_luma", "sao_offset_scale_chroma"):
         s = np.zeros(Bp, np.int32)
         s[:B] = [int(getattr(it["pps"], key, 0)) for it in items]
         scales.append(xfer.up(s, "filter", device))
+    if multi:
+        lft = np.zeros(Bp, np.uint8)
+        lft[:B] = [bool(it["pps"].loop_filter_across_tiles) for it in items]
+        lft = xfer.up(lft, "filter", device)
+        tm = mb["tm"].reshape(Bp, hc, wc)
     out = []
     for c in range(ncomp):
         sx = ssx if c else 0
         sy = ssy if c else 0
-        out.append(SK.sao(
-            stacked[c],
-            mb["sao_t"][:, :, c].reshape(Bp, hc, wc).contiguous(),
-            mb["sao_b"][:, :, c].reshape(Bp, hc, wc).contiguous(),
-            mb["sao_o"][:, :, c].reshape(Bp, hc, wc, 4).contiguous(),
-            scales[0] if c == 0 else scales[1],
-            log2cx=sps.log2_ctb - sx, log2cy=sps.log2_ctb - sy,
-            bd=sps.bit_depth_luma if c == 0 else sps.bit_depth_chroma,
-            W=sps.width >> sx, H=sps.height >> sy))
+        args = (stacked[c],
+                mb["sao_t"][:, :, c].reshape(Bp, hc, wc).contiguous(),
+                mb["sao_b"][:, :, c].reshape(Bp, hc, wc).contiguous(),
+                mb["sao_o"][:, :, c].reshape(Bp, hc, wc, 4).contiguous(),
+                scales[0] if c == 0 else scales[1])
+        kw = dict(log2cx=sps.log2_ctb - sx, log2cy=sps.log2_ctb - sy,
+                  bd=sps.bit_depth_luma if c == 0 else sps.bit_depth_chroma,
+                  W=sps.width >> sx, H=sps.height >> sy)
+        if multi:
+            out.append(SK.sao_multi(*args, mb["s4"], mb["lf4"], tm, lft, sx=sx,
+                                    sy=sy, log2_ctb=sps.log2_ctb, **kw))
+        else:
+            out.append(SK.sao(*args, **kw))
     return out

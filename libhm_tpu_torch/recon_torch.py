@@ -33,16 +33,13 @@ def _device_plane(dp, c, H, W, device):
 
 
 def _residual_fn(coeffs, qp, rdpcm, *, n, use_dst, path, bd, max_dyn,
-                 rotate=False, scaling=False):
-    """Residual blocks [P, n, n] int32 of one TU bucket (plain torch)."""
-    if scaling:
-        raise NotImplementedError("scaling-list dequant is not ported")
+                 rotate=False, mat=None):
+    """Residual blocks [P, n, n] int32 of one TU bucket (plain torch);
+    `mat` [P, n, n] holds each TU's scaling matrix (the JAX `scaling`
+    closure flag is `mat is not None` here)."""
     if path == "bypass":
-        res = coeffs.to(torch.int32)
-        if rotate:
-            res = torch.flip(res, (1, 2))
-        res = torch.clamp(res, TK.I16MIN, TK.I16MAX)
+        res = TK.bypass_blocks(coeffs, rotate)
     else:
         res = TK.residual_blocks(coeffs, qp, n, use_dst, path == "tskip", bd,
-                                 max_dyn, rotate)
+                                 max_dyn, rotate, mat=mat)
     return TK.inverse_rdpcm_batch(res, rdpcm.to(torch.int32))

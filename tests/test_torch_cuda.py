@@ -198,3 +198,135 @@ def test_inter_decode_on_gpu(gpu, name, kernel):
     csum = DD.decode_batch_device(data, device=gpu)[2]
     assert CK._K7.launches == 1
     assert csum == DD.cropped_checksum(outs)
+
+
+@pytest.mark.parametrize("mode", ["scaled", "bypass"])
+def test_residual_kernel_modes(gpu, mode):
+    """K1's scaled and bypass modes, with rotation (4x4) and RDPCM in
+    every direction, == their plain versions."""
+    from libhm_tpu_torch.hostdec.tables import build_scaling_matrices
+    from libhm_tpu_torch.ops import transform as TK
+    rng = np.random.default_rng(7)
+    mats = build_scaling_matrices(None)
+    for n, use_dst, tskip, rotate in ((4, True, False, False),
+                                      (4, False, True, True),
+                                      (8, False, False, False),
+                                      (16, False, False, False),
+                                      (32, False, True, False)):
+        P = 64
+        coeffs = torch.from_numpy(rng.integers(-32768, 32768, (P, n, n))
+                                  .astype(np.int16)).to(gpu)
+        qp = torch.from_numpy(rng.integers(0, 64, P).astype(np.int8)).to(gpu)
+        rdpcm = torch.from_numpy(rng.integers(0, 3, P).astype(np.int8)).to(gpu)
+        slot = rng.choice(3 * 64, P, replace=False)
+        bsel, ysel, xsel = (torch.from_numpy(a.astype(np.int32)).to(gpu)
+                            for a in (slot // 64, slot // 8 % 8 * 32,
+                                      slot % 8 * 32))
+        kw = dict(n=n, use_dst=use_dst, tskip=tskip, bd=10, rotate=rotate,
+                  rdpcm=rdpcm)
+        if mode == "bypass":
+            kw.update(bypass=True)
+        else:
+            table = np.stack([mats[(n.bit_length() - 3, m)] for m in range(6)])
+            kw.update(mats=torch.from_numpy(table.astype(np.uint8)).to(gpu),
+                      midx=torch.from_numpy(rng.integers(0, 6, P)
+                                            .astype(np.uint8)).to(gpu))
+        got = torch.zeros((2, 256, 256), dtype=torch.int32, device=gpu)
+        want = got.clone()
+        TK.residual_scatter(got, coeffs, qp, bsel, ysel, xsel, **kw)
+        TK.residual_scatter_plain(want, coeffs, qp, bsel, ysel, xsel, **kw)
+        assert torch.equal(got, want), (mode, n, use_dst, tskip, rotate)
+
+
+@pytest.mark.parametrize("lft", [0, 1])
+@pytest.mark.parametrize("sh", [0, 1])
+def test_sao_multi_kernel(gpu, sh, lft):
+    """K4's multi form == its plain version: 3 slices, 2 tiles, mixed
+    loop filtering across slices, a picture cropped inside its CTB grid
+    (so the map rows and columns clamp at the padded bottom and right)."""
+    from libhm_tpu_torch.ops import sao as SK
+    rng = np.random.default_rng(8 + sh + 2 * lft)
+    B, log2_ctb, HpL, WpL = 2, 5, 96, 128
+    h4, w4, hc, wc = HpL // 4, WpL // 4, HpL >> log2_ctb, WpL >> log2_ctb
+    Hp, Wp, H, W = HpL >> sh, WpL >> sh, 84 >> sh, 120 >> sh
+    s4 = np.zeros((B, h4, w4), np.int16)
+    s4.reshape(B, -1)[:, 200:] = 1
+    s4.reshape(B, -1)[:, 500:] = 2
+    lf4 = (s4 != 1).astype(np.uint8)
+    tm = np.zeros((B, hc, wc), np.int16)
+    tm[:, :, wc // 2:] = 1
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(gpu)  # noqa
+    args = (t(rng.integers(0, 1024, (B, Hp, Wp)).astype(np.int32)),
+            t(rng.integers(-1, 5, (B, hc, wc)).astype(np.int8)),
+            t(rng.integers(0, 32, (B, hc, wc)).astype(np.int8)),
+            t(rng.integers(-31, 32, (B, hc, wc, 4)).astype(np.int8)),
+            t(np.array([0, 1], np.int32)), t(s4), t(lf4), t(tm),
+            t(np.full(B, lft, np.uint8)))
+    kw = dict(log2cx=log2_ctb - sh, log2cy=log2_ctb - sh, bd=10, W=W, H=H,
+              sx=sh, sy=sh, log2_ctb=log2_ctb)
+    n0 = SK._K4_MULTI.launches
+    got = SK.sao_multi(*args, **kw)
+    want = SK.sao_multi_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert SK._K4_MULTI.launches == n0 + 1
+    assert torch.equal(got, want)
+
+
+def test_restore_and_pcm_kernels(gpu):
+    """K8 and K9 == their plain versions (luma and 4:2:0 chroma grids)."""
+    from libhm_tpu_torch.ops import pcm as PK
+    rng = np.random.default_rng(9)
+    B, h4, w4 = 2, 34, 60
+    rmask = torch.from_numpy((rng.random((B, h4, w4)) < 0.2)
+                             .astype(np.uint8)).to(gpu)
+    for sh in (0, 1):
+        Hp, Wp = (h4 * 4) >> sh, (w4 * 4) >> sh
+        planes = torch.from_numpy(rng.integers(0, 1024, (B, Hp, Wp))
+                                  .astype(np.int32)).to(gpu)
+        pre = torch.from_numpy(rng.integers(0, 1024, (B, Hp, Wp))
+                               .astype(np.int32)).to(gpu)
+        got, want = planes.clone(), planes.clone()
+        PK.restore_unfiltered(got, pre, rmask, sx=sh, sy=sh)
+        PK.restore_unfiltered_plain(want, pre, rmask, sx=sh, sy=sh)
+        assert torch.equal(got, want) and not torch.equal(got, planes)
+        rows, samples, offs, o = [], [], [], 0
+        for k in range(28):                   # distinct 32x32 luma cells
+            n = (8, 16, 32)[k % 3] >> sh
+            rows.append((k % B, (k % 7) * (32 >> sh), (k // 7) * (32 >> sh),
+                         n, n, k % 3))
+            samples.append(rng.integers(0, 256, n * n))
+            offs.append(o)
+            o += n * n
+        args = (torch.tensor(rows, dtype=torch.int32, device=gpu),
+                torch.from_numpy(np.concatenate(samples).astype(np.int16))
+                .to(gpu), torch.tensor(offs, dtype=torch.int32, device=gpu))
+        got = torch.zeros((B, Hp, Wp), dtype=torch.int32, device=gpu)
+        want = got.clone()
+        PK.pcm_scatter(got, *args)
+        PK.pcm_scatter_plain(want, *args)
+        assert torch.equal(got, want) and got.any()
+
+
+@pytest.mark.parametrize("name,kernel", [
+    ("tiles_nolfcross_512x128", "_K4_MULTI"),
+    ("lossless_intra_416x240", "_K1_BYPASS"),
+    ("customsl_lowdelay_160x96", "_K1_SCAL"),
+    ("pcm_port_416x240", "_K9")])
+def test_tool_decode_on_gpu(gpu, name, kernel):
+    """The coding-tool streams match their MD5 through the new modes."""
+    from libhm_tpu_torch.ops import pcm as PK
+    from libhm_tpu_torch.ops import sao as SK
+    from libhm_tpu_torch.ops import transform as TK
+    from libhm_tpu_torch.parallel import dag_decode as DD
+    table = json.load(open(os.path.join(ROOT, "testdata",
+                                        "port_streams.json")))
+    if name in GOLD:
+        table = GOLD
+    k = next(getattr(m, kernel) for m in (SK, TK, PK) if hasattr(m, kernel))
+    k.launches = 0
+    data = open(os.path.join(ROOT, "testdata", table[name]["bitstream"]),
+                "rb").read()
+    outs = DD.decode_batch(data, device=gpu)
+    buf = b"".join(p.tobytes() for pic in outs for p in pic)
+    assert hashlib.md5(buf).hexdigest() == table[name]["decoded_yuv_md5"]
+    assert k.launches > 0

@@ -2,9 +2,9 @@
 
 Each all-intra stream must match its HM golden MD5 and equal the JAX
 decode_batch plane by plane (exact).  The 1080p stream runs only under
-HEVC_SLOW_TESTS, as in test_dag_decode.py.  Streams outside the ported
-slice raise NotImplementedError; the entry point runs on the card unless
-the CPU is asked for.
+HEVC_SLOW_TESTS, as in test_dag_decode.py.  Streams outside the port
+raise NotImplementedError naming what is missing; the entry point runs on
+the card unless the CPU is asked for.
 """
 import hashlib
 import json
@@ -74,8 +74,12 @@ def test_inter_stream_raises():
 
 
 def test_tiles_stream_raises():
-    with pytest.raises(NotImplementedError, match="tiles"):
-        decode_batch(_data("tiles_832x480"), device=CPU)
+    """Tiles are ported (tests/test_torch_tools_decode.py decodes
+    tiles_832x480); the refusal is held on a stream still outside the
+    port: cross-component prediction, named."""
+    with pytest.raises(NotImplementedError,
+                       match="cross-component prediction"):
+        decode_batch(_data("ccp444_lowdelay_160x96"), device=CPU)
 
 
 def test_cuda_without_gpu_raises():

@@ -1,9 +1,11 @@
-"""Port parity: libhm_tpu_torch.ops.{deblock,sao} vs libhm_tpu.ops.
+"""Port parity: libhm_tpu_torch.ops.{deblock,sao,pcm} vs libhm_tpu.
 
 The luma and chroma deblocking passes, the port's map-driven wrappers in
-both edge directions (against the JAX _filter_fn layout), and
-sao_component for band offset and the four edge-offset classes.  Integer
-arithmetic throughout: exact equality (tolerance 0).
+both edge directions (against the JAX _filter_fn layout), sao_component
+for band offset and the four edge-offset classes and in its multi-slice/
+tile form, and the plain versions of the restore (K8) and PCM scatter (K9)
+kernels against their JAX formulations.  Integer arithmetic throughout:
+exact equality (tolerance 0).
 """
 import functools
 
@@ -16,6 +18,7 @@ import torch
 from libhm_tpu.ops import deblock as JD
 from libhm_tpu.ops import sao as JS
 from libhm_tpu_torch.ops import deblock as TD
+from libhm_tpu_torch.ops import pcm as PS
 from libhm_tpu_torch.ops import sao as TS
 
 
@@ -171,8 +174,128 @@ def test_sao_component(sao_type):
 
 
 def test_sao_multi_slice_form_raises():
+    """The multi-slice form is ported; it refuses maps whose shape is not
+    the plane's (the JAX gather would clamp the indices silently)."""
     plane = torch.zeros((16, 16), dtype=torch.int32)
     t = torch.zeros((1, 1), dtype=torch.int32)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="plane's shape"):
         TS.sao_component(plane, None, t, t, torch.zeros((1, 1, 4)), 4, 8, 0,
                          16, 16, slice_map=t)
+
+
+def _multi_maps(rng, h4, w4, hc, wc):
+    """Seeded luma-grid maps: 3 slices in raster order, 2 tile columns,
+    loop filtering across slices on in one slice and off in the others."""
+    s4 = np.zeros((h4, w4), np.int16)
+    cut = sorted(rng.choice(np.arange(1, h4 * w4), 2, replace=False))
+    s4.reshape(-1)[cut[0]:] = 1
+    s4.reshape(-1)[cut[1]:] = 2
+    lf4 = (s4 == 1).astype(np.uint8)
+    tm = np.zeros((hc, wc), np.int16)
+    tm[:, wc // 2:] = 1
+    return s4, lf4, tm
+
+
+@pytest.mark.parametrize("lf_tiles", [True, False])
+@pytest.mark.parametrize("comp", ["luma", "chroma"])
+def test_sao_component_multi(comp, lf_tiles):
+    """The multi-slice/tile form: the port's sao_component and the plain
+    sao_multi wrapper (luma-grid maps, clamped index arithmetic) equal the
+    JAX sao_component as _filter_fn drives it, on a cropped picture."""
+    bd, log2_ctb = 10, 5
+    sx = sy = 1 if comp == "chroma" else 0
+    rng = np.random.RandomState(40 + 2 * (comp == "chroma") + lf_tiles)
+    HpL, WpL = 96, 128                        # luma CTB grid 3 x 4
+    h4, w4, hc, wc = HpL // 4, WpL // 4, HpL >> log2_ctb, WpL >> log2_ctb
+    Hp, Wp = HpL >> sy, WpL >> sx
+    H, W = (88 >> sy), (120 >> sx)
+    log2c = log2_ctb - sx
+    plane = _smooth_plane(rng, Hp, Wp, bd)
+    t = rng.randint(-1, 5, size=(hc, wc)).astype(np.int32)
+    t[t == 0] = 2                             # mostly edge offsets
+    band = rng.randint(0, 32, size=(hc, wc)).astype(np.int32)
+    offs = rng.randint(-31, 32, size=(hc, wc, 4)).astype(np.int32)
+    s4, lf4, tm = _multi_maps(rng, h4, w4, hc, wc)
+    # JAX: the per-sample maps of device_filters._filter_fn
+    ysi = np.minimum((np.arange(Hp) << sy) >> 2, h4 - 1)
+    xsi = np.minimum((np.arange(Wp) << sx) >> 2, w4 - 1)
+    tyc = np.minimum((np.arange(Hp) << sy) >> log2_ctb, hc - 1)
+    txc = np.minimum((np.arange(Wp) << sx) >> log2_ctb, wc - 1)
+    sm = s4[ysi[:, None], xsi[None, :]].astype(np.int32)
+    lf = lf4[ysi[:, None], xsi[None, :]] != 0
+    tmm = tm[tyc[:, None], txc[None, :]].astype(np.int32)
+    fn = jax.jit(lambda p, a, b, o, s, f, m, x: JS.sao_component(
+        p, None, a, b, o, log2c, bd, 1, W, H, slice_map=s, lf_map=f,
+        tile_map=m, lf_across_tiles=x))
+    want = fn(*map(jnp.asarray, (plane, t, band, offs, sm, lf, tmm)),
+              jnp.asarray(lf_tiles))
+    single = JS.sao_component(*map(jnp.asarray, (
+        plane, np.ones((Hp, Wp), bool), t, band, offs)), log2c, bd, 1, W, H)
+    assert (np.asarray(want) != np.asarray(single)).sum() > 0  # rules bite
+    got = TS.sao_component(
+        *map(torch.from_numpy, (plane, np.ones((Hp, Wp), bool), t, band,
+                                offs)), log2c, bd, 1, W, H,
+        slice_map=torch.from_numpy(sm), lf_map=torch.from_numpy(lf),
+        tile_map=torch.from_numpy(tmm), lf_across_tiles=lf_tiles)
+    _eq(want, got)
+    T = lambda a: torch.from_numpy(np.ascontiguousarray(a)[None])  # noqa
+    got_wrapper = TS.sao_multi(
+        T(plane), T(t.astype(np.int8)), T(band.astype(np.int8)),
+        T(offs.astype(np.int8)), torch.ones(1, dtype=torch.int32), T(s4),
+        T(lf4), T(tm), torch.tensor([lf_tiles], dtype=torch.uint8),
+        log2cx=log2c, log2cy=log2c, bd=bd, W=W, H=H, sx=sx, sy=sy,
+        log2_ctb=log2_ctb)[0]
+    _eq(want, got_wrapper)
+
+
+@pytest.mark.parametrize("sx,sy", [(0, 0), (1, 1)])
+def test_restore_unfiltered_plain(sx, sy):
+    """K8's plain version == the restore branch of the JAX _filter_fn
+    (jnp.where over the whole padded plane, mask rows and columns
+    clamped to the 4x4 grid)."""
+    rng = np.random.RandomState(50 + sx)
+    B, h4, w4 = 2, 17, 30                     # 1080p-like: 68 rows padded
+    Hp, Wp = (h4 * 4 + 4) >> sy, (w4 * 4) >> sx
+    planes = rng.randint(0, 1024, size=(B, Hp, Wp)).astype(np.int32)
+    pre = rng.randint(0, 1024, size=(B, Hp, Wp)).astype(np.int32)
+    rmask = (rng.rand(B, h4, w4) < 0.3).astype(np.uint8)
+
+    def jax_restore(planes, pre, rm):
+        ysi = jnp.minimum((jnp.arange(Hp) << sy) >> 2, h4 - 1)
+        xsi = jnp.minimum((jnp.arange(Wp) << sx) >> 2, w4 - 1)
+        mask = rm[ysi[:, None], xsi[None, :]] != 0
+        return jnp.where(mask, pre, planes)
+    want = jax.jit(jax.vmap(jax_restore))(
+        *map(jnp.asarray, (planes, pre, rmask)))
+    got = PS.restore_unfiltered(                # in place: on a copy
+        *map(torch.from_numpy, (planes.copy(), pre, rmask)), sx=sx, sy=sy)
+    assert (np.asarray(want) != planes).sum() > 0
+    _eq(want, got)
+
+
+def test_pcm_scatter_plain():
+    """K9's plain version (one block table per component) == the JAX
+    per-block scatters of dag_decode._recon_levels, including a reduced
+    PCM bit depth (a nonzero shift)."""
+    rng = np.random.RandomState(60)
+    B, Hp, Wp = 2, 64, 96
+    blocks, samples, offsets, o = [], [], [], 0
+    for k in range(9):
+        n = (8, 16, 32)[k % 3] >> (k % 2)     # 4..32
+        b, y, x = k % B, rng.randint(0, Hp // n) * n, rng.randint(0, Wp // n) * n
+        bits = (8, 5)[k % 2]
+        blocks.append((b, x, y, n, n, 8 - bits))
+        samples.append(rng.randint(0, 1 << bits, size=n * n))
+        offsets.append(o)
+        o += n * n
+    stacked = jnp.zeros((B, Hp, Wp), jnp.int32)
+    for (b, x, y, w, h, shift), s in zip(blocks, samples):
+        blk = np.asarray(s, np.int32).reshape(h, w) << shift
+        stacked = stacked.at[b, y:y + h, x:x + w].set(jnp.asarray(blk))
+    got = PS.pcm_scatter(torch.zeros((B, Hp, Wp), dtype=torch.int32),
+                         torch.tensor(blocks, dtype=torch.int32),
+                         torch.from_numpy(np.concatenate(samples)
+                                          .astype(np.int16)),
+                         torch.tensor(offsets, dtype=torch.int32))
+    assert np.asarray(stacked).any()
+    _eq(stacked, got)

@@ -11,13 +11,18 @@ result line is not printed):
  1. card name and power limit (nvidia-smi); CUDA must be available;
  2. build the port's native host parser (libhm_tpu_torch/hostdec/native)
     and every kernel of csrc/ (one nvcc per source), all at once, timed;
- 3. K1-K9 against their plain torch versions on the card, at the shapes of
-    the 1080p main paths, on seeded inputs: exact equality, with both times,
-    the bound (bytes or operations at the card's peak rates) and, for K7
-    and K8, the time of the library call that computes the same function;
-    K1's scaled and bypass modes on the TU buckets of the 1080p tool
-    stream, K4's multi form with that stream's slice/tile maps, K8 and K9
-    on a seeded mask and block table at 1920x1088;
+ 3. K1-K10 against their plain torch versions on the card, at the shapes
+    of the 1080p main paths, on seeded inputs: exact equality, with both
+    times, the bound (bytes or operations at the card's peak rates) and,
+    for K7 and K8, the time of the library call that computes the same
+    function; K1's scaled and bypass modes on the TU buckets of the 1080p
+    tool stream, K4's multi form with that stream's slice/tile maps, K8 and
+    K9 on a seeded mask and block table at 1920x1088, K3 chroma's int16-tc
+    form on a 12-bit 960x544 plane, K10 (cross-component prediction) on two
+    1920x1088 4:4:4 residual planes with a seeded table of TUs over 30% of
+    the area; then K3 chroma, K4 and K5 chroma again at the RExt chroma
+    geometries, 4:2:2 (960x1088, 32x64 chroma CTBs, 2x4 MC blocks) and
+    4:4:4 (1920x1088), their errors joining those kernels' results;
  4. the main paths, each with the launch counters reset just before it and
     read just after:
     - testdata/randomaccess_main10_1080p.bin through
@@ -34,9 +39,18 @@ result line is not printed):
     - the slice, tile, PCM, lossless and scaling-list goldens and the PCM
       stream of port_streams.json: their MD5s, each with the launches of
       the modes it needs (K1 scaled / bypass, K4 multi, K8, K9);
- 5. timed runs of the RA stream and of the tool stream (every picture's
-    hash SEI checked OK), and a breakdown (cProfile, torch.profiler) of
-    the RA stream;
+    - testdata/rext422_main10_1080p.bin (Main 4:2:2 10, I then P;
+      port_streams.json) through decode_batch(check_sei_hash=True): its
+      MD5, K1-K5 launched, and decode_batch_device: the checksum of those
+      pictures;
+    - the 13 RExt goldens (4:2:2, 4:4:4 with cross-component prediction,
+      4:0:0, 12 bits): their MD5s, with K10 on the CCP streams and K3's
+      int16 form on the 12-bit one;
+    - decode_streams over two 4:2:0 streams of one geometry, one of them
+      twice: each stream's MD5;
+ 5. timed runs of the RA stream, of the tool stream and of the 4:2:2
+    stream (every picture's hash SEI checked OK for the last two), and a
+    breakdown (cProfile, torch.profiler) of the RA stream;
  6. one JSON line of per-kernel results, then the result line
     {"ok": true, "device": {...}}.
 """
@@ -66,11 +80,30 @@ TOOL_SMALL = {"slices_416x240": ["sao_apply_multi"],
               "scaling_intra_416x240": ["residual_scatter_scaled"],
               "customsl_lowdelay_160x96": ["residual_scatter_scaled"],
               "wppdep_lowdelay_160x96": ["residual_scatter"]}
+REXT = "rext422_main10_1080p"   # Main 4:2:2 10, I then P (port_streams)
+# the RExt goldens, and the kernel entry points each must launch beyond K2
+REXT_SMALL = {"rext422_intra_416x240": ["deblock_chroma"],
+              "rext422_lowdelayP_416x240": ["mc_grid"],
+              "rext422_noRdoq_160x96": ["mc_grid"],
+              "wpp422_ra_160x96": ["mc_grid"],
+              "intra_rext444_416x240": ["ccp_apply"],
+              "rext444_randomaccess_416x240": ["ccp_apply", "mc_grid"],
+              "ccp444_lowdelay_160x96": ["ccp_apply", "mc_grid"],
+              "ht_rext444_intra_160x96": ["ccp_apply"],
+              "mono_intra_416x240": ["deblock_luma", "sao_apply"],
+              "mono_lowdelay_160x96": ["mc_grid"],
+              "main12_intra_416x240": ["deblock_chroma16"],
+              "intra_rext444_nofilt": [],
+              "intra_rext444_nosao": []}
+# independent streams of one geometry through decode_streams
+MULTI = ("randomaccess_416x240", "randomaccess_416x240", "lowdelayB_416x240")
 # the main path whose launches the kernel table reports, for the modes
 # that the tool stream does not run
 LAUNCHES_FROM = {"residual_bypass": "lossless_intra_416x240",
                  "restore_unfiltered": "lossless_intra_416x240",
-                 "pcm_scatter": "pcm_port_416x240"}
+                 "pcm_scatter": "pcm_port_416x240",
+                 "ccp_apply": "rext444_randomaccess_416x240",
+                 "deblock_chroma16": "main12_intra_416x240"}
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and the
 # CUDA-core rate (67 TFLOP/s float32 outside the tensor cores; the table
@@ -316,13 +349,17 @@ def _smooth_plane(rng, shape, bd):
     return np.clip(plane, 0, (1 << bd) - 1).astype(np.int32)[None]
 
 
-def check_k3(card, rng, bd=10):
-    """K3 luma on 1920x1088 and chroma on 960x544, V and H."""
+def check_k3(card, rng, bd=10, sx=1, sy=1, with_luma=True):
+    """K3 luma on 1920x1088 and chroma on 1920x1088 shifted by (sx, sy)
+    (960x544 in 4:2:0, 960x1088 in 4:2:2), V and H.  Above 11 bits only
+    chroma, through its int16-tc entry point (tc reaches 24 << 4, past a
+    byte); with_luma=False leaves luma out."""
     import numpy as np
     import torch
     from libhm_tpu_torch.ops import deblock as DK
     H, W = 1088, 1920
     h4, w4 = H // 4, W // 4
+    wide = bd > 11
     bs = rng.integers(0, 3, (1, h4, w4)).astype(np.uint8)
     nop = (rng.random((1, h4, w4)) < 0.05).astype(np.uint8)
     noq = (rng.random((1, h4, w4)) < 0.05).astype(np.uint8)
@@ -331,10 +368,15 @@ def check_k3(card, rng, bd=10):
     bo = torch.from_numpy((2 * rng.integers(-3, 4, (1, h4, w4))).astype(np.int8)).to(DEV)
     to = torch.from_numpy((2 * rng.integers(-3, 4, (1, h4, w4))).astype(np.int8)).to(DEV)
     ctc = rng.integers(0, 25, (1, h4, w4)) << (bd - 8)
-    ctc = torch.from_numpy(np.where(bs == 2, ctc, 0).astype(np.uint8)).to(DEV)
+    ctc = torch.from_numpy(np.where(bs == 2, ctc, 0).astype(
+        np.int16 if wide else np.uint8)).to(DEV)
     luma = torch.from_numpy(_smooth_plane(rng, (H, W), bd)).to(DEV)
-    chroma = torch.from_numpy(_smooth_plane(rng, (H // 2, W // 2), bd)).to(DEV)
-    out = {"deblock_luma": Result(), "deblock_chroma": Result()}
+    chroma = torch.from_numpy(_smooth_plane(rng, (H >> sy, W >> sx), bd)) \
+        .to(DEV)
+    chroma_name = "deblock_chroma16" if wide else "deblock_chroma"
+    out = {chroma_name: Result()}
+    if with_luma and not wide:
+        out["deblock_luma"] = Result()
     for vertical in (True, False):
         d = "V" if vertical else "H"
         m = bsn_np.copy()
@@ -351,13 +393,15 @@ def check_k3(card, rng, bd=10):
                  lambda p: DK.deblock_luma_plain(p, bsn, qp, bo, to,
                                                  vertical=vertical, bd=bd),
                  4),
-                ("deblock_chroma", chroma,
+                (chroma_name, chroma,
                  lambda p: DK.deblock_chroma(p, ctc, bsn, vertical=vertical,
-                                             bd=bd, ssx=1, ssy=1),
+                                             bd=bd, ssx=sx, ssy=sy),
                  lambda p: DK.deblock_chroma_plain(p, ctc, bsn,
                                                    vertical=vertical, bd=bd,
-                                                   ssx=1, ssy=1),
-                 2)):
+                                                   ssx=sx, ssy=sy),
+                 1 + ctc.element_size())):
+            if name not in out:
+                continue
             got, want = plane.clone(), plane.clone()
             run(got)
             plain(want)
@@ -367,39 +411,102 @@ def check_k3(card, rng, bd=10):
             scratch = plane.clone()
             bms = cuda_ms(lambda: run(scratch), 20)
             pms = cuda_ms(lambda: plain(scratch), 3)
-            log(f"K3 {name} {d} {tuple(plane.shape[1:])}: mismatches="
+            log(f"K3 {name} {d} {tuple(plane.shape[1:])} bd={bd}: mismatches="
                 f"{int((got != want).sum())} (samples changed {changed}) "
                 f"kernel {bms:.4f} ms, plain {pms:.4f} ms ({card})")
-            # the plane read and written in place (int32), the int8 maps;
-            # ~16 operations per sample for the decisions and filters
+            # the plane read and written in place (int32), the per-4x4 maps
+            # (bytes each); ~16 operations per sample for the decisions and
+            # filters
             n = plane.numel()
             out[name].add(e, bms, pms, n * 8 + h4 * w4 * nmap, n * 16)
     return out
 
 
-def check_k4(card, rng, bd=10):
-    """K4 on 1920x1088 luma and 960x544 chroma planes."""
+def ccp_table(rng, B, H, W, share=0.3):
+    """Seeded CCP TU table over B H x W 4:4:4 planes: a `share` of the
+    32x32 cells, each tiled by TUs of one size (4, 8, 16 or 32), every TU
+    with its own alpha in {+-1, +-2, +-4, +-8}.  Returns [M, 5] int32 rows
+    (b, y, x, n, alpha)."""
+    import numpy as np
+    cells = [(b, y, x) for b in range(B) for y in range(0, H, 32)
+             for x in range(0, W, 32)]
+    pick = rng.choice(len(cells), int(len(cells) * share), replace=False)
+    alphas = np.array([-8, -4, -2, -1, 1, 2, 4, 8])
+    rows = []
+    for k in pick:
+        b, y0, x0 = cells[k]
+        n = int(rng.choice((4, 8, 16, 32)))
+        for y in range(y0, y0 + 32, n):
+            for x in range(x0, x0 + 32, n):
+                rows.append((b, y, x, n, int(rng.choice(alphas))))
+    return np.asarray(rows, np.int32)
+
+
+def check_k10(card, rng, B=2, H=1088, W=1920):
+    """K10 on a 1080p 4:4:4 level: two 1920x1088 chroma and luma residual
+    planes, a seeded TU table over about 30% of the area (every TU size
+    and alpha), residuals over the whole int16 range so the clip acts."""
+    import numpy as np
+    import torch
+    from libhm_tpu_torch.ops import ccp as CK
+    tus_np = ccp_table(rng, B, H, W)
+    tus = torch.from_numpy(tus_np).to(DEV)
+    res_c = torch.from_numpy(rng.integers(-32768, 32768, (B, H, W))
+                             .astype(np.int32)).to(DEV)
+    res_l = torch.from_numpy(rng.integers(-32768, 32768, (B, H, W))
+                             .astype(np.int32)).to(DEV)
+    got, want = res_c.clone(), res_c.clone()
+    CK.ccp_apply(got, res_l, tus)
+    CK.ccp_apply_plain(want, res_l, tus)
+    torch.cuda.synchronize()
+    e = max_abs_err(got, want)
+    scratch = res_c.clone()
+    bms = cuda_ms(lambda: CK.ccp_apply(scratch, res_l, tus), 20)
+    pms = cuda_ms(lambda: CK.ccp_apply_plain(scratch, res_l, tus), 3)
+    samples = int((tus_np[:, 3].astype(np.int64) ** 2).sum())
+    sizes = {int(n): int((tus_np[:, 3] == n).sum()) for n in (4, 8, 16, 32)}
+    log(f"K10 ccp_apply {(B, H, W)} TUs={len(tus_np)} {sizes} samples="
+        f"{samples} ({samples / (B * H * W):.1%} of the area), alphas "
+        f"{sorted(set(tus_np[:, 4].tolist()))}: mismatches="
+        f"{int((got != want).sum())} (samples changed "
+        f"{int((want != res_c).sum())}) kernel {bms:.4f} ms, plain "
+        f"{pms:.4f} ms ({card})")
+    r = Result()
+    # res_l and res_c read and res_c written at listed samples (int32), the
+    # table once; a multiply, a shift, an add and the clip per sample
+    r.add(e, bms, pms, samples * 12 + tus_np.nbytes, samples * 4)
+    return r
+
+
+def check_k4(card, rng, bd=10, sx=1, sy=1, with_luma=True):
+    """K4 on a 1920x1088 luma plane (unless with_luma=False) and a chroma
+    plane shifted by (sx, sy), with 64x64 luma CTBs: 960x544 in 4:2:0,
+    960x1088 with 32x64 chroma CTBs (log2cx != log2cy) in 4:2:2."""
     import numpy as np
     import torch
     from libhm_tpu_torch.ops import sao as SK
     r = Result()
-    for (Hp, Wp, H, W, log2c) in ((1088, 1920, 1080, 1920, 6),
-                                  (544, 960, 540, 960, 5)):
-        hc, wc = (Hp + (1 << log2c) - 1) >> log2c, (Wp + (1 << log2c) - 1) >> log2c
+    planes = [(1088 >> sy, 1920 >> sx, 1080 >> sy, 1920 >> sx, 6 - sx, 6 - sy)]
+    if with_luma:
+        planes.insert(0, (1088, 1920, 1080, 1920, 6, 6))
+    for (Hp, Wp, H, W, log2cx, log2cy) in planes:
+        hc = (Hp + (1 << log2cy) - 1) >> log2cy
+        wc = (Wp + (1 << log2cx) - 1) >> log2cx
         plane = torch.from_numpy(rng.integers(
             0, 1 << bd, (1, Hp, Wp)).astype(np.int32)).to(DEV)
         t = torch.from_numpy(rng.integers(-1, 5, (1, hc, wc)).astype(np.int8)).to(DEV)
         b = torch.from_numpy(rng.integers(0, 32, (1, hc, wc)).astype(np.int8)).to(DEV)
         o = torch.from_numpy(rng.integers(-31, 32, (1, hc, wc, 4)).astype(np.int8)).to(DEV)
         scale = torch.zeros(1, dtype=torch.int32, device=DEV)
-        kw = dict(log2cx=log2c, log2cy=log2c, bd=bd, W=W, H=H)
+        kw = dict(log2cx=log2cx, log2cy=log2cy, bd=bd, W=W, H=H)
         got = SK.sao(plane, t, b, o, scale, **kw)
         want = SK.sao_plain(plane, t, b, o, scale, **kw)
         torch.cuda.synchronize()
         e = max_abs_err(got, want)
         bms = cuda_ms(lambda: SK.sao(plane, t, b, o, scale, **kw), 20)
         pms = cuda_ms(lambda: SK.sao_plain(plane, t, b, o, scale, **kw), 3)
-        log(f"K4 sao_apply {(Hp, Wp)}: mismatches={int((got != want).sum())} "
+        log(f"K4 sao_apply {(Hp, Wp)} CTB {1 << log2cx}x{1 << log2cy}: "
+            f"mismatches={int((got != want).sum())} "
             f"kernel {bms:.4f} ms, plain {pms:.4f} ms ({card})")
         # the plane in and a new plane out (int32), 6 bytes of map per CTB;
         # ~20 operations per sample
@@ -553,6 +660,10 @@ def _mc_list_ops(frac_x, frac_y, used, taps):
 LEVEL_B, LEVEL_R = 3, 4
 COMPS = ((True, 0, 0, 1088, 1920, 1080, 1920),      # is_luma, sx, sy, Hp,
          (False, 1, 1, 544, 960, 540, 960))         # Wp, H, W
+# the chroma planes of the same level in 4:2:2 (2x4 blocks, 1/8 pel across
+# and 1/4 down) and 4:4:4 (4-tap, 1/4 pel both ways)
+REXT_COMPS = ((False, 1, 0, 1088, 960, 1080, 960),
+              (False, 0, 0, 1088, 1920, 1080, 1920))
 
 
 def _mc_inputs(rng, bd, Hp, Wp, H, W):
@@ -574,12 +685,13 @@ def _mc_inputs(rng, bd, Hp, Wp, H, W):
             t(rng.integers(0, R, (B, h4, w4, 2)).astype(np.int16)))
 
 
-def check_k5(card, rng, bd=10):
-    """K5 on a 1080p level: luma 1920x1088 and chroma 960x544 planes."""
+def check_k5(card, rng, bd=10, comps=COMPS):
+    """K5 on a 1080p level: by default luma 1920x1088 and 4:2:0 chroma
+    960x544 planes."""
     import torch
     from libhm_tpu_torch.ops import interp as MK
     r = Result()
-    for is_luma, sx, sy, Hp, Wp, H, W in COMPS:
+    for is_luma, sx, sy, Hp, Wp, H, W in comps:
         stacked, res, refs, mv, dirm, sel = _mc_inputs(rng, bd, Hp, Wp, H, W)
         kw = dict(is_luma=is_luma, sx=sx, sy=sy, bd=bd, W=W, H=H)
         got, want = stacked.clone(), stacked.clone()
@@ -606,6 +718,7 @@ def check_k5(card, rng, bd=10):
                   for l in range(2)) + torch.where(d > 0, 8, 0)
         nbytes = refs.numel() * 4 + inter * 8 + dirm.numel() * 13
         log(f"K5 mc_grid {'luma' if is_luma else 'chroma'} {(Hp, Wp)} "
+            f"sx={sx} sy={sy} "
             f"B={LEVEL_B} R={LEVEL_R} inter samples={inter}: mismatches="
             f"{int((got != want).sum())} kernel {bms:.4f} ms, plain "
             f"{pms:.4f} ms ({card})")
@@ -870,6 +983,7 @@ def main():
     results.update(check_k1_modes(tool_items, card, rng))
     results["intra_level"] = check_k2(items, card, rng)
     results.update(check_k3(card, rng))
+    results.update(check_k3(card, rng, bd=12))
     results["sao_apply"] = check_k4(card, rng)
     results["sao_apply_multi"] = check_k4_multi(tool_items, card, rng)
     results["mc_grid"] = check_k5(card, rng)
@@ -877,12 +991,25 @@ def main():
     results["plane_checksum"] = check_k7(card, rng)
     results["restore_unfiltered"] = check_k8(card, rng)
     results["pcm_scatter"] = check_k9(card, rng)
+    results["ccp_apply"] = check_k10(card, rng)
+    # the chroma geometries of the RExt path: 4:2:2 (chroma 960x1088) and
+    # 4:4:4 (1920x1088).  Their errors join the kernels' lines; the times
+    # there stay those of the 4:2:0 shapes above, comparable across runs
+    rext = [check_k3(card, rng, sx=1, sy=0, with_luma=False),
+            check_k3(card, rng, sx=0, sy=0, with_luma=False),
+            {"sao_apply": check_k4(card, rng, sx=1, sy=0, with_luma=False)},
+            {"sao_apply": check_k4(card, rng, sx=0, sy=0, with_luma=False)},
+            {"mc_grid": check_k5(card, rng, comps=REXT_COMPS)}]
+    for extra in rext:
+        for k, v in extra.items():
+            results[k].err = max(results[k].err, v.err)
     del tool_items
     bad = {k: v.err for k, v in results.items() if v.err != 0}
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
 
     # ---- the main paths, counters reset just before each ----
+    from libhm_tpu_torch.ops import ccp as CC
     from libhm_tpu_torch.ops import checksum as CK
     from libhm_tpu_torch.ops import deblock as DK
     from libhm_tpu_torch.ops import interp as MK
@@ -899,7 +1026,8 @@ def main():
                "sao_apply": SK._K4, "sao_apply_multi": SK._K4_MULTI,
                "mc_grid": MK._K5, "mc_weighted": MK._K6,
                "plane_checksum": CK._K7, "restore_unfiltered": PK._K8,
-               "pcm_scatter": PK._K9}
+               "pcm_scatter": PK._K9, "deblock_chroma16": DK._K3_CHROMA16,
+               "ccp_apply": CC._K10}
     k1_k4 = ["residual_scatter", "intra_level", "deblock_luma",
              "deblock_chroma", "sao_apply"]
 
@@ -983,6 +1111,52 @@ def main():
         log(f"{name}: {n} pictures, MD5 matches "
             f"{'port_streams.json' if table is ports else 'golden'}")
 
+    # the RExt path: Main 4:2:2 10 at 1080p (port_streams.json), then the
+    # 4:2:2 / 4:4:4 (CCP) / 4:0:0 / 12-bit goldens, then decode_streams
+    rext_data = open(os.path.join(ROOT, "testdata",
+                                  ports[REXT]["bitstream"]), "rb").read()
+    (n, rext_outs), counts = run_path(
+        f"{REXT} decode_batch",
+        lambda: decode_md5(REXT, ports, check_sei_hash=True),
+        k1_k4 + ["mc_grid"])
+    log(f"{REXT}: {n} pictures, MD5 matches port_streams.json")
+    xfer.reset()
+    (parse_s, comp_s, csum, n), _ = run_path(
+        f"{REXT} decode_batch_device",
+        lambda: DD.decode_batch_device(rext_data, device="cuda"),
+        k1_k4 + ["mc_grid", "plane_checksum"])
+    want = DD.cropped_checksum(rext_outs)
+    if csum != want or n != len(rext_outs) or xfer.D2H != 4:
+        raise AssertionError(f"{REXT} decode_batch_device: checksum {csum} "
+                             f"vs {want}, {n} pictures, {xfer.D2H} bytes")
+    log(f"decode_batch_device {REXT} ({card}): checksum {csum} equals "
+        f"cropped_checksum; parse {parse_s:.3f} s, device recon + checksum "
+        f"{comp_s:.3f} s")
+    del rext_outs
+    for name, modes in REXT_SMALL.items():
+        (n, _), counts = run_path(f"{name} decode_batch",
+                                  lambda: decode_md5(name, gold),
+                                  ["intra_level"] + modes)
+        for k, src in LAUNCHES_FROM.items():
+            if src == name:
+                launches[k] = counts[k]
+        log(f"{name}: {n} pictures, MD5 matches golden")
+    multi = [gold[nm]["bitstream"] for nm in MULTI]
+    outs, _ = run_path(
+        "decode_streams " + " + ".join(MULTI),
+        lambda: DD.decode_streams(
+            [open(os.path.join(ROOT, "testdata", b), "rb").read()
+             for b in multi], device="cuda", threads=2),
+        k1_k4 + ["mc_grid"])
+    for nm, o in zip(MULTI, outs):
+        md5 = hashlib.md5(b"".join(p.tobytes() for pic in o
+                                   for p in pic)).hexdigest()
+        if len(o) != gold[nm]["frames"] or md5 != gold[nm]["decoded_yuv_md5"]:
+            raise AssertionError(f"decode_streams: {nm} MD5 {md5}")
+    log(f"decode_streams: {len(MULTI)} streams in one reconstruction, each "
+        "MD5 matches golden")
+    del outs
+
     # ---- timed runs: parse and device phases ----
     timed_run(STREAM, data, gold[STREAM]["decoded_yuv_md5"], card)
     statuses = timed_run(TOOLS, tools_data, ports[TOOLS]["decoded_yuv_md5"],
@@ -990,6 +1164,11 @@ def main():
     if statuses != ["OK"] * ports[TOOLS]["frames"]:
         raise AssertionError(f"{TOOLS}: hash SEI statuses {statuses}")
     log(f"{TOOLS}: every picture's hash SEI checks OK")
+    statuses = timed_run(REXT, rext_data, ports[REXT]["decoded_yuv_md5"],
+                         card, check_sei_hash=True)
+    if statuses != ["OK"] * ports[REXT]["frames"]:
+        raise AssertionError(f"{REXT}: hash SEI statuses {statuses}")
+    log(f"{REXT}: every picture's hash SEI checks OK")
 
     breakdown(data, card)
 
@@ -1018,7 +1197,11 @@ def main():
            "restore_unfiltered": ("libhm_tpu_torch/csrc/pcm.cu",
                                   "libhm_tpu/parallel/device_filters.py:191"),
            "pcm_scatter": ("libhm_tpu_torch/csrc/pcm.cu",
-                           "libhm_tpu/parallel/dag_decode.py:483")}
+                           "libhm_tpu/parallel/dag_decode.py:483"),
+           "deblock_chroma16": ("libhm_tpu_torch/csrc/deblock.cu",
+                                "libhm_tpu/ops/deblock.py:136"),
+           "ccp_apply": ("libhm_tpu_torch/csrc/ccp.cu",
+                         "libhm_tpu/parallel/batch_decode.py:164")}
     rows = []
     for name in kernels:
         r = results[name]

@@ -12,7 +12,9 @@
 //   pass addresses the plane through strides (line stride 1, tap stride
 //   W) and the per-4x4 maps are read in place (uint8/int8, no widening).
 //   Luma: one thread per 4-line edge segment (its decisions use lines 0 and
-//   3).  Chroma: one thread per line of an 8-sample edge.  Within a pass,
+//   3).  Chroma: one thread per line of an 8-sample edge; the tc map is
+//   uint8 up to 11-bit chroma and int16 above (tc reaches 24 << 4 at 12
+//   bits), one template and one entry point per type.  Within a pass,
 //   edge k reads taps 8k-4 .. 8k+3 and writes 8k-3 .. 8k+2 (luma; chroma
 //   reads 8k-2 .. 8k+1, writes 8k-1 .. 8k), so no two threads touch the
 //   same sample and the plane is updated in place.  Taps left of the
@@ -129,8 +131,9 @@ __global__ void deblock_luma_kernel(
 // bsn: [B, h4, w4] (no_p bit 16, no_q bit 32).  One thread per line r and
 // edge k; vertical: line = row r, edge column 8k; horizontal: line =
 // column r, edge row 8k.
+template <typename TC>
 __global__ void deblock_chroma_kernel(
-    int32_t* __restrict__ plane, const uint8_t* __restrict__ ctc,
+    int32_t* __restrict__ plane, const TC* __restrict__ ctc,
     const uint8_t* __restrict__ bsn, int B, int H, int W, int h4, int w4,
     int vertical, int ssx, int ssy, int bd) {
   const int nk = vertical ? W / 8 : H / 8;
@@ -176,16 +179,32 @@ extern "C" int deblock_luma(void* plane, const void* bsn, const void* qp,
   return (int)cudaGetLastError();
 }
 
+template <typename TC>
+int launch_chroma(void* plane, const void* ctc, const void* bsn, int B, int H,
+                  int W, int h4, int w4, int vertical, int ssx, int ssy,
+                  int bd, void* stream) {
+  const long long n = (long long)B * (vertical ? (W / 8) * H : (H / 8) * W);
+  if (n == 0) return 0;
+  const int threads = 256;
+  deblock_chroma_kernel<TC><<<(unsigned)((n + threads - 1) / threads),
+                              threads, 0, (cudaStream_t)stream>>>(
+      (int32_t*)plane, (const TC*)ctc, (const uint8_t*)bsn, B, H, W, h4, w4,
+      vertical, ssx, ssy, bd);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int deblock_chroma(void* plane, const void* ctc, const void* bsn,
                               int B, int H, int W, int h4, int w4,
                               int vertical, int ssx, int ssy, int bd,
                               void* stream) {
-  const long long n = (long long)B * (vertical ? (W / 8) * H : (H / 8) * W);
-  if (n == 0) return 0;
-  const int threads = 256;
-  deblock_chroma_kernel<<<(unsigned)((n + threads - 1) / threads), threads, 0,
-                          (cudaStream_t)stream>>>(
-      (int32_t*)plane, (const uint8_t*)ctc, (const uint8_t*)bsn, B, H, W, h4,
-      w4, vertical, ssx, ssy, bd);
-  return (int)cudaGetLastError();
+  return launch_chroma<uint8_t>(plane, ctc, bsn, B, H, W, h4, w4, vertical,
+                                ssx, ssy, bd, stream);
+}
+
+extern "C" int deblock_chroma16(void* plane, const void* ctc, const void* bsn,
+                                int B, int H, int W, int h4, int w4,
+                                int vertical, int ssx, int ssy, int bd,
+                                void* stream) {
+  return launch_chroma<int16_t>(plane, ctc, bsn, B, H, W, h4, w4, vertical,
+                                ssx, ssy, bd, stream);
 }

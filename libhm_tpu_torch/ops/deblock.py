@@ -152,6 +152,9 @@ def deblock_chroma_vertical(plane, tc_c, filt, no_p, no_q, bit_depth):
 # K3: deblocking kernels (in place, one direction per launch)
 _K3_LUMA = Kernel("deblock_luma", [P, P, P, P, P, I, I, I, I, I, I, I])
 _K3_CHROMA = Kernel("deblock_chroma", [P, P, P, I, I, I, I, I, I, I, I, I])
+# the int16-tc form (chroma above 11 bits) is its own entry point
+_K3_CHROMA16 = Kernel("deblock_chroma16",
+                      [P, P, P, I, I, I, I, I, I, I, I, I])
 
 
 def _seg(a, vertical, nsy, nsx):
@@ -228,21 +231,25 @@ def deblock_luma(planes, bsn, qp, bo, to, *, vertical, bd):
 def deblock_chroma(planes, ctc, bsn, *, vertical, bd, ssx, ssy):
     """Chroma deblocking of one component for one edge direction, in place.
 
-    planes: [B, Hc, Wc] int32; ctc: [B, h4, w4] uint8 tc per luma 4x4 (0 =
-    edge not filtered); bsn: [B, h4, w4] uint8 (no_p bit 4, no_q bit 5).
+    planes: [B, Hc, Wc] int32; ctc: [B, h4, w4] tc per luma 4x4 (0 = edge
+    not filtered), uint8 up to 11-bit chroma and int16 above (its own
+    entry point and launch count); bsn: [B, h4, w4] uint8 (no_p bit 4,
+    no_q bit 5).
     """
     if not planes.is_cuda:
         return deblock_chroma_plain(planes, ctc, bsn, vertical=vertical,
                                     bd=bd, ssx=ssx, ssy=ssy)
     dev = planes.device
     check(planes, "planes", torch.int32, 3)
-    check(ctc, "ctc", torch.uint8, 3, dev)
+    wide = ctc.dtype == torch.int16
+    check(ctc, "ctc", torch.int16 if wide else torch.uint8, 3, dev)
     check(bsn, "bsn", torch.uint8, 3, dev)
     B, H, W = planes.shape
     _, h4, w4 = bsn.shape
     if bsn.shape[0] != B or ctc.shape != bsn.shape or H % 8 or W % 8 or \
             ((H - 1) >> (2 - ssy)) >= h4 or ((W - 1) >> (2 - ssx)) >= w4:
         raise ValueError("deblock_chroma: inconsistent plane/map shapes")
-    _K3_CHROMA(ptr(planes), ptr(ctc), ptr(bsn), B, H, W, h4, w4,
-               int(vertical), ssx, ssy, bd)
+    (_K3_CHROMA16 if wide else _K3_CHROMA)(
+        ptr(planes), ptr(ctc), ptr(bsn), B, H, W, h4, w4, int(vertical), ssx,
+        ssy, bd)
     return planes

@@ -50,13 +50,15 @@ def _headroom(bd):
     return max(2, IF_PREC - bd)
 
 
-def predict(refs, sel, y, x, mvx, mvy, *, taps, fbx, fby, bd):
-    """14-bit (is_last=False) prediction of one list, plain torch.
+def predict(refs, sel, y0, x0, mvx, mvy, bh, bw, *, taps, fbx, fby, bd):
+    """14-bit (is_last=False) prediction of one list for N blocks of
+    bh x bw samples with one MV each, plain torch.
 
-    refs: [R, H, W] int32 reference planes of one component; sel, y, x,
-    mvx, mvy: broadcastable integer tensors per output sample (reference
-    index, sample position, MV in 1/(1<<fb) units).  The four cases of
-    mc_blocks (copy, h only, v only, h then v) with its shifts and offsets.
+    refs: [R, H, W] int32 reference planes of one component; sel, y0, x0,
+    mvx, mvy: [N] integer tensors (reference index, block origin, MV in
+    1/(1<<fb) units).  Returns [N, bh, bw] int32.  The four cases of
+    mc_blocks (copy, h only, v only, h then v) with its shifts and offsets,
+    each tap's coordinate clamped into the picture.
     """
     R, H, W = refs.shape
     dev = refs.device
@@ -72,29 +74,44 @@ def predict(refs, sel, y, x, mvx, mvy, *, taps, fbx, fby, bd):
         # the chroma table is eighth-pel (TComInterpolationFilter.cpp:346)
         fx = fx << (3 - fbx)
         fy = fy << (3 - fby)
-    ix = x + (mvx >> fbx)
-    iy = y + (mvy >> fby)
+    ix = x0.to(torch.int32) + (mvx >> fbx)
+    iy = y0.to(torch.int32) + (mvy >> fby)
     base = torch.clamp(sel.long(), 0, R - 1) * (H * W)
     flat = refs.reshape(-1)
-    cols = [torch.clamp(ix + k - half, 0, W - 1).long() for k in range(taps)]
-    rows = [base + torch.clamp(iy + k - half, 0, H - 1).long() * W
-            for k in range(taps)]
-    cfx = tab[fx.long()]
-    cfy = tab[fy.long()]
     s1 = 6 - headroom
     o1 = -(IF_OFFS << s1)
-
-    def hrow(k):
-        acc = sum(cfx[..., j] * flat[rows[k] + cols[j]] for j in range(taps))
-        return (acc + o1) >> s1
-    copy = (flat[rows[half] + cols[half]] << headroom) - IF_OFFS
-    h_only = hrow(half)
-    v_only = (sum(cfy[..., k] * flat[rows[k] + cols[half]]
-                  for k in range(taps)) + o1) >> s1
-    hv = sum(cfy[..., k] * hrow(k) for k in range(taps)) >> 6
+    out = torch.empty((ix.shape[0], bh, bw), dtype=torch.int32, device=dev)
+    ary = torch.arange(bh + taps - 1, device=dev) - half
+    arx = torch.arange(bw + taps - 1, device=dev) - half
+    # each case (copy, h only, v only, h then v) on its own blocks only,
+    # from one gather of each block's tap window
     fxb, fyb = fx != 0, fy != 0
-    return torch.where(fxb & fyb, hv, torch.where(
-        fxb, h_only, torch.where(fyb, v_only, copy)))
+    for hx, vy in ((False, False), (True, False), (False, True),
+                   (True, True)):
+        i = torch.nonzero((fxb == hx) & (fyb == vy)).squeeze(1)
+        if not i.numel():
+            continue
+        ry = ary if vy else ary[half:half + bh]
+        rx = arx if hx else arx[half:half + bw]
+        rows = base[i, None] + \
+            torch.clamp(iy[i, None] + ry, 0, H - 1).long() * W
+        cols = torch.clamp(ix[i, None] + rx, 0, W - 1).long()
+        win = flat[rows[:, :, None] + cols[:, None, :]].long()   # [n, r, c]
+        if hx:
+            cf = tab[fx[i].long()][:, None, None, :]
+            h = ((win.unfold(2, taps, 1) * cf).sum(-1) + o1) >> s1
+        else:
+            h = win                                                # [n, r, bw]
+        if vy:
+            cf = tab[fy[i].long()][:, None, None, :]
+            v = (h.unfold(1, taps, 1) * cf).sum(-1)
+            v = v >> 6 if hx else (v + o1) >> s1
+        elif hx:
+            v = h
+        else:
+            v = (h << headroom) - IF_OFFS
+        out[i] = v.to(torch.int32)
+    return out
 
 
 def uni_round(p, bd):
@@ -149,28 +166,36 @@ def mc_grid_plain(stacked, res, refs, mv, dirm, sel, *, is_luma, sx, sy, bd,
     """
     taps, fbx, fby = _filter_args(is_luma, sx, sy)
     dev = stacked.device
-    B, Hp, Wp = stacked.shape
-    h4, w4 = dirm.shape[1:]
-    py = torch.arange(Hp, device=dev, dtype=torch.int32)
-    px = torch.arange(Wp, device=dev, dtype=torch.int32)
-    cy = torch.clamp((py << sy) >> 2, max=h4 - 1).long()[:, None]
-    cx = torch.clamp((px << sx) >> 2, max=w4 - 1).long()[None, :]
-    d = dirm.to(torch.int32)[:, cy, cx]                      # [B, Hp, Wp]
-    # padding rows/cols beyond the component size never code inter
-    valid = (py[:, None] < H) & (px[None, :] < W)
-    d = torch.where(valid[None], d, 0)
-    y = py[None, :, None]
-    x = px[None, None, :]
+    bh, bw = 4 >> sy, 4 >> sx
+    # one block of the component per inter luma 4x4, and for each list only
+    # the blocks that use it
+    bc, cy, cx = torch.nonzero(dirm > 0, as_tuple=True)
+    dd = dirm[bc, cy, cx].to(torch.int32)[:, None, None]
+    y0 = ((cy << 2) >> sy).to(torch.int32)
+    x0 = ((cx << 2) >> sx).to(torch.int32)
     preds = []
     for l in range(2):
-        mvl = mv[:, cy, cx, l]                               # [B, Hp, Wp, 2]
-        preds.append(predict(refs, sel[:, cy, cx, l], y, x, mvl[..., 0],
-                             mvl[..., 1], taps=taps, fbx=fbx, fby=fby, bd=bd))
+        p = torch.zeros((bc.shape[0], bh, bw), dtype=torch.int32, device=dev)
+        u = torch.nonzero(dd[:, 0, 0] & (1 << l)).squeeze(1)
+        if u.numel():
+            mvl = mv[bc[u], cy[u], cx[u], l]                     # [n, 2]
+            p[u] = predict(refs, sel[bc[u], cy[u], cx[u], l], y0[u], x0[u],
+                           mvl[:, 0], mvl[:, 1], bh, bw, taps=taps, fbx=fbx,
+                           fby=fby, bd=bd)
+        preds.append(p)
     p0, p1 = preds
-    pred = torch.where(d == 3, bi_average(p0, p1, bd), torch.where(
-        d == 1, uni_round(p0, bd), uni_round(p1, bd)))
-    out = torch.clamp(pred + res, 0, (1 << bd) - 1)
-    stacked.copy_(torch.where(d > 0, out, stacked))
+    pred = torch.where(dd == 3, bi_average(p0, p1, bd), torch.where(
+        dd == 1, uni_round(p0, bd), uni_round(p1, bd)))
+    b = bc[:, None, None].expand(pred.shape)
+    y = (y0[:, None, None] + torch.arange(bh, device=dev)[:, None]).long() \
+        .expand(pred.shape)
+    x = (x0[:, None, None] + torch.arange(bw, device=dev)[None, :]).long() \
+        .expand(pred.shape)
+    # padding rows/cols beyond the component size never code inter
+    keep = (y < H) & (x < W)
+    b, y, x = b[keep], y[keep], x[keep]
+    stacked[b, y, x] = torch.clamp(pred[keep] + res[b, y, x], 0,
+                                   (1 << bd) - 1).to(stacked.dtype)
     return stacked
 
 
@@ -224,13 +249,12 @@ def mc_weighted_plain(stacked, res, refs, blk, *, is_luma, sx, sy, bd, wp,
     dev = stacked.device
     B, Hp, Wp = stacked.shape
     blkw, blkh = 4 >> sx, 4 >> sy
+    p0, p1 = (predict(refs, blk[:, 8 + l], blk[:, 2], blk[:, 1],
+                      blk[:, 4 + 2 * l], blk[:, 5 + 2 * l], blkh, blkw,
+                      taps=taps, fbx=fbx, fby=fby, bd=bd) for l in range(2))
     f = {k: blk[:, i][:, None, None] for i, k in enumerate(BLK_FIELDS)}
     y = f["y"] + torch.arange(blkh, device=dev, dtype=torch.int32)[:, None]
     x = f["x"] + torch.arange(blkw, device=dev, dtype=torch.int32)[None, :]
-    p0 = predict(refs, f["sel0"], y, x, f["mv0x"], f["mv0y"], taps=taps,
-                 fbx=fbx, fby=fby, bd=bd)
-    p1 = predict(refs, f["sel1"], y, x, f["mv1x"], f["mv1y"], taps=taps,
-                 fbx=fbx, fby=fby, bd=bd)
     if wp:
         uni0 = weighted_uni(p0, f["w0"], f["o0"], denom, bd)
         uni1 = weighted_uni(p1, f["w1"], f["o1"], denom, bd)

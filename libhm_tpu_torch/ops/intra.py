@@ -227,22 +227,26 @@ def intra_level_plain(plane, res_plane, meta, level, *, n, is_luma, bd, W,
     """Plain torch version of intra_level (any device)."""
     # imported here: parallel.intra_wavefront imports this module
     from ..parallel.intra_wavefront import unpack_block_meta
-    d = {k: v[:, level] for k, v in meta.items()}
-    Bp, K = d["xs"].shape
+    Bp, _, K = meta["xs"].shape
+    d = {k: v[:, level].reshape((Bp * K,) + v.shape[3:])
+         for k, v in meta.items()}
+    # real slots only (dummy slots have x = W + 1024)
+    keep = torch.nonzero(d["xs"] < W).squeeze(1)
+    if not keep.numel():
+        return plane
     xs, ys, mode, filt, strong, dbf, av = unpack_block_meta(
-        {k: v.reshape((Bp * K,) + v.shape[2:]) for k, v in d.items()}, n)
-    bidx = torch.arange(Bp, device=plane.device).repeat_interleave(K)
+        {k: v[keep] for k, v in d.items()}, n)
+    bidx = torch.div(keep, K, rounding_mode="floor")
     cx, cy = border_coords(xs, ys, n, W, H)
     g = plane[bidx[:, None], cy.long(), cx.long()]
     vals = substitute(g, av, bd)
     vals = filter_refs(vals, n, bd, filt, strong)
     pred = predict(vals, mode, n, is_luma, bd, dbf)
-    keep = xs < W                                  # dummy slots: x = W+1024
     ar = torch.arange(n, device=plane.device)
-    iy = (ys[keep][:, None, None] + ar[None, :, None]).long()
-    ix = (xs[keep][:, None, None] + ar[None, None, :]).long()
-    ib = bidx[keep][:, None, None]
-    out = torch.clamp(pred[keep] + res_plane[ib, iy, ix], 0, (1 << bd) - 1)
+    iy = (ys[:, None, None] + ar[None, :, None]).long()
+    ix = (xs[:, None, None] + ar[None, None, :]).long()
+    ib = bidx[:, None, None]
+    out = torch.clamp(pred + res_plane[ib, iy, ix], 0, (1 << bd) - 1)
     shp = out.shape
     plane[ib.expand(shp), iy.expand(shp), ix.expand(shp)] = out
     return plane

@@ -48,24 +48,27 @@ def sao_component(plane, valid_mask, ctu_type, ctu_band, ctu_offsets,
         log2_ctb_cy = log2_ctb_c
     dev = plane.device
     Hp, Wp = plane.shape
+    maxv = (1 << bit_depth) - 1
+    # only the samples inside the picture whose CTB has SAO on change
     yy = (torch.arange(Hp, device=dev) >> log2_ctb_cy)[:, None]
     xx = (torch.arange(Wp, device=dev) >> log2_ctb_c)[None, :]
-    ptype = ctu_type[yy, xx]
-    pband = ctu_band[yy, xx]
-    offs = (ctu_offsets * (1 << offset_scale))[yy, xx]         # [Hp, Wp, 4]
-    maxv = (1 << bit_depth) - 1
-    src = plane
+    inside = (torch.arange(Hp, device=dev)[:, None] < H) & \
+        (torch.arange(Wp, device=dev)[None, :] < W)
+    ys, xs = torch.nonzero(inside & (ctu_type[yy, xx] >= 0), as_tuple=True)
+    cty, ctx = ys >> log2_ctb_cy, xs >> log2_ctb_c
+    ptype = ctu_type[cty, ctx]
+    pband = ctu_band[cty, ctx]
+    offs = ctu_offsets[cty, ctx] * (1 << offset_scale)           # [n, 4]
+    src = plane[ys, xs]
 
     # band offset
     rel = ((src >> (bit_depth - 5)) - pband) & 31
-    bo = torch.gather(offs, 2, torch.clamp(rel, max=3)[..., None].long())[..., 0]
+    bo = torch.gather(offs, 1, torch.clamp(rel, max=3)[:, None].long())[:, 0]
     bo = torch.where(rel < 4, bo, 0)
 
     # edge offset
     nb = torch.as_tensor(EO_NB, device=dev)
     eo_idx = torch.clamp(ptype - 1, 0, 3).long()
-    ys = torch.arange(Hp, device=dev)[:, None]
-    xs = torch.arange(Wp, device=dev)[None, :]
     n1y, n1x = ys + nb[:, 0][eo_idx], xs + nb[:, 1][eo_idx]
     n2y, n2x = ys + nb[:, 2][eo_idx], xs + nb[:, 3][eo_idx]
     inb = (n1y >= 0) & (n1y < H) & (n1x >= 0) & (n1x < W) & \
@@ -76,26 +79,26 @@ def sao_component(plane, valid_mask, ctu_type, ctu_band, ctu_offsets,
     if slice_map is not None:
         # pairwise slice/tile crossing rules (Rec. 8.7.3)
         def pair_ok(nyc, nxc):
-            r = (slice_map == slice_map[nyc, nxc]) | \
-                (lf_map & lf_map[nyc, nxc])
+            r = (slice_map[ys, xs] == slice_map[nyc, nxc]) | \
+                (lf_map[ys, xs] & lf_map[nyc, nxc])
             if tile_map is not None:
-                r = r & ((tile_map == tile_map[nyc, nxc]) |
+                r = r & ((tile_map[ys, xs] == tile_map[nyc, nxc]) |
                          bool(lf_across_tiles))
             return r
         ok = ok & pair_ok(n1yc, n1xc) & pair_ok(n2yc, n2xc)
     elif valid_mask is not None:
         ok = ok & valid_mask[n1yc, n1xc] & valid_mask[n2yc, n2xc]
-    cat = torch.sign(src - src[n1yc, n1xc]) + torch.sign(src - src[n2yc, n2xc]) + 2
+    cat = torch.sign(src - plane[n1yc, n1xc]) + \
+        torch.sign(src - plane[n2yc, n2xc]) + 2
     # category 0, 1, (2: none), 3, 4 -> offsets 0, 1, 2, 3
     slot = torch.where(cat < 2, cat, cat - 1)
-    eo = torch.gather(offs, 2, torch.clamp(slot, 0, 3)[..., None].long())[..., 0]
+    eo = torch.gather(offs, 1, torch.clamp(slot, 0, 3)[:, None].long())[:, 0]
     eo = torch.where(ok & (cat != 2), eo, 0)
 
     delta = torch.where(ptype == 0, bo, eo)
-    inside = (ys < H) & (xs < W)
-    out = torch.where(inside & (ptype >= 0),
-                      torch.clamp(src + delta, 0, maxv), src)
-    return out.to(torch.int32)
+    out = plane.to(torch.int32).clone()
+    out[ys, xs] = torch.clamp(src + delta, 0, maxv).to(torch.int32)
+    return out
 
 
 # ---------------------------------------------------------------------------

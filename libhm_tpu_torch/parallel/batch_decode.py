@@ -7,7 +7,9 @@ Port of the device-resident half of libhm_tpu/parallel/batch_decode.py:
    (ops/transform.py residual_scatter) that dequantizes (with the level's
    scaling matrices where the bucket has them), inverse transforms and
    writes straight into the stacked [Bp, Hc, Wc] planes, or writes the
-   coefficients of transquant-bypass TUs as they are;
+   coefficients of transquant-bypass TUs as they are; then, in 4:4:4,
+   cross-component prediction on the finished luma residual, one K10
+   launch per chroma component (ops/ccp.py ccp_apply);
  - intra wavefront: each picture's levelized blocks (intra_wavefront.
    prepare_component) are stacked over the picture axis, and every
    (level, block size) is one K2 launch (ops/intra.py intra_level), in
@@ -18,6 +20,7 @@ import torch
 
 from ..hostdec.picture import MODE_INTRA
 
+from ..ops import ccp as CK
 from ..ops import intra as IK
 from ..ops import transform as TK
 from ..utils import xfer
@@ -190,6 +193,20 @@ def _residual_planes_batch_device(items, Bp, device):
                 rotate=rotate,
                 rdpcm=xfer.up(rdpcm[sel].astype(np.int8), "coeff", device)
                 if rdpcm[sel].any() else None)
+    # cross-component prediction (4:4:4), once every luma residual of the
+    # level is final: one K10 launch per chroma component over its TUs of
+    # every size
+    ccp = {}
+    for b, it in enumerate(items):
+        if it["sps"].chroma_format_idc != 3:
+            continue
+        for tu in it["pic"].tu_list:
+            if tu.comp and tu.cross_comp_alpha:
+                ccp.setdefault(tu.comp, []).append(
+                    (b, tu.y, tu.x, tu.w, tu.cross_comp_alpha))
+    for c, rows in sorted(ccp.items()):
+        CK.ccp_apply(res_stacked[c], res_stacked[0],
+                     xfer.up(np.asarray(rows, np.int32), "idx", device))
     return res_stacked
 
 

@@ -7,6 +7,8 @@ level"); every level reconstructs in shared device launches and its pixels
 stay on the device:
 
     coeff buckets --upload--> residual planes          (K1 per bucket)
+    cross-component prediction (4:4:4)                 (K10 per chroma
+                                                        component)
     PCM samples into the zeroed planes                 (K9 per component)
     MC + residual add from the per-4x4 maps            (K5 per component,
                                                         K6 for WP levels)
@@ -18,8 +20,11 @@ stay on the device:
     final planes --int16 download--> output pictures    (decode_batch)
     or a uint32 checksum of them --4 bytes-->           (K7, decode_batch_device)
 
-Streams outside the slice raise NotImplementedError naming the missing
-piece; nothing falls back to another backend.
+Chroma formats 4:0:0 (one plane), 4:2:0, 4:2:2 and 4:4:4 and bit depths
+up to 12 decode; `decode_streams` merges the levels of several streams of
+one geometry into the same launches.  Streams outside the slice (extended
+precision, bit depths above 12) raise NotImplementedError naming the
+missing piece; nothing falls back to another backend.
 """
 import numpy as np
 import torch
@@ -63,17 +68,18 @@ def reference_levels(items):
 def _check_slice(items):
     """Raise NotImplementedError for coding tools the port lacks."""
     for it in items:
-        sps, pps = it["sps"], it["pps"]
+        sps = it["sps"]
         missing = []
-        if pps.cross_component_prediction:
-            missing.append("cross-component prediction")
-        if sps.chroma_format_idc != 1:
-            missing.append(f"chroma format {sps.chroma_format_idc} "
-                           "(only 4:2:0)")
         if sps.extended_precision:
             missing.append("extended precision")
         if max(sps.bit_depth_luma, sps.bit_depth_chroma) > 12:
             missing.append("bit depths above 12")
+        # the reference's CCP omits the luma bit-depth scale of H.265
+        # 8.6.6, so it is right only when luma and chroma depths agree
+        if it["pps"].cross_component_prediction and \
+                sps.bit_depth_luma != sps.bit_depth_chroma:
+            missing.append("cross-component prediction with unequal bit "
+                           "depths")
         if missing:
             raise NotImplementedError(
                 "libhm_tpu_torch decode_batch: not ported: " +
@@ -453,6 +459,43 @@ def decode_batch_device(data, *, device="cuda", parse="native"):
         xfer.count_d2h(4)
     t2 = time.monotonic()
     return t1 - t0, t2 - t1, csum, len(pending)
+
+
+def decode_streams(datas, *, device="cuda", threads=0):
+    """Decode several independent Annex-B streams of one picture geometry
+    with their pictures batched into shared launches on `device`.
+
+    Port of libhm_tpu/parallel/dag_decode.py decode_streams (no mesh: one
+    device).  The control planes parse independently with the native
+    parser (in `threads` host threads when > 0); reconstruction merges every stream's reference-DAG
+    levels, so level i of all streams reconstructs in one set of launches.
+    Returns a list of per-stream output lists (each = decode_batch(data)).
+    """
+    from ..hostdec.decoder import Decoder
+
+    device = _check_device(device, "decode_streams")
+    decs = [Decoder(parse="native", recon="collect") for _ in datas]
+    if threads and len(datas) > 1:
+        from concurrent.futures import ThreadPoolExecutor
+        with ThreadPoolExecutor(max_workers=threads) as ex:
+            list(ex.map(lambda p: p[0].decode_annexb(p[1]),
+                        zip(decs, datas)))
+    else:
+        for dec, data in zip(decs, datas):
+            dec.decode_annexb(data)
+    items_all = [it for dec in decs for it in getattr(dec, "collected", [])]
+    if not items_all:
+        return [[] for _ in datas]
+    _check_geometry(items_all, "decode_streams")
+    pending = _recon_levels(items_all, device)
+    # split the pending downloads back to their owning stream
+    own = {id(it["dp"]): si for si, dec in enumerate(decs)
+           for it in getattr(dec, "collected", [])}
+    per_stream = [[] for _ in decs]
+    for entry in pending:
+        per_stream[own[id(entry[0])]].append(entry)
+    return [_materialize(dec, pend, False)
+            for dec, pend in zip(decs, per_stream)]
 
 
 def cropped_checksum(outs):

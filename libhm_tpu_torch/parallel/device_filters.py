@@ -4,7 +4,8 @@ Port of libhm_tpu/parallel/device_filters.py.  The host uploads compact
 per-4x4 syntax maps (int8 / uint8 / int16) and the stacked planes never
 leave the device:
 
-    deblock V (luma K3, chroma K3 x2) -> deblock H (same)
+    deblock V (luma K3, chroma K3 x2; its int16-tc form above 11-bit
+    chroma) -> deblock H (same)
     -> SAO (K4 x3; its multi form where a picture of the level has
        several slices or tiles)
     -> restore (K8 x3, where PCM without loop filter or transquant bypass
@@ -104,8 +105,6 @@ def filter_level(items, stacked, sps, device):
     """
     multi, restore, sao_on = picture_filter_flags(items)
     ncomp = 3 if sps.chroma_format_idc else 1
-    if ncomp > 1 and sps.bit_depth_chroma > 11:
-        raise NotImplementedError("chroma deblocking above 11 bits")
     ssx = sps.chroma_shift_x() if ncomp > 1 else 0
     ssy = sps.chroma_shift_y() if ncomp > 1 else 0
     maps = [prepare_filter_maps(it["pic"], it["sps"], it["pps"],

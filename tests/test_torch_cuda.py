@@ -118,7 +118,9 @@ def _mc_inputs(rng, bd, B=3, R=4, Hp=96, Wp=128, H=88, W=120, sx=0, sy=0):
 
 @pytest.mark.parametrize("is_luma,bd,sx,sy", [(True, 8, 0, 0),
                                               (True, 10, 0, 0),
-                                              (False, 10, 1, 1)])
+                                              (False, 10, 1, 1),
+                                              (False, 10, 1, 0),
+                                              (False, 12, 0, 0)])
 def test_mc_grid_kernel(gpu, is_luma, bd, sx, sy):
     from libhm_tpu_torch.ops import interp as MK
     a = _mc_inputs(np.random.default_rng(3 + bd), bd, sx=sx, sy=sy)
@@ -329,4 +331,111 @@ def test_tool_decode_on_gpu(gpu, name, kernel):
     outs = DD.decode_batch(data, device=gpu)
     buf = b"".join(p.tobytes() for pic in outs for p in pic)
     assert hashlib.md5(buf).hexdigest() == table[name]["decoded_yuv_md5"]
+    assert k.launches > 0
+
+
+def test_ccp_kernel(gpu):
+    """K10 == its plain version: every TU size and alpha, TUs on the
+    plane's edges, values at the int16 clip."""
+    from libhm_tpu_torch.ops import ccp as CK
+    rng = np.random.default_rng(10)
+    B, H, W = 2, 128, 256
+    res_c = torch.from_numpy(rng.integers(-32768, 32768, (B, H, W))
+                             .astype(np.int32)).to(gpu)
+    res_l = torch.from_numpy(rng.integers(-32768, 32768, (B, H, W))
+                             .astype(np.int32)).to(gpu)
+    cells = [(b, y, x) for b in range(B) for y in range(0, H, 32)
+             for x in range(0, W, 32)]
+    pick = rng.permutation(len(cells))
+    rows = [(cells[pick[k]][0], cells[pick[k]][1] + 32 - n,
+             cells[pick[k]][2] + 32 - n, n, a)
+            for k, (n, a) in enumerate((n, a) for n in (4, 8, 16, 32)
+                                       for a in (-8, -4, -2, -1, 1, 2, 4, 8))]
+    tus = torch.tensor(rows, dtype=torch.int32, device=gpu)
+    got, want = res_c.clone(), res_c.clone()
+    n0 = CK._K10.launches
+    CK.ccp_apply(got, res_l, tus)
+    CK.ccp_apply_plain(want, res_l, tus)
+    torch.cuda.synchronize()
+    assert CK._K10.launches == n0 + 1
+    assert torch.equal(got, want) and not torch.equal(got, res_c)
+
+
+@pytest.mark.parametrize("bd,ssx,ssy", [(12, 1, 1), (12, 1, 0), (12, 0, 0),
+                                         (10, 1, 0), (10, 0, 0)])
+def test_deblock_chroma_kernel(gpu, bd, ssx, ssy):
+    """K3 chroma == its plain version, both directions, on the 4:2:0,
+    4:2:2 and 4:4:4 grids: the int16-tc entry point at 12 bits, the
+    uint8 one at 10."""
+    from libhm_tpu_torch.ops import deblock as DK
+    rng = np.random.default_rng(bd + 2 * ssx + ssy)
+    Hl, Wl = 128, 256
+    h4, w4 = Hl // 4, Wl // 4
+    bs = rng.integers(0, 3, (1, h4, w4)).astype(np.uint8)
+    bsn = torch.from_numpy(bs | ((rng.random(bs.shape) < 0.1)
+                                 .astype(np.uint8) << 4)).to(gpu)
+    wide = bd > 11
+    ctc = np.where(bs == 2, rng.integers(0, 25, bs.shape) << (bd - 8), 0)
+    ctc = torch.from_numpy(ctc.astype(np.int16 if wide else np.uint8)).to(gpu)
+    mid = 1 << (bd - 1)
+    plane = torch.from_numpy(rng.integers(mid - (mid >> 3), mid + (mid >> 3),
+                                          (1, Hl >> ssy, Wl >> ssx))
+                             .astype(np.int32)).to(gpu)
+    k = DK._K3_CHROMA16 if wide else DK._K3_CHROMA
+    for vertical in (True, False):
+        kw = dict(vertical=vertical, bd=bd, ssx=ssx, ssy=ssy)
+        got, want = plane.clone(), plane.clone()
+        n0 = k.launches
+        DK.deblock_chroma(got, ctc, bsn, **kw)
+        DK.deblock_chroma_plain(want, ctc, bsn, **kw)
+        torch.cuda.synchronize()
+        assert k.launches == n0 + 1
+        assert torch.equal(got, want) and not torch.equal(got, plane)
+
+
+@pytest.mark.parametrize("sx,sy", [(1, 0), (0, 0)])
+def test_sao_kernel_rext(gpu, sx, sy):
+    """K4 == its plain version on 4:2:2 chroma (16x32 chroma CTBs of 32x32
+    luma CTBs: log2cx != log2cy) and 4:4:4 chroma, 12 bits with an offset
+    scale, the picture cropped inside its CTB grid."""
+    from libhm_tpu_torch.ops import sao as SK
+    rng = np.random.default_rng(40 + 2 * sx + sy)
+    B, log2_ctb, HpL, WpL = 2, 5, 96, 128
+    hc, wc = HpL >> log2_ctb, WpL >> log2_ctb
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(gpu)  # noqa
+    args = (t(rng.integers(0, 4096, (B, HpL >> sy, WpL >> sx))
+              .astype(np.int32)),
+            t(rng.integers(-1, 5, (B, hc, wc)).astype(np.int8)),
+            t(rng.integers(0, 32, (B, hc, wc)).astype(np.int8)),
+            t(rng.integers(-31, 32, (B, hc, wc, 4)).astype(np.int8)),
+            t(np.array([0, 2], np.int32)))
+    kw = dict(log2cx=log2_ctb - sx, log2cy=log2_ctb - sy, bd=12,
+              W=120 >> sx, H=84 >> sy)
+    n0 = SK._K4.launches
+    got = SK.sao(*args, **kw)
+    want = SK.sao_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert SK._K4.launches == n0 + 1
+    assert torch.equal(got, want) and not torch.equal(got, args[0])
+
+
+@pytest.mark.parametrize("name,kernel", [
+    ("ccp444_lowdelay_160x96", "_K10"),
+    ("main12_intra_416x240", "_K3_CHROMA16"),
+    ("rext422_lowdelayP_416x240", "_K5"),
+    ("mono_lowdelay_160x96", "_K5")])
+def test_rext_decode_on_gpu(gpu, name, kernel):
+    """The RExt goldens match their MD5 through the kernels of their
+    chroma format and bit depth."""
+    from libhm_tpu_torch.ops import ccp as CK
+    from libhm_tpu_torch.ops import deblock as DK
+    from libhm_tpu_torch.ops import interp as MK
+    from libhm_tpu_torch.parallel import dag_decode as DD
+    k = next(getattr(m, kernel) for m in (CK, DK, MK) if hasattr(m, kernel))
+    k.launches = 0
+    data = open(os.path.join(ROOT, "testdata", GOLD[name]["bitstream"]),
+                "rb").read()
+    outs = DD.decode_batch(data, device=gpu)
+    buf = b"".join(p.tobytes() for pic in outs for p in pic)
+    assert hashlib.md5(buf).hexdigest() == GOLD[name]["decoded_yuv_md5"]
     assert k.launches > 0

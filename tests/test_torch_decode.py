@@ -67,19 +67,30 @@ def test_sei_hash_check():
     assert statuses and all(s == "OK" for s in statuses), statuses
 
 
+def _collected(name):
+    from libhm_tpu_torch.hostdec.decoder import Decoder
+    dec = Decoder(parse="native", recon="collect")
+    dec.decode_annexb(_data(name))
+    return dec.collected
+
+
 def test_inter_stream_raises():
-    """An inter stream outside the slice (4:2:2) is refused by name."""
-    with pytest.raises(NotImplementedError, match="chroma format 2"):
-        decode_batch(_data("rext422_lowdelayP_416x240"), device=CPU)
+    """4:2:2 inter streams are ported (tests/test_torch_rext_decode.py);
+    the refusal is held on one of their pictures marked for extended
+    precision, which no golden uses: named."""
+    items = _collected("rext422_noRdoq_160x96")
+    items[-1]["sps"].extended_precision = 1
+    with pytest.raises(NotImplementedError, match="extended precision"):
+        DD._recon_levels(items, CPU)
 
 
 def test_tiles_stream_raises():
-    """Tiles are ported (tests/test_torch_tools_decode.py decodes
-    tiles_832x480); the refusal is held on a stream still outside the
-    port: cross-component prediction, named."""
-    with pytest.raises(NotImplementedError,
-                       match="cross-component prediction"):
-        decode_batch(_data("ccp444_lowdelay_160x96"), device=CPU)
+    """Tiles and cross-component prediction are ported; the refusal is
+    held on a picture whose bit depth is set to 14: named."""
+    items = _collected("ccp444_lowdelay_160x96")
+    items[0]["sps"].bit_depth_chroma = 14
+    with pytest.raises(NotImplementedError, match="bit depths above 12"):
+        DD._recon_levels(items, CPU)
 
 
 def test_cuda_without_gpu_raises():

@@ -146,8 +146,8 @@ def test_wrappers_refuse_cpu_tensors():
 def test_build_rule_sees_every_source():
     from libhm_tpu_torch.kernels import build
     names = sorted(os.path.basename(s) for s in build._sources())
-    assert names == ["checksum.cu", "deblock.cu", "errors.cu", "intra.cu",
-                     "mc.cu", "pcm.cu", "residual.cu", "sao.cu"]
+    assert names == ["ccp.cu", "checksum.cu", "deblock.cu", "errors.cu",
+                     "intra.cu", "mc.cu", "pcm.cu", "residual.cu", "sao.cu"]
     assert build.LIB_PATH.startswith(os.path.join(PKG, "_build"))
 
 

@@ -113,3 +113,49 @@ def test_unpack_block_meta():
             {k: torch.from_numpy(v) for k, v in levels_t[n].items()}, n)
         for a, b in zip(want, got):
             _eq(a, b)
+
+
+@pytest.mark.parametrize("name,comp", [("intra_main10_416x240", 0),
+                                       ("rext422_intra_416x240", 1)])
+def test_intra_level_plain_equals_jax_scan(name, comp):
+    """intra_level_plain (K2's yardstick), run for every block size of a
+    level as the port's decode runs it, equals one level of the JAX
+    batched scan (`_scan_fn_batched`, residuals gathered from a plane)
+    after every level of a real picture, levels with no block of a size
+    included: a Main10 luma plane and a 4:2:2 chroma plane."""
+    from libhm_tpu.hostdec.decoder import Decoder
+    from libhm_tpu.parallel.batch_decode import _scan_fn_batched
+    from libhm_tpu.parallel.intra_wavefront import prepare_component
+    data = open(os.path.join(ROOT, "testdata", GOLD[name]["bitstream"]),
+                "rb").read()
+    dec = Decoder(parse="native", recon="collect")
+    dec.decode_annexb(data)
+    it = dec.collected[0]
+    sps = it["sps"]
+    sx = sps.chroma_shift_x() if comp else 0
+    sy = sps.chroma_shift_y() if comp else 0
+    W, H = sps.width >> sx, sps.height >> sy
+    bd = sps.bit_depth_chroma if comp else sps.bit_depth_luma
+    levels, L = prepare_component(sps, it["pic"], it["zmap"], it["tile_map"],
+                                  comp, None, False)
+    sizes = tuple(sorted(levels))
+    keys = ("xs", "ys", "mode", "flags", "av")
+    shape = (1, (sps.pic_height_ctbs << sps.log2_ctb) >> sy,
+             (sps.pic_width_ctbs << sps.log2_ctb) >> sx)
+    rng = np.random.default_rng(11 + comp)
+    base = rng.integers(0, 1 << bd, shape).astype(np.int32)
+    res = rng.integers(-64, 65, shape).astype(np.int32)
+    scan = _scan_fn_batched(sizes, comp == 0, bd, W, H, res_gather=True)
+    res_j = jnp.asarray(res)
+    want = jnp.asarray(base)
+    got, res_t = torch.from_numpy(base.copy()), torch.from_numpy(res)
+    meta = {n: {k: torch.from_numpy(levels[n][k][None]) for k in keys}
+            for n in sizes}
+    for level in range(L):
+        one = {n: {k: jnp.asarray(levels[n][k][None, level:level + 1])
+                   for k in keys} for n in sizes}
+        want = scan(want, res_j, one)
+        for n in sizes:
+            TI.intra_level_plain(got, res_t, meta[n], level, n=n,
+                                 is_luma=comp == 0, bd=bd, W=W, H=H)
+        _eq(want, got)

@@ -22,9 +22,26 @@ result line is not printed):
     1920x1088 4:4:4 residual planes with a seeded table of TUs over 30% of
     the area; then K3 chroma, K4 and K5 chroma again at the RExt chroma
     geometries, 4:2:2 (960x1088, 32x64 chroma CTBs, 2x4 MC blocks) and
-    4:4:4 (1920x1088), their errors joining those kernels' results;
+    4:4:4 (1920x1088), their errors joining those kernels' results; the
+    per-picture rows of the kernel table: K2 over one 1080p picture's
+    luma wavefront (row 14) and K5 on one picture with K3 and K4 (row 15);
  4. the main paths, each with the launch counters reset just before it and
     read just after:
+    - testdata/randomaccess_main10_1080p.bin pushed NAL by NAL through
+      libhm_tpu_torch.api.HmDecoder (native parse, recon="torch" on the
+      card: each picture reconstructed as soon as it is parsed) and every
+      picture pulled: golden MD5, K1-K5 launched, no reference plane
+      uploaded, peak device memory under (DPB size + 3) pictures + 256
+      MiB; time to the first picture, fps, recon ms per picture;
+    - the small streams of PICTURE_SMALL through HmDecoder with the hash
+      SEI check: their MD5s (field_ra_160x96: every hash SEI OK), each
+      with the kernel modes it is there for;
+    - the dec_app CLI on lowdelayP_416x240 (a subprocess): exit 0 and the
+      YUV's golden MD5;
+    - decode_intra_batch on the all-intra 1080p stream: golden MD5, every
+      hash SEI OK, K1-K4;
+    - entry()'s fused recon step at 1080p (K1, K6, K3, K4, K7) equal to
+      its plain version, sum and frame, timed (row 16);
     - testdata/randomaccess_main10_1080p.bin through
       parallel.dag_decode.decode_batch(device="cuda"): golden MD5, K1-K5
       launched;
@@ -59,6 +76,7 @@ import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -97,6 +115,37 @@ REXT_SMALL = {"rext422_intra_416x240": ["deblock_chroma"],
               "intra_rext444_nosao": []}
 # independent streams of one geometry through decode_streams
 MULTI = ("randomaccess_416x240", "randomaccess_416x240", "lowdelayB_416x240")
+# streams pushed through libhm_tpu_torch.api.HmDecoder (the per-picture
+# path), and the kernel entry points each must launch beyond K2; the
+# first five hold the control plane (bumping, temporal layers, field
+# pictures, RASL skipping); FIELD is checked by its hash SEIs (golden.json)
+FIELD = "field_ra_160x96"
+PICTURE_SMALL = {"intra_64x64": [], "lowdelayP_416x240": ["mc_grid"],
+                 "tids4_ra_160x96": ["mc_grid"], FIELD: [],
+                 "cra_start_416x240": [],
+                 "wp_lowdelayP_416x240": ["mc_weighted"],
+                 "tiles_nolfcross_512x128": ["sao_apply_multi"],
+                 "lossless_intra_416x240": ["residual_bypass",
+                                            "restore_unfiltered"],
+                 "pcm_port_416x240": ["pcm_scatter"],
+                 "scaling_intra_416x240": ["residual_scatter_scaled"],
+                 "ccp444_lowdelay_160x96": ["ccp_apply"],
+                 "mono_lowdelay_160x96": ["mc_grid"],
+                 "main12_intra_416x240": ["deblock_chroma16"],
+                 "rext422_lowdelayP_416x240": ["mc_grid"]}
+DEC_APP = "lowdelayP_416x240"             # through the dec_app CLI
+# rows 14-16 of the kernel table (the JAX per-picture device programs and
+# the fused entry step): key, the kernels that carry it, source, replaces
+ROWS = (("row14", "_scan_fn per picture: intra_level (K2)",
+         "libhm_tpu_torch/csrc/intra.cu",
+         "libhm_tpu/parallel/intra_wavefront.py:175"),
+        ("row15", "_mc_fn, _deblock_v_fn, _deblock_cv_fn, _sao_fn per "
+         "picture: mc_grid (K5), deblock_luma, deblock_chroma (K3), "
+         "sao_apply (K4)", "libhm_tpu_torch/recon_torch.py",
+         "libhm_tpu/recon_tpu.py:85"),
+        ("row16", "_fused_recon_step: residual_scatter (K1), mc_weighted "
+         "(K6), deblock_luma (K3), sao_apply (K4), plane_checksum (K7)",
+         "libhm_tpu_torch/entry.py", "__graft_entry__.py:22"))
 # the main path whose launches the kernel table reports, for the modes
 # that the tool stream does not run
 LAUNCHES_FROM = {"residual_bypass": "lossless_intra_416x240",
@@ -666,12 +715,12 @@ REXT_COMPS = ((False, 1, 0, 1088, 960, 1080, 960),
               (False, 0, 0, 1088, 1920, 1080, 1920))
 
 
-def _mc_inputs(rng, bd, Hp, Wp, H, W):
+def _mc_inputs(rng, bd, Hp, Wp, H, W, B=LEVEL_B):
     """Seeded level inputs: planes, references, per-4x4 maps.  One MV in
     twenty points far outside the picture (up to 1000 luma samples)."""
     import numpy as np
     import torch
-    B, R = LEVEL_B, LEVEL_R
+    R = LEVEL_R
     h4, w4 = COMPS[0][3] // 4, COMPS[0][4] // 4
     mv = rng.integers(-64, 65, (B, h4, w4, 2, 2))
     far = rng.random((B, h4, w4, 2, 2)) < 0.05
@@ -685,14 +734,15 @@ def _mc_inputs(rng, bd, Hp, Wp, H, W):
             t(rng.integers(0, R, (B, h4, w4, 2)).astype(np.int16)))
 
 
-def check_k5(card, rng, bd=10, comps=COMPS):
-    """K5 on a 1080p level: by default luma 1920x1088 and 4:2:0 chroma
-    960x544 planes."""
+def check_k5(card, rng, bd=10, comps=COMPS, B=LEVEL_B):
+    """K5 on a 1080p level of B pictures: by default luma 1920x1088 and
+    4:2:0 chroma 960x544 planes."""
     import torch
     from libhm_tpu_torch.ops import interp as MK
     r = Result()
     for is_luma, sx, sy, Hp, Wp, H, W in comps:
-        stacked, res, refs, mv, dirm, sel = _mc_inputs(rng, bd, Hp, Wp, H, W)
+        stacked, res, refs, mv, dirm, sel = _mc_inputs(rng, bd, Hp, Wp, H, W,
+                                                       B)
         kw = dict(is_luma=is_luma, sx=sx, sy=sy, bd=bd, W=W, H=H)
         got, want = stacked.clone(), stacked.clone()
         MK.mc_grid(got, res, refs, mv, dirm, sel, **kw)
@@ -719,7 +769,7 @@ def check_k5(card, rng, bd=10, comps=COMPS):
         nbytes = refs.numel() * 4 + inter * 8 + dirm.numel() * 13
         log(f"K5 mc_grid {'luma' if is_luma else 'chroma'} {(Hp, Wp)} "
             f"sx={sx} sy={sy} "
-            f"B={LEVEL_B} R={LEVEL_R} inter samples={inter}: mismatches="
+            f"B={B} R={LEVEL_R} inter samples={inter}: mismatches="
             f"{int((got != want).sum())} kernel {bms:.4f} ms, plain "
             f"{pms:.4f} ms ({card})")
         r.add(e, bms, pms, nbytes, int(ops.sum()) * per_cell)
@@ -802,6 +852,190 @@ def check_k7(card, rng, npics=17, bd=10):
     r.add(abs(got - want) + abs(got - lib), bms, pms, n * 4 + len(views) * 32,
           n)
     return r
+
+
+def check_row14(items, card, rng):
+    """Row 14 (the per-picture intra wavefront, JAX _scan_fn): every K2
+    launch of picture 0's luma wavefront (one picture, B=1), against the
+    same launches of the plain version, from a zero plane and seeded
+    residuals."""
+    import numpy as np
+    import torch
+    from libhm_tpu_torch.ops import intra as IK
+    from libhm_tpu_torch.parallel.batch_decode import intra_meta, intra_steps
+    it = items[0]
+    sps = it["sps"]
+    Hp = sps.pic_height_ctbs << sps.log2_ctb
+    Wp = sps.pic_width_ctbs << sps.log2_ctb
+    bd = sps.bit_depth_luma
+    batched = intra_meta([it], 0, 1, DEV)
+    res = torch.from_numpy(rng.integers(-64, 65, (1, Hp, Wp))
+                           .astype(np.int32)).to(DEV)
+    steps = intra_steps(batched)
+
+    def run(fn):
+        plane = torch.zeros((1, Hp, Wp), dtype=torch.int32, device=DEV)
+        for level, n in steps:
+            fn(plane, res, batched[n][0], level, n=n, is_luma=True, bd=bd,
+               W=sps.width, H=sps.height)
+        return plane
+    got = run(IK.intra_level)
+    # the plain version takes ~15 s a run on the card: its one run is both
+    # the comparison and its time (every op it uses is warm by now)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = run(IK.intra_level_plain)
+    end.record()
+    torch.cuda.synchronize()
+    pms = start.elapsed_time(end)
+    e = max_abs_err(got, want)
+    bms = cuda_ms(lambda: run(IK.intra_level), 3)
+    nblk = {n: int(sum(batched[n][1])) for n in sorted(batched)}
+    log(f"row 14 (_scan_fn per picture) K2 over picture 0's luma wavefront,"
+        f" {len(steps)} launches, blocks {nblk}: mismatches="
+        f"{int((got != want).sum())} kernel {bms:.4f} ms, plain {pms:.4f} "
+        f"ms ({card})")
+    r = Result()
+    # per block, as check_k2 counts it
+    r.add(e, bms, pms, sum(b * ((4 * n + 1) * 4 + n * n * 8 + 6 +
+                                (4 * n + 8) // 8) for n, b in nblk.items()),
+          sum(b * n * n * 10 for n, b in nblk.items()))
+    return r
+
+
+def check_fused(card):
+    """Row 16: entry()'s fused recon step at 1080p Main10 through K1, K6,
+    K3, K4 and K7 against the same step through the plain versions: the
+    int32 sum and the frame exactly.  Returns (Result, launches per kernel
+    of one step)."""
+    import torch
+    from libhm_tpu_torch import entry as E
+    from libhm_tpu_torch.ops import checksum as CK
+    from libhm_tpu_torch.ops import deblock as DK
+    from libhm_tpu_torch.ops import interp as MK
+    from libhm_tpu_torch.ops import sao as SK
+    from libhm_tpu_torch.ops import transform as TK
+    kern = {"residual_scatter": TK._K1, "mc_weighted": MK._K6,
+            "deblock_luma": DK._K3_LUMA, "sao_apply": SK._K4,
+            "plane_checksum": CK._K7}
+    fn, args = E.entry(device="cuda")
+    before = {k: v.launches for k, v in kern.items()}
+    s, f = fn(*args)
+    torch.cuda.synchronize()
+    launches = {k: v.launches - before[k] for k, v in kern.items()}
+    if not all(launches.values()):
+        raise AssertionError(f"fused step: kernels not launched {launches}")
+    s_p, f_p = E.fused_recon_step_plain(*args)
+    e = max(abs(int(s) - int(s_p)), max_abs_err(f, f_p))
+    bms = cuda_ms(lambda: fn(*args), 20)
+    pms = cuda_ms(lambda: E.fused_recon_step_plain(*args), 3)
+    # every input read once, the frame and the sum written once; of the two
+    # reference frames only what MC reads: each 16x16 block, on both lists,
+    # reads a (16 + 7)^2 window of int32 samples
+    refs = args[E.ARGS.index("refs")]
+    nb16 = args[E.ARGS.index("sel")].numel()
+    nbytes = sum(a.numel() * a.element_size() for a in args
+                 if a is not refs) + nb16 * 2 * 23 * 23 * 4 + \
+        f.numel() * 4 + 4
+    log(f"row 16 fused_recon_step (1088x1920, 256 16x16 + 1024 4x4 "
+        f"blocks): sum {int(s)} (plain {int(s_p)}), frame mismatches "
+        f"{int((f != f_p).sum())}; launches {launches}; kernel {bms:.4f} ms"
+        f", plain {pms:.4f} ms, {nbytes} bytes: bound "
+        f"{nbytes / HBM_BPS * 1e3:.4f} ms ({card})")
+    r = Result()
+    r.add(e, bms, pms, nbytes, 0)
+    return r, launches
+
+
+def push_decode(data, sei_check=False):
+    """Push a stream NAL by NAL through libhm_tpu_torch.api.HmDecoder (its
+    defaults: native parse, recon="torch" on the card), re-pushing on a new
+    picture and pulling every picture when told to.  Returns (decoder,
+    pictures, seconds to the first pulled picture, total seconds)."""
+    import torch
+    from libhm_tpu_torch import api
+    from libhm_tpu_torch.hostdec import nal as N
+    dec = api.HmDecoder()
+    dec.set_sei_check(sei_check)
+    pics, first = [], None
+    nals = list(N.split_annexb(data))
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    i = 0
+    while i < len(nals):
+        new_pic, check = dec.push_nal_unit(nals[i], i == len(nals) - 1)
+        if check:
+            while True:
+                p = dec.get_picture()
+                if p is None:
+                    break
+                if first is None:
+                    first = time.monotonic() - t0
+                pics.append(p)
+        if not new_pic:
+            i += 1
+    return dec, pics, first, time.monotonic() - t0
+
+
+def pics_md5(pics):
+    return hashlib.md5(b"".join(pl.tobytes() for p in pics
+                                for pl in p.planes)).hexdigest()
+
+
+def picture_main_path(data, gold, card):
+    """The per-picture main path: the RA 1080p stream pushed through
+    HmDecoder and every picture pulled, timed per picture; golden MD5, no
+    reference plane uploaded, peak device memory under the DPB's bound."""
+    import torch
+    import libhm_tpu_torch.recon_torch as RT
+    from libhm_tpu_torch.utils import xfer
+    recon_ms = []
+    orig = RT.reconstruct_picture
+
+    def timed(item, device):
+        t = time.monotonic()
+        out = orig(item, device)         # ends with the download
+        recon_ms.append((time.monotonic() - t) * 1e3)
+        return out
+    xfer.reset()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    RT.reconstruct_picture = timed
+    try:
+        dec, pics, first, total = push_decode(data)
+    finally:
+        RT.reconstruct_picture = orig
+    peak = torch.cuda.max_memory_allocated()
+    md5 = pics_md5(pics)
+    if len(pics) != gold[STREAM]["frames"] or \
+            md5 != gold[STREAM]["decoded_yuv_md5"]:
+        raise AssertionError(f"{STREAM} through HmDecoder: {len(pics)} "
+                             f"pictures, MD5 {md5}")
+    sps = pics[0]._dp.sps
+    dpb = sps.max_dec_pic_buffering[sps.max_sub_layers_minus1]
+    Hp = sps.pic_height_ctbs << sps.log2_ctb
+    Wp = sps.pic_width_ctbs << sps.log2_ctb
+    pic_bytes = Hp * Wp * 4 * 3 // 2
+    cap = (dpb + 3) * pic_bytes + (256 << 20)
+    ref = xfer.BY_TAG.get("ref", 0)
+    ms = sorted(recon_ms)
+    log(f"{STREAM} through HmDecoder ({card}): {len(pics)} pictures, MD5 "
+        f"matches golden; first picture pulled after {first:.3f} s; "
+        f"{len(pics) / total:.3f} fps over {total:.3f} s; recon per picture "
+        f"median {ms[len(ms) // 2]:.1f} ms, max {ms[-1]:.1f} ms; H2D "
+        f"{xfer.H2D / len(pics) / 1e6:.3f} MB/picture (ref {ref} bytes), "
+        f"D2H {xfer.D2H / len(pics) / 1e6:.3f} MB/picture; peak device "
+        f"memory {peak / 1e6:.1f} MB (before the run {base / 1e6:.1f} MB; "
+        f"cap {cap / 1e6:.1f} MB = (DPB {dpb} + 3) x {pic_bytes / 1e6:.3f} "
+        f"MB + 256 MiB); DPB at the end {len(dec._core.dpb)} pictures")
+    if ref:
+        raise AssertionError(f"{STREAM}: {ref} bytes of reference planes "
+                             "uploaded")
+    if peak > cap:
+        raise AssertionError(f"{STREAM}: peak device memory {peak} over "
+                             f"the cap {cap}")
+    return len(pics)
 
 
 def breakdown(data, card):
@@ -992,6 +1226,14 @@ def main():
     results["restore_unfiltered"] = check_k8(card, rng)
     results["pcm_scatter"] = check_k9(card, rng)
     results["ccp_apply"] = check_k10(card, rng)
+    # rows 14 and 15 of the kernel table: the per-picture path's shapes
+    # (one picture: the intra wavefront of a whole 1080p picture; MC of
+    # one picture; deblocking and SAO are per picture already)
+    results["row14"] = check_row14(items, card, rng)
+    results["row15"] = check_k5(card, rng, B=1)
+    for k in ("deblock_luma", "deblock_chroma", "sao_apply"):
+        v = results[k]
+        results["row15"].add(v.err, v.ms, v.plain_ms, v.bytes, v.ops)
     # the chroma geometries of the RExt path: 4:2:2 (chroma 960x1088) and
     # 4:4:4 (1920x1088).  Their errors join the kernels' lines; the times
     # there stay those of the 4:2:0 shapes above, comparable across runs
@@ -1044,6 +1286,67 @@ def main():
         return out, counts
 
     launches = {}
+    data = open(os.path.join(ROOT, "testdata", gold[STREAM]["bitstream"]),
+                "rb").read()
+    # the per-picture path: HmDecoder (push a NAL, pull pictures), each
+    # picture reconstructed on the card as soon as it is parsed
+    _, counts = run_path(f"{STREAM} HmDecoder",
+                         lambda: picture_main_path(data, gold, card),
+                         k1_k4 + ["mc_grid"])
+    launches["row14"] = counts["intra_level"]
+    launches["row15"] = sum(counts[k] for k in (
+        "mc_grid", "deblock_luma", "deblock_chroma", "sao_apply"))
+    for name, modes in PICTURE_SMALL.items():
+        table = ports if name in ports else gold
+        stream = open(os.path.join(ROOT, "testdata", table[name]["bitstream"]),
+                      "rb").read()
+        (dec, pics, _, secs), _ = run_path(
+            f"{name} HmDecoder", lambda: push_decode(stream, sei_check=True),
+            ["intra_level"] + modes)
+        statuses = [p.hash_status for p in pics]
+        if len(pics) != table[name]["frames"] or (
+                statuses != ["OK"] * len(pics) if name == FIELD
+                else pics_md5(pics) != table[name]["decoded_yuv_md5"]):
+            raise AssertionError(f"{name} through HmDecoder: {len(pics)} "
+                                 f"pictures, hash SEIs {statuses}")
+        log(f"{name} through HmDecoder: {len(pics)} pictures in {secs:.3f} "
+            f"s, {'every hash SEI OK' if name == FIELD else 'MD5 matches'}")
+    with tempfile.TemporaryDirectory(dir=KB.BUILD) as tmp:
+        yuv = os.path.join(tmp, "out.yuv")
+        r = subprocess.run(
+            [sys.executable, "-m", "libhm_tpu_torch.apps.dec_app", "-b",
+             os.path.join("testdata", gold[DEC_APP]["bitstream"]), "-o", yuv,
+             "--sei-check"], cwd=ROOT, capture_output=True, text=True,
+            timeout=600)
+        md5 = hashlib.md5(open(yuv, "rb").read()).hexdigest() \
+            if r.returncode == 0 else None
+    if md5 != gold[DEC_APP]["decoded_yuv_md5"]:
+        raise AssertionError(f"dec_app on {DEC_APP}: exit {r.returncode}, "
+                             f"MD5 {md5}\n{r.stdout[-2000:]}{r.stderr[-2000:]}")
+    log(f"dec_app on {DEC_APP} (subprocess, exit 0): YUV MD5 matches golden;"
+        f" {r.stdout.strip().splitlines()[-1]}")
+    from libhm_tpu_torch.parallel.batch_decode import decode_intra_batch
+    dps, _ = run_path(f"{INTRA} decode_intra_batch",
+                      lambda: decode_intra_batch(intra_data,
+                                                 check_sei_hash=True),
+                      k1_k4)
+    md5 = hashlib.md5(b"".join(p.tobytes() for dp in dps
+                               for p in dp.cropped())).hexdigest()
+    statuses = [dp.hash_status for dp in dps]
+    if md5 != gold[INTRA]["decoded_yuv_md5"] or \
+            statuses != ["OK"] * gold[INTRA]["frames"]:
+        raise AssertionError(f"decode_intra_batch {INTRA}: MD5 {md5}, hash "
+                             f"SEIs {statuses}")
+    log(f"decode_intra_batch {INTRA}: MD5 matches golden, every hash SEI OK")
+    del dps
+    (results["row16"], step), _ = run_path(
+        "entry() fused_recon_step", lambda: check_fused(card),
+        ["residual_scatter", "mc_weighted", "deblock_luma", "sao_apply",
+         "plane_checksum"])
+    launches["row16"] = sum(step.values())
+    if results["row16"].err:
+        raise AssertionError("fused_recon_step differs from its plain version")
+
     (npics, ra_outs), counts = run_path(
         f"{STREAM} decode_batch", lambda: decode_md5(STREAM, gold),
         k1_k4 + ["mc_grid"])
@@ -1054,8 +1357,6 @@ def main():
     log(f"{WP}: {n} pictures, MD5 matches golden")
     launches["mc_weighted"] = counts["mc_weighted"]
 
-    data = open(os.path.join(ROOT, "testdata", gold[STREAM]["bitstream"]),
-                "rb").read()
     xfer.reset()
     (parse_s, comp_s, csum, n), counts = run_path(
         f"{STREAM} decode_batch_device",
@@ -1214,6 +1515,15 @@ def main():
                      "bound_by": bound_by,
                      "library_ms": None if r.library_ms is None
                      else round(r.library_ms, 4)})
+    for key, name, source, replaces in ROWS:
+        r = results[key]
+        bound_ms, bound_by = r.bound()
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": launches[key],
+                     "max_abs_err": r.err, "ms": round(r.ms, 4),
+                     "plain_ms": round(r.plain_ms, 4),
+                     "bound_ms": float(f"{bound_ms:.4g}"),
+                     "bound_by": bound_by, "library_ms": None})
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

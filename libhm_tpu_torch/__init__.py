@@ -5,7 +5,12 @@ names so each counterpart is easy to find:
 
     parallel/dag_decode.py      decode_batch / decode_batch_device entry
                                 points (reference-DAG levels, inter + intra)
-    parallel/batch_decode.py    residual planes + batched intra wavefront
+    parallel/batch_decode.py    residual planes + batched intra wavefront;
+                                decode_intra_batch
+    recon_torch.py              per-picture reconstruction, behind
+                                hostdec.decoder.Decoder(recon="torch")
+    api.py, apps/dec_app.py     libHMDec push/pull API and decoder CLI
+    entry.py                    the fused recon step on 1080p shapes
     parallel/device_filters.py  deblocking V/H + SAO per level
     parallel/intra_wavefront.py host levelization of intra blocks
     ops/{transform,intra,deblock,sao,interp,checksum}.py

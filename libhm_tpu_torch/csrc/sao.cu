@@ -91,7 +91,9 @@ __global__ void sao_kernel(const int32_t* __restrict__ in,
     const int rel = ((src >> (bd - 5)) - band[ctu]) & 31;
     if (rel < 4) delta = o[rel] * mul;
   } else {                                        // edge offset, class t-1
-    const int* nb = kEoNb[t - 1];
+    // types above 4 (no stream codes them) take class 3, as the JAX
+    // sao_component clamps its EO index
+    const int* nb = kEoNb[min(t, 4) - 1];
     const int y1 = y + nb[0], x1 = x + nb[1], y2 = y + nb[2], x2 = x + nb[3];
     // neighbours outside the W x H picture are rejected before any map
     // is read

@@ -56,12 +56,23 @@ class Decoder:
 
     recon_backend: factory(sps, pic_syntax, zmap, tile_map) -> object with
     .reconstruct(ref_pics, mc_fn) -> planes.
+
+    recon="torch" reconstructs each picture on `device` (the card unless
+    the caller asks for the CPU) as soon as the control plane finishes it
+    (recon_torch.reconstruct_picture); reference pictures keep their planes
+    on the device while they are in the DPB.
     """
 
     def __init__(self, recon_backend=None, parse="python", recon="numpy",
-                 check_sei_hash=False):
+                 check_sei_hash=False, device="cuda"):
         if recon == "tpu":
-            raise ValueError("recon='tpu' is the JAX package's backend")
+            raise ValueError("recon='tpu' is the JAX package's backend; "
+                             "the port's device backend is recon='torch'")
+        if recon == "torch":
+            from ..parallel.dag_decode import _check_device
+            device = _check_device(device, "Decoder(recon='torch')")
+        self.device = device
+        self._resident = []             # pictures holding device planes
         self.parse = parse
         self.recon = recon
         # decoded-picture-hash SEI verification (reference TDecGop
@@ -227,6 +238,7 @@ class Decoder:
                     nalu.nal_type == N.NAL_CRA
                 self._flush_dpb_for_irap(no_output)
             self._apply_rps_retirement(sh, sps)
+            self._release_device_planes()
             pic = PicSyntax(sps, pps, alloc_maps=(self.parse != "native"))
             sd = SliceDecoder(sps, pps, pic)
             if sh.slice_type != I_SLICE:
@@ -377,20 +389,23 @@ class Decoder:
         if self.recon == "native":
             assert self.parse == "native", "recon='native' needs parse='native'"
             planes = None
-        elif self.recon == "collect":
-            # defer reconstruction: stash the parse products so a batched
-            # backend (parallel/batch_decode) can run all pictures in one
-            # device program
+        elif self.recon in ("collect", "torch"):
+            # collect: defer reconstruction, stash the parse products so a
+            # batched backend (parallel/batch_decode) can run all pictures
+            # in one device program; torch: the same item, reconstructed
+            # on the device below, once its DecodedPicture exists
             planes = None
-            if not hasattr(self, "collected"):
-                self.collected = []
-            self.collected.append(dict(
+            item = dict(
                 sps=sps, pps=pps, pic=pic, zmap=sd._zmap,
                 tile_map=sd.tile_map, poc=sh.poc,
                 temporal_id=nalu.temporal_id,
                 output_flag=sh.pic_output_flag,
-                pending_hash=self._pending_hash))
-            self._pending_hash = None
+                pending_hash=self._pending_hash)
+            if self.recon == "collect":
+                if not hasattr(self, "collected"):
+                    self.collected = []
+                self.collected.append(item)
+                self._pending_hash = None
         else:
             recon = self.recon_backend(sps, pic, sd._zmap, sd.tile_map)
             recon.constrained_intra = bool(pps.constrained_intra_pred)
@@ -424,10 +439,35 @@ class Decoder:
         if self.recon == "collect":
             # batched backends fill dp.planes after DAG-ordered recon
             self.collected[-1]["dp"] = dp
+        elif self.recon == "torch":
+            # the hash check and the bumping below read the downloaded
+            # planes; the device copies stay for later pictures' MC
+            from ..recon_torch import reconstruct_picture
+            item["dp"] = dp
+            dp.planes = reconstruct_picture(item, self.device)
+            self._resident.append(dp)
         if self.check_sei_hash:
             self._verify_hash(dp)
         self.dpb.append(dp)
         self._bump_outputs(sps, nalu.temporal_id)
+        self._release_device_planes()
+
+    def _release_device_planes(self):
+        """Drop the device planes of pictures that left the DPB or that the
+        RPS marked unused for reference: no later picture reads them for
+        MC, and their host planes serve output.  A DPB picture may hold
+        planes without being resident when a lost reference was made from
+        it (recon_torch._device_plane uploads it), so the DPB is scanned
+        too."""
+        in_dpb = {id(p) for p in self.dpb}
+        held = {id(p): p for p in self._resident + self.dpb
+                if hasattr(p, "_device_planes")}
+        self._resident = []
+        for p in held.values():
+            if p.is_reference and id(p) in in_dpb:
+                self._resident.append(p)
+            else:
+                del p._device_planes
 
     def _apply_rps_retirement(self, sh, sps):
         """Unmark DPB pictures not present in the current RPS (Rec. 8.3.2)."""
@@ -494,3 +534,4 @@ class Decoder:
     def flush(self):
         self._finish_picture()
         self._output_all()
+        self._release_device_planes()

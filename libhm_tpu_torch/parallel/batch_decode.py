@@ -224,6 +224,31 @@ def _intra_batch(items, comp, stacked, res_stacked, device):
     W = sps.width >> ssx
     H = sps.height >> ssy
     bd = sps.bit_depth_luma if comp == 0 else sps.bit_depth_chroma
+    batched = intra_meta(items, comp, int(stacked.shape[0]), device)
+    if batched is None:
+        return stacked
+    for level, n in intra_steps(batched):
+        IK.intra_level(stacked, res_stacked, batched[n][0], level, n=n,
+                       is_luma=comp == 0, bd=bd, W=W, H=H)
+    return stacked
+
+
+def intra_steps(batched):
+    """The (level, size) launches of a wavefront, in the loop order of the
+    JAX scan (levels, then sizes), where the level holds a real block."""
+    n_levels = max(len(pl) for _, pl in batched.values())
+    return [(level, n) for level in range(n_levels) for n in sorted(batched)
+            if level < len(batched[n][1]) and batched[n][1][level]]
+
+
+def intra_meta(items, comp, Bp, device):
+    """The uploaded block metadata of one component's intra wavefront:
+    {n: (meta, per_level)} with meta the [Bp, L, K] slot arrays of size n
+    on `device` and per_level the real slots of each level (a launch is
+    due where it is not 0); None when no picture has an intra block."""
+    sps = items[0]["sps"]
+    W = sps.width >> (sps.chroma_shift_x() if comp else 0)
+    H = sps.height >> (sps.chroma_shift_y() if comp else 0)
     preps = []
     for it in items:
         constrained = bool(it["pps"].constrained_intra_pred)
@@ -232,8 +257,7 @@ def _intra_batch(items, comp, stacked, res_stacked, device):
             constrained)
         preps.append(levels)
     if all(lv is None for lv in preps):
-        return stacked
-    Bp = int(stacked.shape[0])
+        return None
     sizes = sorted({n for lv in preps if lv for n in lv})
     batched = {}
     for n in sizes:
@@ -263,13 +287,45 @@ def _intra_batch(items, comp, stacked, res_stacked, device):
                 d[k][b, :l0, :k0] = v[:l0, :k0]
         batched[n] = ({k: xfer.up(v, "intra_" + k, device)
                        for k, v in d.items()}, per_level[:L])
-    n_levels = max(len(pl) for _, pl in batched.values())
-    for level in range(n_levels):
-        for n in sizes:
-            if n not in batched:
-                continue
-            meta, per_level = batched[n]
-            if level < len(per_level) and per_level[level]:
-                IK.intra_level(stacked, res_stacked, meta, level, n=n,
-                               is_luma=comp == 0, bd=bd, W=W, H=H)
-    return stacked
+    return batched or None
+
+
+# ---------------------------------------------------------------------------
+def decode_intra_batch(data, *, device="cuda", check_sei_hash=False):
+    """Decode an all-intra Annex-B stream with every picture in one set of
+    launches on `device` (the card by default; the CPU runs the plain torch
+    versions of the kernels).
+
+    Port of libhm_tpu/parallel/batch_decode.py decode_intra_batch.  An
+    all-intra stream is one reference-DAG level, so this is
+    dag_decode._recon_levels on the collected pictures: residuals (K1),
+    PCM (K9), the intra wavefront over the picture axis (K2, which gathers
+    the residual from the device plane where the JAX host-planes mode ships
+    it per slot), deblocking (K3), SAO (K4) and restore (K8).  Returns the
+    DecodedPictures in decode (collect) order with host planes and, when
+    `check_sei_hash`, their hash_status.  Raises ValueError on a stream
+    with inter pictures or with mixed picture geometry.
+    """
+    from ..hostdec.decoder import Decoder
+    from .dag_decode import (_check_device, _check_geometry, _materialize,
+                             _recon_levels)
+
+    device = _check_device(device, "decode_intra_batch")
+    # the hash SEIs are kept only when the control plane checks them
+    dec = Decoder(parse="native", recon="collect",
+                  check_sei_hash=check_sei_hash)
+    dec.decode_annexb(data)
+    items = getattr(dec, "collected", [])
+    if not items:
+        return []
+    for it in items:
+        if it["pic"].inter_list:
+            raise ValueError("decode_intra_batch: stream has inter "
+                             "pictures; batching needs an all-intra stream")
+    _check_geometry(items, "decode_intra_batch")
+    _materialize(dec, _recon_levels(items, device), check_sei_hash)
+    dps = [it["dp"] for it in items]
+    for dp in dps:
+        # the caller gets host pictures; nothing else reads these planes
+        del dp._device_planes
+    return dps

@@ -358,15 +358,20 @@ def _recon_levels(items, device, download=True):
     return pending
 
 
+def _download(small):
+    """Host int32 planes of one picture's int16 device planes (D2H counted)."""
+    planes = []
+    for s in small:
+        a = s.cpu().numpy()
+        xfer.count_d2h(a.nbytes)
+        planes.append(a.astype(np.int32))
+    return planes
+
+
 def _materialize(dec, pending, check_sei_hash):
     """Download pending planes, run hash checks, rebuild dec.outputs."""
     for dp, it, small in pending:
-        planes = []
-        for s in small:
-            a = s.cpu().numpy()
-            xfer.count_d2h(a.nbytes)
-            planes.append(a.astype(np.int32))
-        dp.planes = planes
+        dp.planes = _download(small)
         dp.cropped_planes = None
         if check_sei_hash and it["pending_hash"] is not None:
             dec._pending_hash = it["pending_hash"]

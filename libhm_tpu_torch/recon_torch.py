@@ -1,16 +1,51 @@
-"""Residual composition and reference planes of the batched decode path.
+"""Per-picture reconstruction, residual composition and reference planes.
 
-Port of the parts of libhm_tpu/recon_tpu.py that the reference-DAG decode
-uses: the `_residual_fn` composition (dequant -> inverse transform or
-transform skip -> RDPCM), here a plain function on tensors instead of a
-cached jitted closure, and `_device_plane`.  `_pad_pow2` is not ported:
-its pow2 buckets only let XLA reuse compiled programs.
+Port of the parts of libhm_tpu/recon_tpu.py that the port's decode paths
+use: the per-picture backend (`reconstruct_picture`, the counterpart of
+TpuPictureRecon.reconstruct + deblock_picture_tpu + sao_picture_tpu +
+_restore_unfiltered), the `_residual_fn` composition (dequant -> inverse
+transform or transform skip -> RDPCM), here a plain function on tensors
+instead of a cached jitted closure, and `_device_plane`.  `_pad_pow2` is
+not ported: its pow2 buckets only let XLA reuse compiled programs.
 """
 import numpy as np
 import torch
 
 from .ops import transform as TK
 from .utils import xfer
+
+
+def reconstruct_picture(item, device):
+    """Reconstruct one picture on `device`; returns its padded int32 host
+    planes (downloaded as int16, D2H counted).  The filtered planes stay on
+    the device as item["dp"]._device_planes for later pictures' MC.
+
+    item: a collect-mode item (hostdec.decoder) with its "dp".  The picture
+    is one reference-DAG level of one picture, so it runs the DAG path's
+    stages (dag_decode._recon_levels), whose kernels compute what the JAX
+    per-picture device programs compute:
+
+        intra_wavefront._scan_fn          -> K2 (intra_level), through
+                                             batch_decode._intra_batch
+                                             with one picture
+        recon_tpu._mc_fn                  -> K5 (mc_grid, plain epilogue)
+                                             or K6 (mc_weighted, WP)
+        recon_tpu._deblock_v_fn /         -> K3 (deblock_luma /
+          _deblock_cv_fn                     deblock_chroma, uint8 tc, or
+                                             deblock_chroma16 above 11 bits)
+        recon_tpu._sao_fn / _sao_fn_multi -> K4 (sao_apply / sao_apply_multi)
+        recon_tpu._residual_fn            -> K1
+        host CCP, PCM write, restore      -> K10, K9, K8
+
+    TpuPictureRecon's own host preparation (_residual_planes with its pow4
+    buckets, _inter_stage with pow2 reference stacks, _deblock_pass_tpu's
+    chroma tc loop and _seg_maps transposes) is not copied: it builds, in
+    layouts shaped for the TPU's compiled programs, the same inputs that
+    the DAG path's host preparation builds for the kernels.
+    """
+    from .parallel.dag_decode import _download, _recon_levels
+    (_, _, small), = _recon_levels([item], device)
+    return _download(small)
 
 
 def _device_plane(dp, c, H, W, device):

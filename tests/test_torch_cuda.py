@@ -439,3 +439,79 @@ def test_rext_decode_on_gpu(gpu, name, kernel):
     buf = b"".join(p.tobytes() for pic in outs for p in pic)
     assert hashlib.md5(buf).hexdigest() == GOLD[name]["decoded_yuv_md5"]
     assert k.launches > 0
+
+
+@pytest.mark.parametrize("name,kernel", [("tids4_ra_160x96", "_K5"),
+                                         ("wp_lowdelayP_416x240", "_K6")])
+def test_picture_decode_on_gpu(gpu, name, kernel):
+    """Decoder(recon="torch") on the card, NAL by NAL: the golden MD5
+    through the MC kernel of the stream, every reference picture's planes
+    on the card, and after every NAL no picture outside the DPB, and no
+    picture the RPS marked unused for reference, holding any."""
+    from libhm_tpu_torch.hostdec import nal as N
+    from libhm_tpu_torch.hostdec.decoder import Decoder
+    from libhm_tpu_torch.ops import interp as MK
+    from libhm_tpu_torch.utils import xfer
+    k = getattr(MK, kernel)
+    k.launches = 0
+    xfer.reset()
+    dec = Decoder(parse="native", recon="torch", device=gpu)
+
+    def check():
+        in_dpb = {id(p) for p in dec.dpb}
+        assert not [p.poc for p in dec.output_records + dec.dpb
+                    if (id(p) not in in_dpb or not p.is_reference)
+                    and hasattr(p, "_device_planes")]
+        assert all(t.is_cuda for p in dec.dpb if p.is_reference
+                   for t in p._device_planes.values())
+    data = open(os.path.join(ROOT, "testdata", GOLD[name]["bitstream"]),
+                "rb").read()
+    for ebsp in N.split_annexb(data):
+        dec.decode_nal(N.parse_nal(ebsp))
+        check()
+    dec.flush()
+    check()
+    buf = b"".join(p.tobytes() for pic in dec.outputs for p in pic)
+    assert hashlib.md5(buf).hexdigest() == GOLD[name]["decoded_yuv_md5"]
+    assert k.launches > 0 and "ref" not in xfer.BY_TAG
+    assert len(dec.output_records) > len(dec.dpb)    # some were released
+
+
+def test_fused_step_on_gpu(gpu):
+    """entry(): the fused step through K1, K6, K3, K4 and K7 equals its
+    plain version at 1080p, the wrapped int32 sum and the frame."""
+    from libhm_tpu_torch import entry as E
+    from libhm_tpu_torch.ops import checksum as CK
+    from libhm_tpu_torch.ops import deblock as DK
+    from libhm_tpu_torch.ops import interp as MK
+    from libhm_tpu_torch.ops import sao as SK
+    from libhm_tpu_torch.ops import transform as TK
+    kernels = (TK._K1, MK._K6, DK._K3_LUMA, SK._K4, CK._K7)
+    fn, args = E.entry(device=gpu)
+    before = [k.launches for k in kernels]
+    s, f = fn(*args)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == \
+        [2, 1, 1, 1, 1]
+    s_p, f_p = E.fused_recon_step_plain(*args)
+    assert int(s) == int(s_p) and torch.equal(f, f_p)
+    assert not torch.equal(f, args[4])
+
+
+def test_decode_intra_batch_on_gpu(gpu):
+    from libhm_tpu_torch.ops import deblock as DK
+    from libhm_tpu_torch.ops import intra as IK
+    from libhm_tpu_torch.ops import sao as SK
+    from libhm_tpu_torch.ops import transform as TK
+    from libhm_tpu_torch.parallel.batch_decode import decode_intra_batch
+    kernels = (TK._K1, IK._K2, DK._K3_LUMA, DK._K3_CHROMA, SK._K4)
+    for k in kernels:
+        k.launches = 0
+    name = "intra_416x240"
+    data = open(os.path.join(ROOT, "testdata", GOLD[name]["bitstream"]),
+                "rb").read()
+    dps = decode_intra_batch(data, device=gpu, check_sei_hash=True)
+    buf = b"".join(p.tobytes() for dp in dps for p in dp.cropped())
+    assert hashlib.md5(buf).hexdigest() == GOLD[name]["decoded_yuv_md5"]
+    assert [dp.hash_status for dp in dps] == ["OK"] * len(dps)
+    assert all(k.launches > 0 for k in kernels)

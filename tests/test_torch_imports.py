@@ -62,6 +62,8 @@ def test_import_leaves_jax_out():
     neither JAX nor the JAX package."""
     code = ("import sys\n"
             "import libhm_tpu_torch.state, libhm_tpu_torch.recon_torch\n"
+            "import libhm_tpu_torch.api, libhm_tpu_torch.entry\n"
+            "import libhm_tpu_torch.apps.dec_app\n"
             "from libhm_tpu_torch.parallel.dag_decode import decode_batch, "
             "decode_batch_device\n"
             "data = open('testdata/intra_64x64.bin', 'rb').read()\n"
@@ -160,13 +162,16 @@ def _hostdec_copies():
                 rel = os.path.relpath(os.path.join(d, f), dst)
                 if rel != "__init__.py":
                     yield rel, src, dst
-    yield "envvar.py", os.path.join(ROOT, "libhm_tpu", "utils"), \
-        os.path.join(PKG, "utils")
+    for rel, sub in (("envvar.py", "utils"), ("trace.py", "utils"),
+                     ("api.py", ""), ("dec_app.py", "apps")):
+        yield rel, os.path.join(ROOT, "libhm_tpu", sub), os.path.join(PKG, sub)
 
 
-# the two copies that were changed: decoder.py lost the JAX package's
-# recon="tpu" backend, native_bridge.py builds only the parser libraries
-_EDITED = {"decoder.py", "native_bridge.py"}
+# the copies that were changed: decoder.py replaces the JAX package's
+# recon="tpu" backend with recon="torch" (and its device argument),
+# native_bridge.py builds only the parser libraries, api.py and dec_app.py
+# default to recon="torch" on the card and take a device
+_EDITED = {"decoder.py", "native_bridge.py", "api.py", "dec_app.py"}
 
 
 @pytest.mark.parametrize("rel,src,dst", list(_hostdec_copies()),

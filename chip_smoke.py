@@ -15,18 +15,23 @@ result line is not printed):
     of the 1080p main paths, on seeded inputs: exact equality, with both
     times, the bound (bytes or operations at the card's peak rates) and,
     for K7 and K8, the time of the library call that computes the same
-    function; K1's scaled and bypass modes on the TU buckets of the 1080p
+    function; K2 (one launch per component) over the whole luma and both
+    chroma wavefronts of the first 1080p intra picture (row 14; luma alone
+    is K2's line), five kernel runs each against one plain run, luma also
+    with a grid of one CTA, beside its chain-depth bound: the levels times
+    one dependent L2 round trip, measured by a one-thread pointer chase
+    (csrc/probe.cu); K1's scaled and bypass modes on the TU buckets of the 1080p
     tool stream, K4's multi form with that stream's slice/tile maps, K8 and
     K9 on a seeded mask and block table at 1920x1088, K3 chroma's int16-tc
     form on a 12-bit 960x544 plane, K10 (cross-component prediction) on two
     1920x1088 4:4:4 residual planes with a seeded table of TUs over 30% of
     the area; then K3 chroma, K4 and K5 chroma again at the RExt chroma
     geometries, 4:2:2 (960x1088, 32x64 chroma CTBs, 2x4 MC blocks) and
-    4:4:4 (1920x1088), their errors joining those kernels' results; the
-    per-picture rows of the kernel table: K2 over one 1080p picture's
-    luma wavefront (row 14) and K5 on one picture with K3 and K4 (row 15);
+    4:4:4 (1920x1088), their errors joining those kernels' results; row
+    15 of the kernel table: K5 on one picture with K3 and K4;
  4. the main paths, each with the launch counters reset just before it and
-    read just after:
+    read just after, and the reference-DAG levels it reconstructs counted:
+    K2 launches at most once per component and level on every path;
     - testdata/randomaccess_main10_1080p.bin pushed NAL by NAL through
       libhm_tpu_torch.api.HmDecoder (native parse, recon="torch" on the
       card: each picture reconstructed as soon as it is parsed) and every
@@ -36,6 +41,10 @@ result line is not printed):
     - the small streams of PICTURE_SMALL through HmDecoder with the hash
       SEI check: their MD5s (field_ra_160x96: every hash SEI OK), each
       with the kernel modes it is there for;
+    - the golden sweep: the seven small goldens of SWEEP through
+      HmDecoder, their MD5s; lowdelayP_main10_4k through decode_batch: its
+      MD5, fps, K2 launches and peak device memory under what the path
+      holds by design;
     - the dec_app CLI on lowdelayP_416x240 (a subprocess): exit 0 and the
       YUV's golden MD5;
     - decode_intra_batch on the all-intra 1080p stream: golden MD5, every
@@ -67,7 +76,8 @@ result line is not printed):
       twice: each stream's MD5;
  5. timed runs of the RA stream, of the tool stream and of the 4:2:2
     stream (every picture's hash SEI checked OK for the last two), and a
-    breakdown (cProfile, torch.profiler) of the RA stream;
+    breakdown (cProfile, torch.profiler) of the RA stream, with the intra
+    tables' H2D bytes beside those of the per-(level, size) slot layout;
  6. one JSON line of per-kernel results, then the result line
     {"ok": true, "device": {...}}.
 """
@@ -134,9 +144,16 @@ PICTURE_SMALL = {"intra_64x64": [], "lowdelayP_416x240": ["mc_grid"],
                  "main12_intra_416x240": ["deblock_chroma16"],
                  "rext422_lowdelayP_416x240": ["mc_grid"]}
 DEC_APP = "lowdelayP_416x240"             # through the dec_app CLI
+# the golden sweep: goldens no other phase decodes, through HmDecoder, and
+# the 4K golden through decode_batch
+SWEEP = ("intra_qp22_416x240", "intra_nofilt_416x240", "intra_nosao_416x240",
+         "dqp_intra_416x240", "chromaqp_ra_160x96",
+         "cra_randomaccess_416x240", "randomaccess_416x240")
+UHD = "lowdelayP_main10_4k"
 # rows 14-16 of the kernel table (the JAX per-picture device programs and
 # the fused entry step): key, the kernels that carry it, source, replaces
-ROWS = (("row14", "_scan_fn per picture: intra_level (K2)",
+ROWS = (("row14", "_scan_fn per picture: intra_wavefront (K2), luma and "
+         "both chroma wavefronts of one 1080p picture",
          "libhm_tpu_torch/csrc/intra.cu",
          "libhm_tpu/parallel/intra_wavefront.py:175"),
         ("row15", "_mc_fn, _deblock_v_fn, _deblock_cv_fn, _sao_fn per "
@@ -172,6 +189,25 @@ def cuda_ms(fn, reps):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps):
+    """Mean device milliseconds of fn() over `reps` runs queued behind a
+    sleeping kernel (~0.1 ms a run), so that the host enqueues them all
+    before the first starts: for launches shorter than their enqueue,
+    which cuda_ms would time at the host's rate."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(reps * 200000)
     start.record()
     for _ in range(reps):
         fn()
@@ -340,50 +376,115 @@ def check_k1_modes(items, card, rng):
     return out
 
 
-def check_k2(items, card, rng):
-    """K2 on the fullest real level of picture 0, per block size."""
+def l2_round_trip_us(card):
+    """Microseconds of one dependent L2 round trip: one thread chasing
+    indices through a 4 MB buffer (past L1, inside L2), timed at two chain
+    lengths so that the launch cancels out."""
+    import numpy as np
+    import torch
+    from libhm_tpu_torch.kernels import build as KB
+    chase = KB.Kernel("l2_chase", [KB.P, KB.I, KB.P])
+    lines = (4 << 20) // 128                # one hop per 128-byte line
+    order = np.random.default_rng(5).permutation(lines)
+    nxt = np.zeros(lines * 32, np.int32)
+    nxt[order * 32] = np.roll(order, -1) * 32       # one cycle, all lines
+    nxt = torch.from_numpy(nxt).to(DEV)
+    out = torch.zeros(1, dtype=torch.int32, device=DEV)
+    short, long_ = 20000, 220000
+    t_short = cuda_ms(lambda: chase(KB.ptr(nxt), short, KB.ptr(out)), 3)
+    t_long = cuda_ms(lambda: chase(KB.ptr(nxt), long_, KB.ptr(out)), 3)
+    us = (t_long - t_short) * 1e3 / (long_ - short)
+    log(f"L2 round trip (one-CTA pointer chase, 4 MB, __ldcg): {us:.4f} us "
+        f"({short} hops {t_short:.3f} ms, {long_} hops {t_long:.3f} ms; "
+        f"{card})")
+    return us
+
+
+def check_k2(items, card, rng, rt_us):
+    """K2 over the whole wavefront of each component of picture 0 (row 14,
+    the per-picture path; luma alone is K2's own line): one launch per
+    component, five kernel runs each equal to one plain run, the kernel
+    timed; luma also with a grid of one CTA.  Returns (luma Result, row 14
+    Result over the three components)."""
     import numpy as np
     import torch
     from libhm_tpu_torch.ops import intra as IK
-    from libhm_tpu_torch.parallel.intra_wavefront import prepare_component
+    from libhm_tpu_torch.parallel.batch_decode import intra_meta
     it = items[0]
     sps = it["sps"]
-    Hp = sps.pic_height_ctbs << sps.log2_ctb
-    Wp = sps.pic_width_ctbs << sps.log2_ctb
-    bd = sps.bit_depth_luma
-    levels, _ = prepare_component(sps, it["pic"], it["zmap"], it["tile_map"],
-                                  0, None, False)
-    plane0 = torch.from_numpy(rng.integers(
-        0, 1 << bd, (1, Hp, Wp)).astype(np.int32)).to(DEV)
-    res = torch.from_numpy(rng.integers(
-        -64, 65, (1, Hp, Wp)).astype(np.int32)).to(DEV)
-    r = Result()
-    for n in (4, 8, 16, 32):
-        real = levels[n]["xs"] < sps.width
-        if not real.any():
-            continue
-        level = int(real.sum(axis=1).argmax())
-        meta = {k: torch.from_numpy(v[None]).to(DEV)
-                for k, v in levels[n].items()}
-        kw = dict(n=n, is_luma=True, bd=bd, W=sps.width, H=sps.height)
-        got, want = plane0.clone(), plane0.clone()
-        IK.intra_level(got, res, meta, level, **kw)
-        IK.intra_level_plain(want, res, meta, level, **kw)
+    luma, row14 = Result(), Result()
+    depth = {}
+    for comp in range(3):
+        sh = 1 if comp else 0
+        Hp = (sps.pic_height_ctbs << sps.log2_ctb) >> sh
+        Wp = (sps.pic_width_ctbs << sps.log2_ctb) >> sh
+        bd = sps.bit_depth_chroma if comp else sps.bit_depth_luma
+        kw = dict(is_luma=comp == 0, bd=bd, W=sps.width >> sh,
+                  H=sps.height >> sh)
+        table = intra_meta([it], comp, DEV)
+        rows = IK.block_rows(table)
+        per_level = table["count"].cpu().numpy()
+        depth[comp] = len(per_level)
+        res = torch.from_numpy(rng.integers(-64, 65, (1, Hp, Wp))
+                               .astype(np.int32)).to(DEV)
+        zero = torch.zeros((1, Hp, Wp), dtype=torch.int32, device=DEV)
+        # the plain version takes seconds a run on the card: its one run
+        # is both the comparison and its time (its ops are warm by now)
+        IK.intra_wavefront_plain(zero.clone(), res, table, **kw)
         torch.cuda.synchronize()
-        e = max_abs_err(got, want)
-        bms = cuda_ms(lambda: IK.intra_level(got, res, meta, level, **kw), 20)
-        pms = cuda_ms(lambda: IK.intra_level_plain(want, res, meta, level,
-                                                   **kw), 5)
-        nblk = int(real[level].sum())
-        log(f"K2 intra_level n={n} level={level} blocks={nblk}"
-            f": mismatches={int((got != want).sum())} kernel {bms:.4f} ms, "
-            f"plain {pms:.4f} ms ({card})")
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = IK.intra_wavefront_plain(zero.clone(), res, table, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        pms = start.elapsed_time(end)
+        n0 = IK._K2.launches
+        e, bad = 0, 0
+        for _ in range(5):
+            got = IK.intra_wavefront(zero.clone(), res, table, **kw)
+            torch.cuda.synchronize()
+            e = max(e, max_abs_err(got, want))
+            bad += int((got != want).sum())
+        launches = IK._K2.launches - n0
+        scratch = zero.clone()
+        bms = cuda_ms(lambda: IK.intra_wavefront(scratch, res, table, **kw),
+                      5)
+        sizes = {1 << int(l): int(c) for l, c in
+                 zip(*np.unique(rows["nf"] & 15, return_counts=True))}
         # per block: 4n+1 border samples and n*n residuals in, n*n out
-        # (int32), the slot's metadata; ~10 operations per predicted sample
-        T = 4 * n + 1
-        r.add(e, bms, pms, nblk * (T * 4 + n * n * 8 + 6 + (T + 7) // 8),
-              nblk * n * n * 10)
-    return r
+        # (int32), its 32-byte row, the level counts once; ~10 operations
+        # per predicted sample
+        nbytes = sum(c * ((4 * n + 1) * 4 + n * n * 8 + 32)
+                     for n, c in sizes.items()) + depth[comp] * 4
+        ops = sum(c * n * n * 10 for n, c in sizes.items())
+        r1 = ""
+        if comp == 0:
+            got = IK.intra_wavefront(zero.clone(), res, table, _ctas=1, **kw)
+            torch.cuda.synchronize()
+            e = max(e, max_abs_err(got, want))
+            bad += int((got != want).sum())
+            one = cuda_ms(lambda: IK.intra_wavefront(scratch, res, table,
+                                                     _ctas=1, **kw), 1)
+            r1 = f", one CTA {one:.4f} ms"
+            luma.add(e, bms, pms, nbytes, ops)
+        row14.add(e, bms, pms, nbytes, ops)
+        log(f"K2 intra_wavefront picture 0 comp {comp}: {len(rows)} blocks "
+            f"{sizes}, {depth[comp]} levels (blocks per level median "
+            f"{int(np.median(per_level))}, max {int(per_level.max())}), "
+            f"{launches} launches for 5 runs: "
+            f"mismatches={bad} over 5 runs{' and the one-CTA run' * (comp == 0)}"
+            f"; kernel {bms:.4f} ms{r1}, plain {pms:.4f} ms; bound: bytes "
+            f"{nbytes / HBM_BPS * 1e3:.6f} ms, chain {depth[comp]} x "
+            f"{rt_us:.4f} us = {depth[comp] * rt_us / 1e3:.4f} ms ({card})")
+    chain = sum(depth.values()) * rt_us / 1e3
+    sets = "chain" if chain > row14.bound()[0] else row14.bound()[1]
+    log(f"row 14 (_scan_fn per picture) K2 over picture 0's three "
+        f"wavefronts, one launch each: kernel {row14.ms:.4f} ms, plain "
+        f"{row14.plain_ms:.4f} ms; bound: {row14.bound()[1]} "
+        f"{row14.bound()[0]:.6f} ms, chain {sum(depth.values())} levels x "
+        f"{rt_us:.4f} us = {chain:.4f} ms (the {sets} sets it) ({card})")
+    return luma, row14
 
 
 def _smooth_plane(rng, shape, bd):
@@ -642,11 +743,16 @@ def check_k8(card, rng, B=3):
             scratch, pre, rmask, sx=sh, sy=sh), 5)
         lms = cuda_ms(lambda: torch.where(mask, pre, planes), 20)
         lib += lms
+        dev_k = device_ms(lambda: PK.restore_unfiltered(
+            scratch, pre, rmask, sx=sh, sy=sh), 20)
+        dev_l = device_ms(lambda: torch.where(mask, pre, planes), 20)
         masked = int(mask.sum())
         log(f"K8 restore_unfiltered {(Hp, Wp)} B={B} masked samples "
             f"{masked}: mismatches={int((got != want).sum())} kernel "
             f"{bms:.4f} ms, plain {pms:.4f} ms, torch.where on the expanded "
-            f"mask (expansion not timed) {lms:.4f} ms ({card})")
+            f"mask (expansion not timed) {lms:.4f} ms; queued behind a "
+            f"sleep (device time): kernel {dev_k:.4f} ms, torch.where "
+            f"{dev_l:.4f} ms ({card})")
         # the mask (one byte per 4x4), and at masked samples one int32 read
         # and one written; ~8 operations per sample for the index and test
         r.add(e, bms, pms, rmask.numel() + masked * 8, planes.numel() * 8)
@@ -854,56 +960,6 @@ def check_k7(card, rng, npics=17, bd=10):
     return r
 
 
-def check_row14(items, card, rng):
-    """Row 14 (the per-picture intra wavefront, JAX _scan_fn): every K2
-    launch of picture 0's luma wavefront (one picture, B=1), against the
-    same launches of the plain version, from a zero plane and seeded
-    residuals."""
-    import numpy as np
-    import torch
-    from libhm_tpu_torch.ops import intra as IK
-    from libhm_tpu_torch.parallel.batch_decode import intra_meta, intra_steps
-    it = items[0]
-    sps = it["sps"]
-    Hp = sps.pic_height_ctbs << sps.log2_ctb
-    Wp = sps.pic_width_ctbs << sps.log2_ctb
-    bd = sps.bit_depth_luma
-    batched = intra_meta([it], 0, 1, DEV)
-    res = torch.from_numpy(rng.integers(-64, 65, (1, Hp, Wp))
-                           .astype(np.int32)).to(DEV)
-    steps = intra_steps(batched)
-
-    def run(fn):
-        plane = torch.zeros((1, Hp, Wp), dtype=torch.int32, device=DEV)
-        for level, n in steps:
-            fn(plane, res, batched[n][0], level, n=n, is_luma=True, bd=bd,
-               W=sps.width, H=sps.height)
-        return plane
-    got = run(IK.intra_level)
-    # the plain version takes ~15 s a run on the card: its one run is both
-    # the comparison and its time (every op it uses is warm by now)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    want = run(IK.intra_level_plain)
-    end.record()
-    torch.cuda.synchronize()
-    pms = start.elapsed_time(end)
-    e = max_abs_err(got, want)
-    bms = cuda_ms(lambda: run(IK.intra_level), 3)
-    nblk = {n: int(sum(batched[n][1])) for n in sorted(batched)}
-    log(f"row 14 (_scan_fn per picture) K2 over picture 0's luma wavefront,"
-        f" {len(steps)} launches, blocks {nblk}: mismatches="
-        f"{int((got != want).sum())} kernel {bms:.4f} ms, plain {pms:.4f} "
-        f"ms ({card})")
-    r = Result()
-    # per block, as check_k2 counts it
-    r.add(e, bms, pms, sum(b * ((4 * n + 1) * 4 + n * n * 8 + 6 +
-                                (4 * n + 8) // 8) for n, b in nblk.items()),
-          sum(b * n * n * 10 for n, b in nblk.items()))
-    return r
-
-
 def check_fused(card):
     """Row 16: entry()'s fused recon step at 1080p Main10 through K1, K6,
     K3, K4 and K7 against the same step through the plain versions: the
@@ -1038,6 +1094,24 @@ def picture_main_path(data, gold, card):
     return len(pics)
 
 
+def slot_bytes(rows, B):
+    """H2D bytes of the blocks of a flat intra table in the per-size slot
+    layout that one launch per (level, size) read: per size n, [B, L, K]
+    slots of int16 x and y, int8 mode, uint8 flags and (4n+8)/8 bytes of
+    availability, L the last level holding the size, K its fullest
+    (picture, level)."""
+    import numpy as np
+    total = 0
+    log2n = rows["nf"] & 15
+    for l2 in np.unique(log2n):
+        r = rows[log2n == l2]
+        L = int(r["level"].max()) + 1
+        K = int(np.unique(r["b"].astype(np.int64) << 32 | r["level"],
+                          return_counts=True)[1].max())
+        total += B * L * K * (6 + ((4 << int(l2)) + 8 >> 3))
+    return total
+
+
 def breakdown(data, card):
     """Where the RA recon time goes: host functions (cProfile) and the
     device kernel time and busy share (torch.profiler), one run each."""
@@ -1046,6 +1120,7 @@ def breakdown(data, card):
     import torch
     from torch.profiler import ProfilerActivity, profile
     from libhm_tpu_torch.hostdec.decoder import Decoder
+    from libhm_tpu_torch.parallel import batch_decode as TB
     from libhm_tpu_torch.parallel import dag_decode as DD
     cuda = torch.device("cuda")
 
@@ -1055,19 +1130,35 @@ def breakdown(data, card):
         return dec.collected
     its = items()
     prof = cProfile.Profile()
+    table_of = TB.intra_table
+    sizes = [0, 0]
+
+    def measured(items, comp):
+        built = table_of(items, comp)
+        if built is not None:
+            sizes[0] += built[0].nbytes + built[1].nbytes
+            sizes[1] += slot_bytes(built[0], len(items))
+        return built
+    TB.intra_table = measured
     torch.cuda.synchronize()
     t0 = time.monotonic()
     prof.enable()
-    DD._recon_levels(its, cuda)
-    torch.cuda.synchronize()
-    prof.disable()
+    try:
+        DD._recon_levels(its, cuda)
+        torch.cuda.synchronize()
+    finally:
+        prof.disable()
+        TB.intra_table = table_of
     wall = time.monotonic() - t0
+    log(f"breakdown: intra H2D {sizes[0]} bytes (the flat tables), against "
+        f"{sizes[1]} bytes for the same blocks in per-(level, size) slots")
     log(f"breakdown ({card}): recon under cProfile {wall:.3f} s; "
         "cumulative host seconds per function (calls):")
     names = {"prepare_component", "_bucket_inputs", "_tu_bucket_entries",
              "_residual_planes_batch_device", "_intra_batch", "filter_level",
              "prepare_filter_maps", "compute_bs_maps", "residual_scatter",
-             "intra_level", "deblock_luma", "deblock_chroma", "sao", "up",
+             "intra_wavefront", "intra_table", "deblock_luma",
+             "deblock_chroma", "sao", "up",
              "__call__", "_inter_level", "_inter_level_grid",
              "_inter_level_gathered", "_level_refs", "_ref_stack", "mc_grid",
              "mc_weighted", "reference_levels", "_recon_levels"}
@@ -1215,7 +1306,9 @@ def main():
     results = {}
     results["residual_scatter"] = check_k1(items, card, rng)
     results.update(check_k1_modes(tool_items, card, rng))
-    results["intra_level"] = check_k2(items, card, rng)
+    rt_us = l2_round_trip_us(card)
+    results["intra_wavefront"], results["row14"] = check_k2(items, card, rng,
+                                                            rt_us)
     results.update(check_k3(card, rng))
     results.update(check_k3(card, rng, bd=12))
     results["sao_apply"] = check_k4(card, rng)
@@ -1229,7 +1322,6 @@ def main():
     # rows 14 and 15 of the kernel table: the per-picture path's shapes
     # (one picture: the intra wavefront of a whole 1080p picture; MC of
     # one picture; deblocking and SAO are per picture already)
-    results["row14"] = check_row14(items, card, rng)
     results["row15"] = check_k5(card, rng, B=1)
     for k in ("deblock_luma", "deblock_chroma", "sao_apply"):
         v = results[k]
@@ -1263,26 +1355,44 @@ def main():
     from libhm_tpu_torch.utils import xfer
     kernels = {"residual_scatter": TK._K1,
                "residual_scatter_scaled": TK._K1_SCAL,
-               "residual_bypass": TK._K1_BYPASS, "intra_level": IK._K2,
+               "residual_bypass": TK._K1_BYPASS, "intra_wavefront": IK._K2,
                "deblock_luma": DK._K3_LUMA, "deblock_chroma": DK._K3_CHROMA,
                "sao_apply": SK._K4, "sao_apply_multi": SK._K4_MULTI,
                "mc_grid": MK._K5, "mc_weighted": MK._K6,
                "plane_checksum": CK._K7, "restore_unfiltered": PK._K8,
                "pcm_scatter": PK._K9, "deblock_chroma16": DK._K3_CHROMA16,
                "ccp_apply": CC._K10}
-    k1_k4 = ["residual_scatter", "intra_level", "deblock_luma",
+    k1_k4 = ["residual_scatter", "intra_wavefront", "deblock_luma",
              "deblock_chroma", "sao_apply"]
 
+    levels_of = DD.reference_levels
+
     def run_path(label, fn, needed):
+        """Run one main path with the launch counters from 0 and the
+        reference-DAG levels it reconstructs counted: every kernel of
+        `needed` launched, K2 at most once per component and level."""
+        seen = []
+
+        def counted(items):
+            out = levels_of(items)
+            seen.append(len(out))
+            return out
         for k in kernels.values():
             k.launches = 0
-        out = fn()
+        DD.reference_levels = counted
+        try:
+            out = fn()
+        finally:
+            DD.reference_levels = levels_of
         torch.cuda.synchronize()
         counts = {nm: k.launches for nm, k in kernels.items()}
         idle = [nm for nm in needed if counts[nm] == 0]
         if idle:
             raise AssertionError(f"{label}: kernels never launched: {idle}")
-        log(f"{label}: launches {counts}")
+        if counts["intra_wavefront"] > 3 * sum(seen):
+            raise AssertionError(f"{label}: {counts['intra_wavefront']} K2 "
+                                 f"launches over {sum(seen)} DAG levels")
+        log(f"{label}: {sum(seen)} DAG levels, launches {counts}")
         return out, counts
 
     launches = {}
@@ -1293,7 +1403,7 @@ def main():
     _, counts = run_path(f"{STREAM} HmDecoder",
                          lambda: picture_main_path(data, gold, card),
                          k1_k4 + ["mc_grid"])
-    launches["row14"] = counts["intra_level"]
+    launches["row14"] = counts["intra_wavefront"]
     launches["row15"] = sum(counts[k] for k in (
         "mc_grid", "deblock_luma", "deblock_chroma", "sao_apply"))
     for name, modes in PICTURE_SMALL.items():
@@ -1302,7 +1412,7 @@ def main():
                       "rb").read()
         (dec, pics, _, secs), _ = run_path(
             f"{name} HmDecoder", lambda: push_decode(stream, sei_check=True),
-            ["intra_level"] + modes)
+            ["intra_wavefront"] + modes)
         statuses = [p.hash_status for p in pics]
         if len(pics) != table[name]["frames"] or (
                 statuses != ["OK"] * len(pics) if name == FIELD
@@ -1311,6 +1421,47 @@ def main():
                                  f"pictures, hash SEIs {statuses}")
         log(f"{name} through HmDecoder: {len(pics)} pictures in {secs:.3f} "
             f"s, {'every hash SEI OK' if name == FIELD else 'MD5 matches'}")
+    for name in SWEEP:
+        stream = open(os.path.join(ROOT, "testdata", gold[name]["bitstream"]),
+                      "rb").read()
+        (dec, pics, _, secs), _ = run_path(
+            f"{name} HmDecoder", lambda: push_decode(stream, sei_check=True),
+            ["residual_scatter", "intra_wavefront"])
+        if len(pics) != gold[name]["frames"] or \
+                pics_md5(pics) != gold[name]["decoded_yuv_md5"]:
+            raise AssertionError(f"{name} through HmDecoder: {len(pics)} "
+                                 "pictures, MD5 mismatch")
+        log(f"{name} through HmDecoder: {len(pics)} pictures in {secs:.3f} "
+            "s, MD5 matches")
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    (n, outs), counts = run_path(f"{UHD} decode_batch",
+                                 lambda: decode_md5(UHD, gold),
+                                 k1_k4 + ["mc_grid"])
+    secs = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    # what decode_batch holds by design: every picture's int32 planes and
+    # int16 copy, one level's residual, planes and SAO output, a reference
+    # stack as deep as the DPB, and 256 MiB of maps and scratch
+    dec = Decoder(parse="native", recon="collect")
+    dec.decode_annexb(open(os.path.join(ROOT, "testdata",
+                                        gold[UHD]["bitstream"]), "rb").read())
+    sps = dec.collected[0]["sps"]
+    del dec
+    dpb = sps.max_dec_pic_buffering[sps.max_sub_layers_minus1]
+    pic_bytes = (sps.pic_height_ctbs << sps.log2_ctb) * \
+        (sps.pic_width_ctbs << sps.log2_ctb) * 4 * 3 // 2
+    cap = int((n * 1.5 + 3 + dpb) * pic_bytes) + (256 << 20)
+    log(f"{UHD} decode_batch ({card}): {n} pictures, MD5 matches golden, "
+        f"{secs:.3f} s with the parse ({n / secs:.3f} fps); K2 "
+        f"{counts['intra_wavefront']} launches; peak device memory "
+        f"{peak / 1e6:.1f} MB above the {base / 1e6:.1f} MB before it, cap "
+        f"{cap / 1e6:.1f} MB = ({n} x 1.5 + 3 + DPB {dpb}) x "
+        f"{pic_bytes / 1e6:.3f} MB + 256 MiB")
+    if peak > cap:
+        raise AssertionError(f"{UHD}: peak device memory {peak} over {cap}")
+    del outs
     with tempfile.TemporaryDirectory(dir=KB.BUILD) as tmp:
         yuv = os.path.join(tmp, "out.yuv")
         r = subprocess.run(
@@ -1383,7 +1534,7 @@ def main():
     (n, tool_outs), counts = run_path(
         f"{TOOLS} decode_batch",
         lambda: decode_md5(TOOLS, ports, check_sei_hash=True),
-        ["residual_scatter_scaled", "intra_level", "deblock_luma",
+        ["residual_scatter_scaled", "intra_wavefront", "deblock_luma",
          "deblock_chroma", "sao_apply_multi", "mc_grid"])
     log(f"{TOOLS}: {n} pictures, MD5 matches port_streams.json")
     for k in ("residual_scatter_scaled", "sao_apply_multi"):
@@ -1405,7 +1556,7 @@ def main():
         table = ports if name in ports else gold
         (n, _), counts = run_path(
             f"{name} decode_batch", lambda: decode_md5(name, table),
-            ["intra_level", "deblock_luma", "deblock_chroma"] + modes)
+            ["intra_wavefront", "deblock_luma", "deblock_chroma"] + modes)
         for k, src in LAUNCHES_FROM.items():
             if src == name:
                 launches[k] = counts[k]
@@ -1437,7 +1588,7 @@ def main():
     for name, modes in REXT_SMALL.items():
         (n, _), counts = run_path(f"{name} decode_batch",
                                   lambda: decode_md5(name, gold),
-                                  ["intra_level"] + modes)
+                                  ["intra_wavefront"] + modes)
         for k, src in LAUNCHES_FROM.items():
             if src == name:
                 launches[k] = counts[k]
@@ -1475,7 +1626,7 @@ def main():
 
     src = {"residual_scatter": ("libhm_tpu_torch/csrc/residual.cu",
                                 "libhm_tpu/recon_tpu.py:60"),
-           "intra_level": ("libhm_tpu_torch/csrc/intra.cu",
+           "intra_wavefront": ("libhm_tpu_torch/csrc/intra.cu",
                            "libhm_tpu/parallel/batch_decode.py:266"),
            "deblock_luma": ("libhm_tpu_torch/csrc/deblock.cu",
                             "libhm_tpu/ops/deblock.py:28"),

@@ -7,12 +7,20 @@
 //   value.  The mask is read on the luma 4x4 grid at
 //   (min((y << sy) >> 2, h4 - 1), min((x << sx) >> 2, w4 - 1)), over the whole
 //   padded plane, exactly as the JAX index arithmetic reads it.
-// What bounds it on the card: bytes.  One mask byte per 4x4 (it stays in
-//   L1/L2) and, where it is set, one pre-deblock sample read and one sample
-//   written; ~8 integer operations per sample.  The design writes in place
-//   and touches `pre` and `planes` only at masked samples, so a level with
-//   few PCM/lossless CUs costs little more than the mask read; the JAX
-//   formulation rewrites every sample of every plane (jnp.where).
+// What bounds it on the card: bytes: the mask once, and at masked samples
+//   one pre-deblock sample read and one written.  A pass with a thread per
+//   sample is bound instead by its thread count and index arithmetic: it
+//   reads each 4x4 cell's byte 16 times (luma) and mostly does nothing.
+// What the design does about it: a CTA of 32 x 8 threads per tile of 32 x 8
+//   cells, a cell being the (4 >> sx) x (4 >> sy) samples of one mask entry
+//   (4x4 luma; 2x2, 2x4 or 4x4 chroma at 4:2:0, 4:2:2, 4:4:4).  A thread
+//   loads its cell's byte (one coalesced load per warp row), the CTA leaves
+//   at once when no byte of the tile is set (__syncthreads_or), and a
+//   thread whose byte is set copies its cell row by row, one 16-byte (4
+//   samples) or 8-byte (2 samples) load and store a row when the planes are
+//   aligned for it.  Cells past the mask grid take its last row or column,
+//   so the bottom and right tiles cover the plane's padding as well.
+//   In place, touching `pre` and `planes` only at masked samples.
 //
 // K9 pcm_scatter replaces the per-block device scatters of
 //   libhm_tpu/parallel/dag_decode.py _recon_levels (lines 482-489): each PCM
@@ -29,19 +37,36 @@
 
 namespace {
 
-__global__ void restore_kernel(int32_t* __restrict__ planes,
-                               const int32_t* __restrict__ pre,
-                               const uint8_t* __restrict__ rmask, int Hp,
-                               int Wp, int h4, int w4, int sx, int sy) {
-  // grid (columns / blockDim.x, rows, pictures): no 64-bit division
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  if (x >= Wp) return;
-  const int y = blockIdx.y, b = blockIdx.z;
-  const int y4 = min((y << sy) >> 2, h4 - 1);
-  const int x4 = min((x << sx) >> 2, w4 - 1);
-  if (rmask[((long long)b * h4 + y4) * w4 + x4]) {
-    const long long i = ((long long)b * Hp + y) * Wp + x;
-    planes[i] = pre[i];
+constexpr int kTileX = 32, kTileY = 8;   // cells per CTA (one per thread)
+
+template <typename V>
+__device__ __forceinline__ void copy_row(int32_t* dst, const int32_t* src) {
+  *(V*)dst = *(const V*)src;
+}
+
+__global__ void __launch_bounds__(kTileX * kTileY) restore_kernel(
+    int32_t* __restrict__ planes, const int32_t* __restrict__ pre,
+    const uint8_t* __restrict__ rmask, int Hp, int Wp, int h4, int w4,
+    int sx, int sy, int vec) {
+  const int cw = 4 >> sx, ch = 4 >> sy;            // samples per cell
+  const int cx = blockIdx.x * kTileX + threadIdx.x;
+  const int cy = blockIdx.y * kTileY + threadIdx.y;
+  const int b = blockIdx.z;
+  const int x0 = cx * cw, y0 = cy * ch;
+  int m = 0;
+  if (x0 < Wp && y0 < Hp)
+    m = rmask[((long long)b * h4 + min(cy, h4 - 1)) * w4 + min(cx, w4 - 1)];
+  if (!__syncthreads_or(m) || !m) return;
+  const long long base = (long long)b * Hp * Wp;
+  for (int r = 0; r < ch && y0 + r < Hp; ++r) {
+    const long long o = base + (long long)(y0 + r) * Wp + x0;
+    if (vec && cw == 4) {
+      copy_row<int4>(planes + o, pre + o);
+    } else if (vec) {
+      copy_row<int2>(planes + o, pre + o);
+    } else {
+      for (int c = 0; c < cw && x0 + c < Wp; ++c) planes[o + c] = pre[o + c];
+    }
   }
 }
 
@@ -69,11 +94,17 @@ extern "C" int restore_unfiltered(void* planes, const void* pre,
                                   int h4, int w4, int sx, int sy,
                                   void* stream) {
   if ((long long)B * Hp * Wp == 0) return 0;
-  const int threads = 256;
-  const dim3 grid((Wp + threads - 1) / threads, Hp, B);
-  restore_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+  const int cw = 4 >> sx, ch = 4 >> sy;
+  const int cols = (Wp + cw - 1) / cw, rows = (Hp + ch - 1) / ch;
+  // whole rows of cw samples, each on a (4 * cw)-byte boundary
+  const uintptr_t align = 4 * cw - 1;
+  const int vec = Wp % cw == 0 && ((uintptr_t)planes & align) == 0 &&
+                  ((uintptr_t)pre & align) == 0;
+  const dim3 grid((cols + kTileX - 1) / kTileX, (rows + kTileY - 1) / kTileY,
+                  B);
+  restore_kernel<<<grid, dim3(kTileX, kTileY), 0, (cudaStream_t)stream>>>(
       (int32_t*)planes, (const int32_t*)pre, (const uint8_t*)rmask, Hp, Wp,
-      h4, w4, sx, sy);
+      h4, w4, sx, sy, vec);
   return (int)cudaGetLastError();
 }
 

@@ -116,7 +116,10 @@ class Kernel:
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             self._fn = fn
-        err = self._fn(*args, torch.cuda.current_stream().cuda_stream)
+        # the current device's current stream, as a raw handle (a tenth of
+        # the host time of torch.cuda.current_stream().cuda_stream)
+        stream = torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+        err = self._fn(*args, stream)
         if err != 0:
             msg = library().hm_error_string(err).decode()
             raise RuntimeError(f"{self.name}: CUDA error {err} ({msg})")

@@ -1,13 +1,13 @@
-"""Batched intra prediction, and the intra wavefront-level kernel (K2).
+"""Batched intra prediction, and the intra wavefront kernel (K2).
 
 Port of libhm_tpu/ops/intra.py.  The 4n+1 border samples of a block live
 in one "vals" row in spec scan order (bottom-left .. corner .. top-right,
 Rec. H.265 8.4.4.2.2): left[k] = vals[2n-k], top[k] = vals[2n+k].  The
-plain functions keep the JAX semantics on int32 tensors; `intra_level` is
-the kernel wrapper that reconstructs every block of one dependency level
-(gather -> substitute -> filter -> predict -> + residual -> clip -> store)
-as one CUDA launch (csrc/intra.cu) for CUDA planes, and through the plain
-functions for CPU planes.
+plain functions keep the JAX semantics on int32 tensors; `intra_wavefront`
+is the kernel wrapper that reconstructs every intra block of one component
+(gather -> substitute -> filter -> predict -> + residual -> clip -> store,
+level after level) as one persistent CUDA launch (csrc/intra.cu) for CUDA
+planes, and through the plain functions for CPU planes.
 """
 import functools
 
@@ -222,21 +222,10 @@ def predict(vals, mode, n, comp_is_luma, bit_depth, disable_bf):
                        torch.where(m == 1, dcp, ang)).to(torch.int32)
 
 
-def intra_level_plain(plane, res_plane, meta, level, *, n, is_luma, bd, W,
-                      H):
-    """Plain torch version of intra_level (any device)."""
-    # imported here: parallel.intra_wavefront imports this module
-    from ..parallel.intra_wavefront import unpack_block_meta
-    Bp, _, K = meta["xs"].shape
-    d = {k: v[:, level].reshape((Bp * K,) + v.shape[3:])
-         for k, v in meta.items()}
-    # real slots only (dummy slots have x = W + 1024)
-    keep = torch.nonzero(d["xs"] < W).squeeze(1)
-    if not keep.numel():
-        return plane
-    xs, ys, mode, filt, strong, dbf, av = unpack_block_meta(
-        {k: v[keep] for k, v in d.items()}, n)
-    bidx = torch.div(keep, K, rounding_mode="floor")
+def _reconstruct(plane, res_plane, bidx, xs, ys, mode, filt, strong, dbf,
+                 av, *, n, is_luma, bd, W, H):
+    """Reconstruct independent size-n blocks of pictures `bidx` at (xs,
+    ys) in place: gather, substitute, filter, predict, + residual, clip."""
     cx, cy = border_coords(xs, ys, n, W, H)
     g = plane[bidx[:, None], cy.long(), cx.long()]
     vals = substitute(g, av, bd)
@@ -252,44 +241,114 @@ def intra_level_plain(plane, res_plane, meta, level, *, n, is_luma, bd, W,
     return plane
 
 
+def intra_level_plain(plane, res_plane, meta, level, *, n, is_luma, bd, W,
+                      H):
+    """One dependency level of the size-n blocks of the per-size slot
+    layout of prepare_component (meta: [Bp, L, K] arrays; dummy slots have
+    x = W + 1024), in place: the JAX scan's step for one size."""
+    # imported here: parallel.intra_wavefront imports this module
+    from ..parallel.intra_wavefront import unpack_block_meta
+    Bp, _, K = meta["xs"].shape
+    d = {k: v[:, level].reshape((Bp * K,) + v.shape[3:])
+         for k, v in meta.items()}
+    keep = torch.nonzero(d["xs"] < W).squeeze(1)
+    if not keep.numel():
+        return plane
+    xs, ys, mode, filt, strong, dbf, av = unpack_block_meta(
+        {k: v[keep] for k, v in d.items()}, n)
+    bidx = torch.div(keep, K, rounding_mode="floor")
+    return _reconstruct(plane, res_plane, bidx, xs, ys, mode, filt, strong,
+                        dbf, av, n=n, is_luma=is_luma, bd=bd, W=W, H=H)
+
+
 # ---------------------------------------------------------------------------
-# K2: one dependency level of one block size, all pictures
-_K2 = Kernel("intra_level", [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
-                             I, I, I, I])
+# K2: the whole wavefront of one component, every picture, one launch
+#
+# One row of the flat block table, 32 bytes, as csrc/intra.cu reads it:
+# picture, position, intra mode (after any 4:2:2 mapping), log2 of the size
+# in the low nibble of `nf` and the flags (1 filt, 2 strong, 4 dbf) in the
+# high one, the dependency level (0-based, dense) and the availability bits
+# of the 4n+1 border samples, little-endian, padded to (4 * 32 + 8) >> 3
+# bytes.  Rows are sorted by level.
+AV_BYTES = (4 * 32 + 8) >> 3
+BLOCK_DTYPE = np.dtype({
+    "names": ["b", "x", "y", "mode", "nf", "level", "av"],
+    "formats": ["<i2", "<i2", "<i2", "i1", "u1", "<i4", ("u1", AV_BYTES)],
+    "offsets": [0, 2, 4, 6, 7, 8, 12], "itemsize": 32})
+
+_K2 = Kernel("intra_wavefront", [P, P, P, P, P, I, I, I, I, I, I, I, I])
+_DONE_STRIDE = 32            # ints between done counters (csrc/intra.cu)
 
 
-def intra_level(plane, res_plane, meta, level, *, n, is_luma, bd, W, H):
-    """Reconstruct the size-n blocks of dependency level `level`, in place.
+def block_rows(table):
+    """The table's rows as a numpy structured array (BLOCK_DTYPE)."""
+    blocks = table["blocks"].cpu().numpy()
+    return np.ascontiguousarray(blocks).view(BLOCK_DTYPE).reshape(-1)
+
+
+def intra_wavefront_plain(plane, res_plane, table, *, is_luma, bd, W, H):
+    """Plain torch version of intra_wavefront (any device): the table level
+    by level, each level's blocks through the vectorized plain steps, one
+    size at a time."""
+    rows = block_rows(table)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(plane.device)
+    start = 0
+    for cnt in table["count"].tolist():
+        lv = rows[start:start + cnt]
+        start += cnt
+        log2n = lv["nf"] & 15
+        for l2 in np.unique(log2n):
+            n = 1 << int(l2)
+            r = lv[log2n == l2]
+            fl = r["nf"] >> 4
+            av = np.unpackbits(r["av"], axis=1, bitorder="little")
+            _reconstruct(plane, res_plane, t(r["b"].astype(np.int64)),
+                         t(r["x"].astype(np.int32)),
+                         t(r["y"].astype(np.int32)),
+                         t(r["mode"].astype(np.int32)), t((fl & 1) != 0),
+                         t((fl & 2) != 0), t((fl & 4) != 0),
+                         t(av[:, :4 * n + 1] != 0), n=n, is_luma=is_luma,
+                         bd=bd, W=W, H=H)
+    return plane
+
+
+def intra_wavefront(plane, res_plane, table, *, is_luma, bd, W, H,
+                    _ctas=0):
+    """Reconstruct every intra block of one component of every picture, in
+    place, level after level: one CUDA launch for CUDA planes.
 
     plane, res_plane: [Bp, Hc, Wc] int32 (plane updated).
-    meta: dict of per-size slot arrays over [Bp, L, K]: xs/ys int16
-    (dummy x = W+1024), mode int8, flags uint8 (1 filt, 2 strong, 4 dbf),
-    av uint8 [Bp, L, K, ceil((4n+1)/8)] little-endian availability bits.
-    W, H: the component's picture size (border clamp; x >= W is a dummy).
+    table: {"blocks": uint8 [N, 32] rows of BLOCK_DTYPE sorted by level,
+    "count": int32 [L] blocks per level, none 0}, on the planes' device.
+    W, H: the component's picture size (the border clamp).
+    _ctas: the grid's CTAs (0: every CTA the card holds at once); a test
+    sets 1 to show that the ticket order alone orders the levels.
     """
     if not plane.is_cuda:
-        return intra_level_plain(plane, res_plane, meta, level, n=n,
-                                 is_luma=is_luma, bd=bd, W=W, H=H)
+        return intra_wavefront_plain(plane, res_plane, table,
+                                     is_luma=is_luma, bd=bd, W=W, H=H)
     dev = plane.device
     check(plane, "plane", torch.int32, 3)
     check(res_plane, "res_plane", torch.int32, 3, dev)
+    blocks, count = table["blocks"], table["count"]
+    check(blocks, "blocks", torch.uint8, 2, dev)
+    check(count, "count", torch.int32, 1, dev)
     if res_plane.shape != plane.shape:
-        raise ValueError("intra_level: plane/res_plane shapes differ")
-    for k, dt in (("xs", torch.int16), ("ys", torch.int16),
-                  ("mode", torch.int8), ("flags", torch.uint8)):
-        check(meta[k], k, dt, 3, dev)
-    check(meta["av"], "av", torch.uint8, 4, dev)
-    Bp, Hc, Wc = plane.shape
-    Bm, L, K = meta["xs"].shape
-    nb = (4 * n + 8) >> 3
-    if Bm != Bp or meta["av"].shape != (Bp, L, K, nb) or \
-            any(meta[k].shape != (Bp, L, K) for k in ("ys", "mode", "flags")):
-        raise ValueError("intra_level: inconsistent slot shapes")
-    if n not in (4, 8, 16, 32) or not 0 <= level < L or \
-            not 8 <= bd <= 12 or W > Wc or H > Hc:
-        raise ValueError(f"intra_level: unsupported n={n} level={level} "
-                         f"bd={bd} W={W} H={H}")
-    _K2(ptr(plane), ptr(res_plane), ptr(meta["xs"]), ptr(meta["ys"]),
-        ptr(meta["mode"]), ptr(meta["flags"]), ptr(meta["av"]),
-        Bp, L, K, level, n, int(is_luma), bd, W, H, Hc, Wc, nb)
+        raise ValueError("intra_wavefront: plane/res_plane shapes differ")
+    if blocks.shape[1] != BLOCK_DTYPE.itemsize:
+        raise ValueError("intra_wavefront: table rows are not "
+                         f"{BLOCK_DTYPE.itemsize} bytes")
+    _, Hc, Wc = plane.shape
+    if not 8 <= bd <= 12 or W > Wc or H > Hc or max(Wc, Hc) > 32767:
+        raise ValueError(f"intra_wavefront: unsupported bd={bd} W={W} H={H} "
+                         f"planes {Hc}x{Wc}")
+    N, L = blocks.shape[0], count.shape[0]
+    if N:
+        # the ticket counter, then one done counter per level
+        sync = torch.zeros((L + 1) * _DONE_STRIDE, dtype=torch.int32,
+                           device=dev)
+        _K2(ptr(plane), ptr(res_plane), ptr(blocks), ptr(count), ptr(sync),
+            N, int(_ctas), int(is_luma), bd, W, H, Hc, Wc)
     return plane

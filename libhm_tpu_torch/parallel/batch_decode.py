@@ -11,9 +11,9 @@ Port of the device-resident half of libhm_tpu/parallel/batch_decode.py:
    cross-component prediction on the finished luma residual, one K10
    launch per chroma component (ops/ccp.py ccp_apply);
  - intra wavefront: each picture's levelized blocks (intra_wavefront.
-   prepare_component) are stacked over the picture axis, and every
-   (level, block size) is one K2 launch (ops/intra.py intra_level), in
-   the loop order of the JAX scan: levels, then sizes.
+   prepare_component) go into one flat table sorted by dependency level,
+   every picture and block size mixed, and one K2 launch per component
+   (ops/intra.py intra_wavefront) reconstructs them level after level.
 """
 import numpy as np
 import torch
@@ -216,78 +216,70 @@ def _intra_batch(items, comp, stacked, res_stacked, device):
 
     stacked: device [Bp, Hc, Wc] planes (updated in place and returned);
     res_stacked: device [Bp, Hc, Wc] residual planes, read by the kernel.
-    One K2 launch per (level, size) that holds at least one real block.
+    One K2 launch over every level of every picture.
     """
     sps = items[0]["sps"]
     ssx = sps.chroma_shift_x() if comp else 0
     ssy = sps.chroma_shift_y() if comp else 0
-    W = sps.width >> ssx
-    H = sps.height >> ssy
     bd = sps.bit_depth_luma if comp == 0 else sps.bit_depth_chroma
-    batched = intra_meta(items, comp, int(stacked.shape[0]), device)
-    if batched is None:
-        return stacked
-    for level, n in intra_steps(batched):
-        IK.intra_level(stacked, res_stacked, batched[n][0], level, n=n,
-                       is_luma=comp == 0, bd=bd, W=W, H=H)
+    table = intra_meta(items, comp, device)
+    if table is not None:
+        IK.intra_wavefront(stacked, res_stacked, table, is_luma=comp == 0,
+                           bd=bd, W=sps.width >> ssx, H=sps.height >> ssy)
     return stacked
 
 
-def intra_steps(batched):
-    """The (level, size) launches of a wavefront, in the loop order of the
-    JAX scan (levels, then sizes), where the level holds a real block."""
-    n_levels = max(len(pl) for _, pl in batched.values())
-    return [(level, n) for level in range(n_levels) for n in sorted(batched)
-            if level < len(batched[n][1]) and batched[n][1][level]]
-
-
-def intra_meta(items, comp, Bp, device):
-    """The uploaded block metadata of one component's intra wavefront:
-    {n: (meta, per_level)} with meta the [Bp, L, K] slot arrays of size n
-    on `device` and per_level the real slots of each level (a launch is
-    due where it is not 0); None when no picture has an intra block."""
+def intra_table(items, comp):
+    """The flat block table of one component's intra wavefront over the
+    pictures `items` (picture b = its index): a numpy array of
+    IK.BLOCK_DTYPE rows, real blocks only, sorted stably by dependency
+    level, the levels renumbered densely from 0, and the block count of
+    each level; None when no picture has an intra block."""
+    if len(items) > 32767:
+        raise ValueError("intra_table: more pictures than an int16 holds")
     sps = items[0]["sps"]
     W = sps.width >> (sps.chroma_shift_x() if comp else 0)
-    H = sps.height >> (sps.chroma_shift_y() if comp else 0)
-    preps = []
-    for it in items:
-        constrained = bool(it["pps"].constrained_intra_pred)
+    parts = []
+    for b, it in enumerate(items):
         levels, _ = prepare_component(
             it["sps"], it["pic"], it["zmap"], it["tile_map"], comp, None,
-            constrained)
-        preps.append(levels)
-    if all(lv is None for lv in preps):
-        return None
-    sizes = sorted({n for lv in preps if lv for n in lv})
-    batched = {}
-    for n in sizes:
-        # real slots form a prefix of every level row: trim the pow2
-        # padding of prepare_component to the largest real level count
-        real = [lv[n]["xs"] < W for lv in preps if lv and n in lv]
-        counts = [r.sum(axis=1) for r in real]
-        Ln = max(len(c) for c in counts)
-        per_level = np.zeros(Ln, np.int64)
-        for cnt in counts:
-            per_level[:len(cnt)] = np.maximum(per_level[:len(cnt)], cnt)
-        if not per_level.any():
-            continue
-        L = int(np.nonzero(per_level)[0][-1]) + 1
-        K = int(per_level.max())
-        T = 4 * n + 1
-        d = dict(xs=np.full((Bp, L, K), W + 1024, np.int16),
-                 ys=np.full((Bp, L, K), H + 1024, np.int16),
-                 mode=np.ones((Bp, L, K), np.int8),
-                 flags=np.zeros((Bp, L, K), np.uint8),
-                 av=np.zeros((Bp, L, K, (T + 7) >> 3), np.uint8))
-        for b, lv in enumerate(preps):
-            if not lv or n not in lv:
+            bool(it["pps"].constrained_intra_pred))
+        for n, d in sorted((levels or {}).items()):
+            li, ki = np.nonzero(d["xs"] < W)         # real slots
+            if not len(li):
                 continue
-            for k, v in lv[n].items():
-                l0, k0 = min(L, v.shape[0]), min(K, v.shape[1])
-                d[k][b, :l0, :k0] = v[:l0, :k0]
-        batched[n] = ({k: xfer.up(v, "intra_" + k, device)
-                       for k, v in d.items()}, per_level[:L])
-    return batched or None
+            rows = np.zeros(len(li), IK.BLOCK_DTYPE)
+            rows["b"] = b
+            rows["x"] = d["xs"][li, ki]
+            rows["y"] = d["ys"][li, ki]
+            rows["mode"] = d["mode"][li, ki]
+            rows["nf"] = (n.bit_length() - 1) | (d["flags"][li, ki] << 4)
+            rows["level"] = li
+            av = d["av"][li, ki]
+            rows["av"][:, :av.shape[1]] = av
+            parts.append(rows)
+    if not parts:
+        return None
+    rows = np.concatenate(parts)
+    # (concatenating and indexing drop the padding of the row layout)
+    rows = rows[np.argsort(rows["level"], kind="stable")] \
+        .astype(IK.BLOCK_DTYPE)
+    _, level, count = np.unique(rows["level"], return_inverse=True,
+                                return_counts=True)
+    rows["level"] = level.reshape(-1)
+    return rows, count.astype(np.int32)
+
+
+def intra_meta(items, comp, device):
+    """The uploaded table of one component's intra wavefront (intra_table):
+    {"blocks": uint8 [N, 32], "count": int32 [L]} on `device`, or None."""
+    built = intra_table(items, comp)
+    if built is None:
+        return None
+    rows, count = built
+    return {"blocks": xfer.up(rows.view(np.uint8).reshape(len(rows), -1),
+                              "intra_blocks", device),
+            "count": xfer.up(count, "intra_count", device)}
 
 
 # ---------------------------------------------------------------------------

@@ -5,7 +5,7 @@ reference reconstructs intra blocks one at a time in z-scan order; here
 the host assigns every intra block a *dependency level* (1 + max level of
 any block that produced one of its available border samples), and the
 device reconstructs one level at a time: all blocks of a level are
-data-independent (ops/intra.py intra_level).
+data-independent (ops/intra.py intra_wavefront).
 
 Availability (Rec. 8.4.4.2.2: picture bounds, z-order, slice, tile,
 constrained-intra) is static parse metadata, precomputed here on the host

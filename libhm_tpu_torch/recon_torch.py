@@ -25,7 +25,7 @@ def reconstruct_picture(item, device):
     stages (dag_decode._recon_levels), whose kernels compute what the JAX
     per-picture device programs compute:
 
-        intra_wavefront._scan_fn          -> K2 (intra_level), through
+        intra_wavefront._scan_fn          -> K2 (intra_wavefront), through
                                              batch_decode._intra_batch
                                              with one picture
         recon_tpu._mc_fn                  -> K5 (mc_grid, plain epilogue)

@@ -59,9 +59,17 @@ def test_residual_kernel(gpu):
         assert torch.equal(got, want), (n, use_dst, tskip)
 
 
+def _dag_levels(name):
+    """The reference-DAG levels of a golden: K2 launches at most once per
+    component in each."""
+    from libhm_tpu_torch.parallel.dag_decode import reference_levels
+    return len(reference_levels(_items(name)))
+
+
 @pytest.mark.parametrize("name", ["intra_main10_416x240", "intra_416x240"])
 def test_decode_on_gpu(gpu, name):
-    """Every kernel launches, and the picture MD5 matches the golden one."""
+    """Every kernel launches, K2 at most once per component and DAG level,
+    and the picture MD5 matches the golden one."""
     from libhm_tpu_torch.ops import deblock as DK
     from libhm_tpu_torch.ops import intra as IK
     from libhm_tpu_torch.ops import sao as SK
@@ -76,29 +84,40 @@ def test_decode_on_gpu(gpu, name):
     buf = b"".join(p.tobytes() for pic in outs for p in pic)
     assert hashlib.md5(buf).hexdigest() == GOLD[name]["decoded_yuv_md5"]
     assert all(k.launches > 0 for k in kernels)
+    assert IK._K2.launches <= 3 * _dag_levels(name)
 
 
-def test_intra_kernel_every_level(gpu):
-    """K2 == its plain version on every level of a real picture."""
+@pytest.mark.parametrize("comp", [0, 1])
+def test_intra_wavefront_kernel(gpu, comp):
+    """K2 == its plain version over the whole wavefront of each picture of
+    intra_main10_416x240 and of both as one batch, 20 times in a row (a
+    race shows as a rare mismatch), and once with a grid of one CTA (the
+    ticket order alone orders the levels)."""
     from libhm_tpu_torch.ops import intra as IK
-    from libhm_tpu_torch.parallel.intra_wavefront import prepare_component
-    it = _items("intra_main10_416x240")[0]
-    sps = it["sps"]
-    levels, _ = prepare_component(sps, it["pic"], it["zmap"], it["tile_map"],
-                                  0, None, False)
-    rng = np.random.default_rng(2)
-    shape = (1, 256, 448)
+    from libhm_tpu_torch.parallel.batch_decode import intra_meta
+    items = _items("intra_main10_416x240")
+    sps = items[0]["sps"]
+    sh = 1 if comp else 0
+    shape = (len(items), 256 >> sh, 448 >> sh)
+    kw = dict(is_luma=comp == 0, bd=10, W=sps.width >> sh,
+              H=sps.height >> sh)
+    rng = np.random.default_rng(2 + comp)
     base = torch.from_numpy(rng.integers(0, 1024, shape).astype(np.int32)).to(gpu)
     res = torch.from_numpy(rng.integers(-64, 65, shape).astype(np.int32)).to(gpu)
-    got, want = base.clone(), base.clone()
-    for n in (4, 8, 16, 32):
-        meta = {k: torch.from_numpy(v[None]).to(gpu)
-                for k, v in levels[n].items()}
-        kw = dict(n=n, is_luma=True, bd=10, W=sps.width, H=sps.height)
-        for level in range(levels[n]["xs"].shape[0]):
-            IK.intra_level(got, res, meta, level, **kw)
-            IK.intra_level_plain(want, res, meta, level, **kw)
-    assert torch.equal(got, want)
+    for pics in ([0], [1], [0, 1]):
+        table = intra_meta([items[b] for b in pics], comp, gpu)
+        b0, r0 = base[pics].contiguous(), res[pics].contiguous()
+        want = IK.intra_wavefront_plain(b0.clone(), r0, table, **kw)
+        assert not torch.equal(want, b0)
+        n0 = IK._K2.launches
+        for _ in range(20):
+            got = IK.intra_wavefront(b0.clone(), r0, table, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (pics, int((got != want).sum()))
+        assert IK._K2.launches == n0 + 20
+        got = IK.intra_wavefront(b0.clone(), r0, table, _ctas=1, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), pics
 
 
 def _mc_inputs(rng, bd, B=3, R=4, Hp=96, Wp=128, H=88, W=120, sx=0, sy=0):
@@ -187,15 +206,17 @@ def test_inter_decode_on_gpu(gpu, name, kernel):
     checksum of the downloaded pictures."""
     from libhm_tpu_torch.ops import checksum as CK
     from libhm_tpu_torch.ops import interp as MK
+    from libhm_tpu_torch.ops import intra as IK
     from libhm_tpu_torch.parallel import dag_decode as DD
     data = open(os.path.join(ROOT, "testdata", GOLD[name]["bitstream"]),
                 "rb").read()
     k = getattr(MK, kernel)
-    k.launches = 0
+    k.launches = IK._K2.launches = 0
     outs = DD.decode_batch(data, device=gpu)
     buf = b"".join(p.tobytes() for pic in outs for p in pic)
     assert hashlib.md5(buf).hexdigest() == GOLD[name]["decoded_yuv_md5"]
     assert k.launches > 0
+    assert 0 < IK._K2.launches <= 3 * _dag_levels(name)
     CK._K7.launches = 0
     csum = DD.decode_batch_device(data, device=gpu)[2]
     assert CK._K7.launches == 1
@@ -307,6 +328,44 @@ def test_restore_and_pcm_kernels(gpu):
         PK.pcm_scatter(got, *args)
         PK.pcm_scatter_plain(want, *args)
         assert torch.equal(got, want) and got.any()
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("sx,sy", [(1, 1), (1, 0), (0, 0)])
+def test_restore_kernel_geometries(gpu, sx, sy, aligned):
+    """K8 == its plain version at 4:2:0, 4:2:2 and 4:4:4 on planes that
+    reach past the mask grid and end inside a tile (the edge tiles, the
+    clamped last mask row and column), with the 16/8-byte row copies
+    (aligned) and the sample-by-sample ones (planes 4 bytes off)."""
+    from libhm_tpu_torch.ops import pcm as PK
+    rng = np.random.default_rng(10 + 4 * sx + 2 * sy + aligned)
+    B, h4, w4 = 3, 37, 45              # 45 cells: a tile and a half wide
+    Hp, Wp = (4 * h4 + 12) >> sy, (4 * w4 + 20) >> sx
+    rmask = (rng.random((B, h4, w4)) < 0.1).astype(np.uint8)
+    rmask[0, :8] = 0                   # whole tiles with no cell set
+    rmask[1, -1, :] = rmask[2, :, -1] = 1
+    rmask = torch.from_numpy(rmask).to(gpu)
+
+    def planes_on_card():
+        a = rng.integers(0, 1024, (B, Hp, Wp)).astype(np.int32)
+        t = torch.from_numpy(a).to(gpu)
+        if aligned:
+            return t
+        flat = torch.empty(t.numel() + 1, dtype=torch.int32, device=gpu)
+        out = flat[1:].view(B, Hp, Wp)
+        out.copy_(t)
+        return out
+    planes, pre = planes_on_card(), planes_on_card()
+    assert (planes.data_ptr() % 16 == 0) == aligned
+    want = PK.restore_unfiltered_plain(planes.clone(), pre, rmask, sx=sx,
+                                       sy=sy)
+    n0 = PK._K8.launches
+    got = PK.restore_unfiltered(planes, pre, rmask, sx=sx, sy=sy)
+    torch.cuda.synchronize()
+    assert PK._K8.launches == n0 + 1
+    assert torch.equal(got, want)
+    assert torch.equal(want[1, -1], pre[1, -1])        # clamped last row
+    assert torch.equal(want[2, :, -1], pre[2, :, -1])  # clamped last column
 
 
 @pytest.mark.parametrize("name,kernel", [
@@ -515,3 +574,4 @@ def test_decode_intra_batch_on_gpu(gpu):
     assert hashlib.md5(buf).hexdigest() == GOLD[name]["decoded_yuv_md5"]
     assert [dp.hash_status for dp in dps] == ["OK"] * len(dps)
     assert all(k.launches > 0 for k in kernels)
+    assert IK._K2.launches <= 3 * _dag_levels(name)

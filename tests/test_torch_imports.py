@@ -149,7 +149,8 @@ def test_build_rule_sees_every_source():
     from libhm_tpu_torch.kernels import build
     names = sorted(os.path.basename(s) for s in build._sources())
     assert names == ["ccp.cu", "checksum.cu", "deblock.cu", "errors.cu",
-                     "intra.cu", "mc.cu", "pcm.cu", "residual.cu", "sao.cu"]
+                     "intra.cu", "mc.cu", "pcm.cu", "probe.cu", "residual.cu",
+                     "sao.cu"]
     assert build.LIB_PATH.startswith(os.path.join(PKG, "_build"))
 
 

@@ -15,15 +15,19 @@ result line is not printed):
     of the 1080p main paths, on seeded inputs: exact equality, with both
     times, the bound (bytes or operations at the card's peak rates) and,
     for K7 and K8, the time of the library call that computes the same
-    function; K2 (one launch per component) over the whole luma and both
-    chroma wavefronts of the first 1080p intra picture (row 14; luma alone
-    is K2's line), five kernel runs each against one plain run, luma also
-    with a grid of one CTA, beside its chain-depth bound: the levels times
-    one dependent L2 round trip, measured by a one-thread pointer chase
-    (csrc/probe.cu); K1's scaled and bypass modes on the TU buckets of the 1080p
-    tool stream, K4's multi form with that stream's slice/tile maps, K8 and
-    K9 on a seeded mask and block table at 1920x1088, K3 chroma's int16-tc
-    form on a 12-bit 960x544 plane, K10 (cross-component prediction) on two
+    function.  K1 runs one launch per (DAG level, component) over the
+    flat TU tables of the RA stream's levels (real TU positions, sizes and
+    modes, seeded coefficients), beside the per-bucket wrapper on the same
+    TUs; its scaled mode on the tool stream's tables, its bypass mode on
+    the same rows made bypass (rotation at 4x4, seeded RDPCM).  K2 (one
+    launch per component) over the whole luma and both chroma wavefronts
+    of the first 1080p intra picture (row 14; luma alone is K2's line),
+    five kernel runs each against one plain run, luma also with a grid of
+    one CTA, beside its chain-depth bound: the levels times one dependent
+    L2 round trip, measured by a one-thread pointer chase (csrc/probe.cu);
+    K4's multi form with the tool stream's slice/tile maps, K8 and K9 on a
+    seeded mask and block table at 1920x1088, K3 chroma's int16-tc form on
+    a 12-bit 960x544 plane, K10 (cross-component prediction) on two
     1920x1088 4:4:4 residual planes with a seeded table of TUs over 30% of
     the area; then K3 chroma, K4 and K5 chroma again at the RExt chroma
     geometries, 4:2:2 (960x1088, 32x64 chroma CTBs, 2x4 MC blocks) and
@@ -31,7 +35,7 @@ result line is not printed):
     15 of the kernel table: K5 on one picture with K3 and K4;
  4. the main paths, each with the launch counters reset just before it and
     read just after, and the reference-DAG levels it reconstructs counted:
-    K2 launches at most once per component and level on every path;
+    K1 and K2 launch at most once per component and level on every path;
     - testdata/randomaccess_main10_1080p.bin pushed NAL by NAL through
       libhm_tpu_torch.api.HmDecoder (native parse, recon="torch" on the
       card: each picture reconstructed as soon as it is parsed) and every
@@ -53,7 +57,10 @@ result line is not printed):
       its plain version, sum and frame, timed (row 16);
     - testdata/randomaccess_main10_1080p.bin through
       parallel.dag_decode.decode_batch(device="cuda"): golden MD5, K1-K5
-      launched;
+      launched; the inputs K1 and K5 get on its level with the most
+      pictures are kept, and both kernels are then held against their
+      plain versions on them and timed (the decode's own coefficients,
+      TU tables, MV maps and reference planes);
     - testdata/wp_lowdelayP_416x240.bin the same way: golden MD5, K6;
     - decode_batch_device on the 1080p RA stream: its checksum equals
       cropped_checksum of the decoded pictures, K7 launched, 4 bytes down;
@@ -77,7 +84,8 @@ result line is not printed):
  5. timed runs of the RA stream, of the tool stream and of the 4:2:2
     stream (every picture's hash SEI checked OK for the last two), and a
     breakdown (cProfile, torch.profiler) of the RA stream, with the intra
-    tables' H2D bytes beside those of the per-(level, size) slot layout;
+    tables' H2D bytes beside those of the per-(level, size) slot layout,
+    and K1's and K5's launches and device time and the H2D memcpy count;
  6. one JSON line of per-kernel results, then the result line
     {"ok": true, "device": {...}}.
 """
@@ -244,136 +252,121 @@ class Result:
         return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def check_k1(items, card, rng):
-    """K1 on every TU bucket of the stream (seeded coefficients)."""
+def _k1_work(rows):
+    """(bytes, operations) of K1 over TU_DTYPE rows: each row, its int16
+    coefficients, its int32 residual samples and each scaling matrix it
+    names once; the butterflies' multiply-adds (each 1-D pass 1.5 n per
+    4 samples) and the dequant, or the shifts and RDPCM sums of transform
+    skip and bypass rows."""
+    import numpy as np
+    from libhm_tpu_torch.ops import transform as TK
+    n = np.left_shift(1, rows["log2n"].astype(np.int64))
+    skip = (rows["flags"] & (TK.F_TSKIP | TK.F_BYPASS)) != 0
+    ops = np.where(skip, 6 * n * n, 2 * 2 * n * n * (3 * n // 8) + 5 * n * n)
+    ops = ops + np.where(rows["rdpcm"] != 0, n * n * (n + 1) // 2, 0)
+    sc = rows[(rows["flags"] & TK.F_SCALED) != 0]
+    mats = np.unique(sc["log2n"].astype(np.int64) << 8 | sc["midx"])
+    nbytes = len(rows) * 16 + (n * n).sum() * 6 + \
+        sum(1 << (2 * int(m >> 8)) for m in mats)
+    return int(nbytes), int(ops.sum())
+
+
+def _bucket_args(table_np, coeffs, mats):
+    """The rows of one table split into per-bucket residual_scatter calls
+    (one per size, mode and bit depth), on the card."""
     import numpy as np
     import torch
     from libhm_tpu_torch.ops import transform as TK
-    from libhm_tpu_torch.parallel.batch_decode import _tu_bucket_entries
-    sps = items[0]["sps"]
-    Hp = sps.pic_height_ctbs << sps.log2_ctb
-    Wp = sps.pic_width_ctbs << sps.log2_ctb
-    B = len(items)
-    r = Result()
-    for (n, use_dst, path, bd, _, _, _), entries in sorted(
-            _tu_bucket_entries(items).items()):
-        for c in range(3):
-            sel = [(b, i) for b, i, _ in entries
-                   if items[b]["pic"].tu_list[i].comp == c]
-            if not sel:
-                continue
-            tus = [items[b]["pic"].tu_list[i] for b, i in sel]
-            P = len(sel)
-            dev = DEV
-            coeffs = torch.from_numpy(rng.integers(
-                -2048, 2048, (P, n, n)).astype(np.int16)).to(dev)
-            qp = torch.from_numpy(rng.integers(
-                0, 52 + 6 * (bd - 8), P).astype(np.int8)).to(dev)
-            bsel = torch.tensor([b for b, _ in sel], dtype=torch.int32,
-                                device=dev)
-            ysel = torch.tensor([t.y for t in tus], dtype=torch.int32,
-                                device=dev)
-            xsel = torch.tensor([t.x for t in tus], dtype=torch.int32,
-                                device=dev)
-            shape = (B, Hp >> (1 if c else 0), Wp >> (1 if c else 0))
-            kw = dict(n=n, use_dst=use_dst, tskip=path == "tskip", bd=bd)
-            got = torch.zeros(shape, dtype=torch.int32, device=dev)
-            want = torch.zeros(shape, dtype=torch.int32, device=dev)
-            args = (coeffs, qp, bsel, ysel, xsel)
-            TK.residual_scatter(got, *args, **kw)
-            TK.residual_scatter_plain(want, *args, **kw)
-            torch.cuda.synchronize()
-            e = max_abs_err(got, want)
-            bms = cuda_ms(lambda: TK.residual_scatter(got, *args, **kw), 20)
-            pms = cuda_ms(lambda: TK.residual_scatter_plain(want, *args, **kw),
-                          5)
-            log(f"K1 residual_scatter n={n} {path}{' dst' if use_dst else ''}"
-                f" comp={c} TUs={P}: mismatches={int((got != want).sum())} "
-                f"kernel {bms:.4f} ms, plain {pms:.4f} ms ({card})")
-            # int16 coefficients + qp + 3 int32 indices in, n*n int32 out;
-            # dequant, then two n-point matrix stages (2 n^3 MACs)
-            nbytes = P * (n * n * 2 + 1 + 12 + n * n * 4)
-            ops = P * (n * n * 6 if path == "tskip" else 4 * n ** 3 +
-                       n * n * 4)
-            r.add(e, bms, pms, nbytes, ops)
-    return r
-
-
-def check_k1_modes(items, card, rng):
-    """K1's scaled and bypass modes on every TU bucket of the tool stream
-    (seeded coefficients): the scaled mode with the stream's own matrix
-    table and per-TU rows, the bypass mode at the same TU positions with
-    rotation on 4x4 and a seeded RDPCM direction per TU."""
-    import numpy as np
-    import torch
-    from libhm_tpu_torch.ops import transform as TK
-    from libhm_tpu_torch.parallel.batch_decode import (
-        _MatrixTable, _bucket_inputs, _tu_bucket_entries)
-    sps = items[0]["sps"]
-    Hp = sps.pic_height_ctbs << sps.log2_ctb
-    Wp = sps.pic_width_ctbs << sps.log2_ctb
-    B = len(items)
-    buckets = _tu_bucket_entries(items)
-    table = _MatrixTable(buckets, DEV)
-    out = {"residual_scatter_scaled": Result(), "residual_bypass": Result()}
+    rows = table_np
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEV)  # noqa
-    for (n, use_dst, path, bd, _, scal, _), entries in sorted(
-            buckets.items(), key=lambda kv: kv[0]):
-        for c in range(3):
-            sel = [e for e in entries
-                   if items[e[0]]["pic"].tu_list[e[1]].comp == c]
-            if not sel:
+    key = rows["log2n"].astype(np.int64) | rows["flags"].astype(np.int64) \
+        << 3 | rows["bd"].astype(np.int64) << 8
+    calls = []
+    for k in np.unique(key):
+        i = np.nonzero(key == k)[0]
+        r = rows[i]
+        n = 1 << int(r["log2n"][0])
+        fl = int(r["flags"][0])
+        c = np.stack([coeffs[o:o + n * n] for o in r["off"]]).reshape(-1, n, n)
+        scaled = bool(fl & TK.F_SCALED)
+        kw = dict(n=n, use_dst=bool(fl & TK.F_DST), tskip=bool(fl & TK.F_TSKIP),
+                  bd=int(r["bd"][0]), bypass=bool(fl & TK.F_BYPASS),
+                  rotate=bool(fl & TK.F_ROTATE),
+                  mats=mats[n] if scaled else None,
+                  midx=t(r["midx"]) if scaled else None,
+                  rdpcm=t(r["rdpcm"].astype(np.int8)) if r["rdpcm"].any()
+                  else None)
+        calls.append(((t(c), t(r["qp"]), t(r["b"].astype(np.int32)),
+                       t(r["y"].astype(np.int32)), t(r["x"].astype(np.int32))),
+                      kw))
+    return calls
+
+
+def check_k1(levels, card, rng, label="residual_scatter", bypass=False):
+    """K1 on the TUs of every level of a stream: one table launch per
+    (level, component) at the real TU positions, sizes and modes, with
+    seeded coefficients and qp, against its plain version, and beside it
+    the per-bucket wrapper (residual_scatter, one launch per size, mode
+    and bit depth) on the same TUs.  bypass: every row as a transquant
+    bypass TU instead (rotated at 4x4, a seeded RDPCM direction each)."""
+    import numpy as np
+    import torch
+    from libhm_tpu_torch.ops import transform as TK
+    from libhm_tpu_torch.parallel import batch_decode as TB
+    r = Result()
+    wrap_ms, dev_ms, launches, buckets = 0.0, 0.0, 0, 0
+    for items in levels:
+        sps = items[0]["sps"]
+        Hp = sps.pic_height_ctbs << sps.log2_ctb
+        Wp = sps.pic_width_ctbs << sps.log2_ctb
+        tables, lists = TB.residual_tables(items)
+        mats = TB._MatrixTable(lists, DEV).tables
+        for c, (rows, coeffs, counts, flags) in enumerate(tables):
+            if not len(rows):
                 continue
-            tus = [items[b]["pic"].tu_list[i] for b, i, _ in sel]
-            P = len(sel)
-            _, _, _, midx = _bucket_inputs(items, sel, n,
-                                           table.row if scal else None)
-            bsel = t(np.asarray([b for b, _, _ in sel], np.int32))
-            ysel = t(np.asarray([u.y for u in tus], np.int32))
-            xsel = t(np.asarray([u.x for u in tus], np.int32))
-            shape = (B, Hp >> (1 if c else 0), Wp >> (1 if c else 0))
-            modes = []
-            if scal:
-                kw = dict(n=n, use_dst=use_dst, tskip=path == "tskip", bd=bd,
-                          mats=table.tables[n], midx=t(midx))
-                coeffs = t(rng.integers(-2048, 2048, (P, n, n))
-                           .astype(np.int16))
-                qp = t(rng.integers(0, 52 + 6 * (bd - 8), P).astype(np.int8))
-                # coefficients, qp, row, 3 indices in; n*n int32 out; the
-                # rows' matrices once; dequant (2 multiplies) + 2 n^3 MACs
-                nbytes = P * (n * n * 6 + 14) + \
-                    len(np.unique(midx)) * n * n
-                ops = P * (n * n * 7 if path == "tskip" else
-                           4 * n ** 3 + n * n * 5)
-                modes.append(("residual_scatter_scaled", coeffs, qp, kw,
-                              nbytes, ops))
-            rot = n == 4
-            rdpcm = rng.integers(0, 3, P).astype(np.int8)
-            kw = dict(n=n, use_dst=False, tskip=False, bd=bd, bypass=True,
-                      rotate=rot, rdpcm=t(rdpcm))
-            coeffs = t(rng.integers(-512, 512, (P, n, n)).astype(np.int16))
-            # coefficients, direction, 3 indices in; n*n int32 out; the
-            # RDPCM running sums (n(n+1)/2 adds per row or column)
-            nbytes = P * (n * n * 6 + 13)
-            ops = P * n * n * 2 + int((rdpcm != 0).sum()) * n * n * (n + 1) // 2
-            modes.append(("residual_bypass", coeffs, None, kw, nbytes, ops))
-            for name, coeffs, qp, kw, nbytes, ops in modes:
-                args = (coeffs, qp, bsel, ysel, xsel)
-                got = torch.zeros(shape, dtype=torch.int32, device=DEV)
-                want = torch.zeros(shape, dtype=torch.int32, device=DEV)
-                TK.residual_scatter(got, *args, **kw)
-                TK.residual_scatter_plain(want, *args, **kw)
-                torch.cuda.synchronize()
-                e = max_abs_err(got, want)
-                bms = cuda_ms(lambda: TK.residual_scatter(got, *args, **kw),
-                              20)
-                pms = cuda_ms(lambda: TK.residual_scatter_plain(
-                    want, *args, **kw), 5)
-                log(f"K1 {name} n={n} {path} comp={c} TUs={P}: mismatches="
-                    f"{int((got != want).sum())} kernel {bms:.4f} ms, plain "
-                    f"{pms:.4f} ms ({card})")
-                out[name].add(e, bms, pms, nbytes, ops)
-    return out
+            rows = rows.copy()
+            if bypass:
+                rows["flags"] = TK.F_BYPASS | np.where(
+                    rows["log2n"] == 2, TK.F_ROTATE, 0)
+                rows["rdpcm"] = rng.integers(0, 3, len(rows))
+                coeffs = rng.integers(-512, 512, coeffs.size).astype(np.int16)
+                flags = TK.F_BYPASS | TK.F_ROTATE
+            else:
+                rows["qp"] = rng.integers(0, 52 + 6 * (rows["bd"] - 8))
+                coeffs = rng.integers(-2048, 2048, coeffs.size) \
+                    .astype(np.int16)
+            table = TB.upload_tables([(rows, coeffs, counts, flags)], DEV)[0]
+            sh = (1 if c and sps.chroma_shift_y() else 0,
+                  1 if c and sps.chroma_shift_x() else 0)
+            shape = (len(items), Hp >> sh[0], Wp >> sh[1])
+            got = torch.zeros(shape, dtype=torch.int32, device=DEV)
+            want = torch.zeros(shape, dtype=torch.int32, device=DEV)
+            TK.residual_table(got, table, mats)
+            TK.residual_table_plain(want, table, mats)
+            calls = _bucket_args(rows, coeffs, mats)
+            per_bucket = torch.zeros(shape, dtype=torch.int32, device=DEV)
+            for a, kw in calls:
+                TK.residual_scatter(per_bucket, *a, **kw)
+            torch.cuda.synchronize()
+            e = max(max_abs_err(got, want), max_abs_err(per_bucket, want))
+            bms = cuda_ms(lambda: TK.residual_table(got, table, mats), 20)
+            dev_ms += device_ms(lambda: TK.residual_table(got, table, mats),
+                                20)
+            pms = cuda_ms(lambda: TK.residual_table_plain(want, table, mats),
+                          3)
+            wms = cuda_ms(lambda: [TK.residual_scatter(per_bucket, *a, **kw)
+                                   for a, kw in calls], 10)
+            r.add(e, bms, pms, *_k1_work(rows))
+            wrap_ms += wms
+            launches += 1
+            buckets += len(calls)
+    log(f"K1 {label} ({'bypass rows' if bypass else 'seeded coefficients'}"
+        f", {len(levels)} levels): {launches} table launches (one per level "
+        f"and component) {r.ms:.4f} ms (device, queued behind a sleep: "
+        f"{dev_ms:.4f} ms), the per-bucket wrapper on the same TUs {buckets} "
+        f"launches {wrap_ms:.4f} ms, plain {r.plain_ms:.4f} ms; max abs err "
+        f"{r.err} ({card})")
+    return r
 
 
 def l2_round_trip_us(card):
@@ -857,6 +850,8 @@ def check_k5(card, rng, bd=10, comps=COMPS, B=LEVEL_B):
         e = max_abs_err(got, want)
         bms = cuda_ms(lambda: MK.mc_grid(got, res, refs, mv, dirm, sel,
                                          **kw), 20)
+        dms = device_ms(lambda: MK.mc_grid(got, res, refs, mv, dirm, sel,
+                                           **kw), 20)
         pms = cuda_ms(lambda: MK.mc_grid_plain(want, res, refs, mv, dirm,
                                                sel, **kw), 2)
         # what this data needs: the R reference planes, the residual read
@@ -876,8 +871,8 @@ def check_k5(card, rng, bd=10, comps=COMPS, B=LEVEL_B):
         log(f"K5 mc_grid {'luma' if is_luma else 'chroma'} {(Hp, Wp)} "
             f"sx={sx} sy={sy} "
             f"B={B} R={LEVEL_R} inter samples={inter}: mismatches="
-            f"{int((got != want).sum())} kernel {bms:.4f} ms, plain "
-            f"{pms:.4f} ms ({card})")
+            f"{int((got != want).sum())} kernel {bms:.4f} ms (device "
+            f"{dms:.4f} ms), plain {pms:.4f} ms ({card})")
         r.add(e, bms, pms, nbytes, int(ops.sum()) * per_cell)
     return r
 
@@ -1154,8 +1149,8 @@ def breakdown(data, card):
         f"{sizes[1]} bytes for the same blocks in per-(level, size) slots")
     log(f"breakdown ({card}): recon under cProfile {wall:.3f} s; "
         "cumulative host seconds per function (calls):")
-    names = {"prepare_component", "_bucket_inputs", "_tu_bucket_entries",
-             "_residual_planes_batch_device", "_intra_batch", "filter_level",
+    names = {"prepare_component", "residual_tables", "upload_tables",
+             "residual_table", "_residual_planes_batch_device", "_intra_batch", "filter_level",
              "prepare_filter_maps", "compute_bs_maps", "residual_scatter",
              "intra_wavefront", "intra_table", "deblock_luma",
              "deblock_chroma", "sao", "up",
@@ -1170,6 +1165,9 @@ def breakdown(data, card):
         log(f"  {fn:44s} {ct:8.3f} s  ({nc})")
 
     its = items()
+    from libhm_tpu_torch.ops import interp as MK
+    from libhm_tpu_torch.ops import transform as TK
+    TK._K1.launches = MK._K5.launches = 0
     torch.cuda.synchronize()
     t0 = time.monotonic()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1177,6 +1175,7 @@ def breakdown(data, card):
         DD._recon_levels(its, cuda)
         torch.cuda.synchronize()
     wall = time.monotonic() - t0
+    k1_k5 = (TK._K1.launches, MK._K5.launches)
     dev = {}
     for e in p.key_averages():
         us = getattr(e, "self_device_time_total", 0)
@@ -1189,6 +1188,97 @@ def breakdown(data, card):
         "device time: not measured (the profiler saw no device activity)")
     for key, (us, cnt) in sorted(dev.items(), key=lambda kv: -kv[1][0])[:14]:
         log(f"  {key[:60]:60s} {us / 1e3:9.3f} ms  ({cnt})")
+
+    def dev_sum(part):
+        hits = [v for k, v in dev.items() if part in k]
+        return sum(us for us, _ in hits) / 1e3, sum(n for _, n in hits)
+    (k1_ms, k1_n), (k5_ms, k5_n), (h2d_ms, h2d_n) = (
+        dev_sum(k) for k in ("residual_table_kernel", "mc_grid_kernel",
+                             "HtoD"))
+    log(f"breakdown ({card}): K1 {k1_k5[0]} launches, {k1_ms:.3f} ms device "
+        f"({k1_n} kernels seen); K5 {k1_k5[1]} launches, {k5_ms:.3f} ms "
+        f"device ({k5_n} seen); H2D memcpy {h2d_n}, {h2d_ms:.3f} ms device")
+
+
+class LevelCapture:
+    """The inputs that one decode hands K1 and K5 on its level with the
+    most pictures (the first such), recorded by wrapping the two entry
+    points while the decode runs: real coefficients, TU tables, MV /
+    direction / reference maps and reference planes, no extra launch."""
+
+    def __init__(self):
+        from libhm_tpu_torch.ops import interp as MK
+        from libhm_tpu_torch.ops import transform as TK
+        self.MK, self.TK = MK, TK
+        self.k1, self.k5 = TK.residual_table, MK.mc_grid
+        self.cur = None
+        self.best = {"B": 0, "res": [], "mc": []}
+        TK.residual_table, MK.mc_grid = self._k1, self._k5
+
+    def _k1(self, planes, table, mats=None):
+        if self.cur is None or len(self.cur["res"]) == 3:
+            self.cur = {"B": planes.shape[0], "res": [], "mc": []}
+            if self.cur["B"] > self.best["B"]:
+                self.best = self.cur
+        self.cur["res"].append((planes.shape, table, mats))
+        return self.k1(planes, table, mats)
+
+    def _k5(self, stacked, res, refs, mv, dirm, sel, **kw):
+        if self.cur is self.best:
+            self.cur["mc"].append((stacked.clone(), res, refs, mv, dirm, sel,
+                                   kw))
+        return self.k5(stacked, res, refs, mv, dirm, sel, **kw)
+
+    def remove(self):
+        self.TK.residual_table, self.MK.mc_grid = self.k1, self.k5
+
+
+def check_real_level(cap, card):
+    """K1 and K5 against their plain versions on the captured level of the
+    RA decode, timed: the decode's own coefficients and maps."""
+    import torch
+    MK, TK = cap.MK, cap.TK
+    lv = cap.best
+    if not lv["mc"]:
+        raise AssertionError("real level: the captured level has no MC")
+    err, t = 0, {"K1": [0.0, 0.0, 0.0], "K5": [0.0, 0.0, 0.0]}
+    tus = inter = 0
+    for shape, table, mats in lv["res"]:
+        got = torch.zeros(shape, dtype=torch.int32, device=DEV)
+        want = torch.zeros(shape, dtype=torch.int32, device=DEV)
+        TK.residual_table(got, table, mats)
+        TK.residual_table_plain(want, table, mats)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err(got, want))
+        t["K1"][0] += cuda_ms(lambda: TK.residual_table(got, table, mats), 20)
+        t["K1"][2] += device_ms(lambda: TK.residual_table(got, table, mats),
+                                20)
+        t["K1"][1] += cuda_ms(lambda: TK.residual_table_plain(want, table,
+                                                              mats), 3)
+        tus += table.rows.shape[0]
+    for stacked, res, refs, mv, dirm, sel, kw in lv["mc"]:
+        got, want = stacked.clone(), stacked.clone()
+        MK.mc_grid(got, res, refs, mv, dirm, sel, **kw)
+        MK.mc_grid_plain(want, res, refs, mv, dirm, sel, **kw)
+        torch.cuda.synchronize()
+        err = max(err, max_abs_err(got, want))
+        t["K5"][0] += cuda_ms(lambda: MK.mc_grid(got, res, refs, mv, dirm,
+                                                 sel, **kw), 20)
+        t["K5"][2] += device_ms(lambda: MK.mc_grid(got, res, refs, mv, dirm,
+                                                   sel, **kw), 20)
+        t["K5"][1] += cuda_ms(lambda: MK.mc_grid_plain(want, res, refs, mv,
+                                                       dirm, sel, **kw), 2)
+        inter = int((dirm > 0).sum())
+    log(f"real RA level ({lv['B']} pictures, {tus} TUs, {inter} inter 4x4 "
+        f"cells, {refs.shape[0]} references; the decode's coefficients and "
+        f"maps): K1 {len(lv['res'])} launches {t['K1'][0]:.4f} ms (device "
+        f"{t['K1'][2]:.4f} ms; plain {t['K1'][1]:.4f} ms), K5 "
+        f"{len(lv['mc'])} launches {t['K5'][0]:.4f} ms (device "
+        f"{t['K5'][2]:.4f} ms; plain {t['K5'][1]:.4f} ms); max abs err "
+        f"{err} ({card})")
+    if err:
+        raise AssertionError("real RA level: K1 or K5 differs from its "
+                             "plain version")
 
 
 def decode_md5(name, gold, check_sei_hash=False):
@@ -1302,10 +1392,21 @@ def main():
     dec = Decoder(parse="native", recon="collect")
     dec.decode_annexb(tools_data)
     tool_items = dec.collected
+    data = open(os.path.join(ROOT, "testdata", gold[STREAM]["bitstream"]),
+                "rb").read()
+    dec = Decoder(parse="native", recon="collect")
+    dec.decode_annexb(data)
+    from libhm_tpu_torch.parallel.dag_decode import reference_levels
+    ra_levels = reference_levels(dec.collected)
+    tool_levels = reference_levels(tool_items)
     rng = np.random.default_rng(2024)
     results = {}
-    results["residual_scatter"] = check_k1(items, card, rng)
-    results.update(check_k1_modes(tool_items, card, rng))
+    results["residual_scatter"] = check_k1(ra_levels, card, rng)
+    results["residual_scatter_scaled"] = check_k1(
+        tool_levels, card, rng, "residual_scatter_scaled")
+    results["residual_bypass"] = check_k1(tool_levels, card, rng,
+                                          "residual_bypass", bypass=True)
+    del ra_levels, tool_levels
     rt_us = l2_round_trip_us(card)
     results["intra_wavefront"], results["row14"] = check_k2(items, card, rng,
                                                             rt_us)
@@ -1389,15 +1490,14 @@ def main():
         idle = [nm for nm in needed if counts[nm] == 0]
         if idle:
             raise AssertionError(f"{label}: kernels never launched: {idle}")
-        if counts["intra_wavefront"] > 3 * sum(seen):
-            raise AssertionError(f"{label}: {counts['intra_wavefront']} K2 "
-                                 f"launches over {sum(seen)} DAG levels")
+        for k in ("intra_wavefront", "residual_scatter"):
+            if counts[k] > 3 * sum(seen) and sum(seen):
+                raise AssertionError(f"{label}: {counts[k]} {k} launches "
+                                     f"over {sum(seen)} DAG levels")
         log(f"{label}: {sum(seen)} DAG levels, launches {counts}")
         return out, counts
 
     launches = {}
-    data = open(os.path.join(ROOT, "testdata", gold[STREAM]["bitstream"]),
-                "rb").read()
     # the per-picture path: HmDecoder (push a NAL, pull pictures), each
     # picture reconstructed on the card as soon as it is parsed
     _, counts = run_path(f"{STREAM} HmDecoder",
@@ -1498,9 +1598,15 @@ def main():
     if results["row16"].err:
         raise AssertionError("fused_recon_step differs from its plain version")
 
-    (npics, ra_outs), counts = run_path(
-        f"{STREAM} decode_batch", lambda: decode_md5(STREAM, gold),
-        k1_k4 + ["mc_grid"])
+    capture = LevelCapture()
+    try:
+        (npics, ra_outs), counts = run_path(
+            f"{STREAM} decode_batch", lambda: decode_md5(STREAM, gold),
+            k1_k4 + ["mc_grid"])
+    finally:
+        capture.remove()
+    check_real_level(capture, card)
+    del capture
     log(f"{STREAM}: {npics} pictures, MD5 matches golden")
     launches.update({k: counts[k] for k in k1_k4 + ["mc_grid"]})
     (n, _), counts = run_path(f"{WP} decode_batch",

@@ -1,36 +1,51 @@
-// K1: fused dequant + inverse transform + residual-plane scatter.
+// K1: fused dequant + inverse transform + residual-plane scatter, one
+// launch per (reference-DAG level, component) over a flat table of TUs.
 //
 // Replaces: libhm_tpu/recon_tpu.py _residual_fn (ops/transform.py
 //   dequant_batch, dequant_batch_scaling, inverse_transform_batch,
 //   inverse_transform_skip_batch, inverse_rdpcm_batch, and the bypass
 //   branch) followed by libhm_tpu/parallel/batch_decode.py _scatter_tu_fn.
+//   The JAX path runs one program per TU bucket (size, DST, path, bit
+//   depth, rotation, scaling), a bucketing that only serves XLA's compile
+//   cache; here one launch takes every TU of a component of a level.
 // What bounds it on the card: bytes.  Each TU reads n*n int16 coefficients
-//   and writes n*n int32 residual samples; the arithmetic is at most 2*n
-//   integer MACs per sample (two 1-D passes), far below the int32 ALU rate,
-//   so the kernel moves ~6 bytes per sample and is limited by DRAM traffic
-//   and, at 4x4, by the tiny 16-thread blocks.
-// What the design does about it: one thread block per TU and one thread
-//   per coefficient; the dequantized block and the stage-1 result live in
-//   shared memory, the DCT/DST matrices in __constant__ memory, so every
-//   sample is read once and written once straight into the stacked
-//   [Bp, Hc, Wc] plane.  The TPU's int8-limb matmul split and the
-//   pad-and-drop scatter are gone: entries with bsel >= Bp are skipped.
-// Three entry points, one kernel template:
-//   residual_scatter         flat dequant (Rec. 8.6.3, m = 16);
-//   residual_scatter_scaled  scaling lists: the level's distinct matrices
-//     are one small uint8 table [M, n, n] and each TU carries a one-byte
-//     row index, instead of the JAX path's [P, n, n] int32 matrix per TU;
-//   residual_bypass          transquant bypass: the coefficients are the
-//     residual (no dequant, no transform).
-// Each takes the per-TU RDPCM direction (NULL: none) and the bucket's
-// transform-skip rotation flag (4x4 tskip/bypass TUs of intra CUs).
+//   and writes n*n int32 residual samples; the butterflies below need
+//   ~0.4 n integer MACs a sample for each of the two 1-D passes, far below
+//   the card's integer rate, so ~6 bytes a sample set the bound.
+// What the design does about it:
+//   - the table (ops/transform.py TU_DTYPE, 16 bytes a row) is sorted by
+//     size, and each 256-thread CTA takes 1024 samples of one size: one
+//     32x32 TU, 4 16x16, 16 8x8 or 64 4x4, so every CTA does equal work
+//     and 4x4 TUs no longer run in half-empty warps;
+//   - coefficients load as 16-byte vectors (8 int16 a thread) and the
+//     residual leaves as 16-byte row stores, coalesced;
+//   - the transform is HM's even/odd partial butterfly
+//     (TComTrQuant.cpp partialButterflyInverse4..32), split so that each
+//     thread computes 4 outputs of one line: outputs q, n/2-1-q, n/2+q and
+//     n-1-q from O[q], O[n/2-1-q] (odd inputs), EO[q] (inputs 2 mod 4) and
+//     EE[q] (inputs 0 mod 4), 1.5 n MACs for 4 outputs instead of 4 n.  It
+//     only reassociates integer sums (|coef| <= 32768, |T| <= 90, n <= 32
+//     keep every partial sum below 2^27), so it is exact;
+//   - the CTA's n-point matrix sits in shared memory, where a warp's reads
+//     at distinct columns fall in distinct banks; the constant cache would
+//     serialize them;
+//   - the intermediate blocks live in shared memory with a row stride of
+//     n + 1, so that a warp's column reads and row reads fall in distinct
+//     banks.
+// Row flags (one template for every mode): DST, transform skip, bypass
+// (the coefficients are the residual), rotation (4x4 tskip/bypass TUs of
+// intra CUs: the block is read back to front), scaled (scaling lists: the
+// level's distinct matrices are one uint8 table [M, n, n] per size and the
+// row holds its one-byte index).  Each row carries its RDPCM direction and
+// bit depth.  Rows whose picture index is outside [0, Bp) are skipped, and
+// samples outside the H x W plane are not written.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
 // Rec. H.265 8.6.4.2 32-point DCT; the n-point matrix is rows 0, 32/n, ...
-__constant__ int16_t kDct32[32][32] = {
+__device__ const int16_t kDct32[32][32] = {
     {64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64, 64},
     {90, 90, 88, 85, 82, 78, 73, 67, 61, 54, 46, 38, 31, 22, 13, 4, -4, -13, -22, -31, -38, -46, -54, -61, -67, -73, -78, -82, -85, -88, -90, -90},
     {90, 87, 80, 70, 57, 43, 25, 9, -9, -25, -43, -57, -70, -80, -87, -90, -90, -87, -80, -70, -57, -43, -25, -9, 9, 25, 43, 57, 70, 80, 87, 90},
@@ -65,160 +80,282 @@ __constant__ int16_t kDct32[32][32] = {
     {4, -13, 22, -31, 38, -46, 54, -61, 67, -73, 78, -82, 85, -88, 90, -90, 90, -90, 88, -85, 82, -78, 73, -67, 61, -54, 46, -38, 31, -22, 13, -4},
 };
 
-__constant__ int16_t kDst4[4][4] = {
+__device__ const int16_t kDst4[4][4] = {
     {29, 55, 74, 84}, {74, 74, 0, -74}, {84, -29, -74, 55}, {55, -84, 74, -29}};
 
-__constant__ int kInvQuantScales[6] = {40, 45, 51, 57, 64, 72};
+__device__ const int kInvQuantScales[6] = {40, 45, 51, 57, 64, 72};
+
+// one row of the TU table (ops/transform.py TU_DTYPE)
+struct TuRow {
+  uint32_t off;        // first coefficient of the TU in the packed buffer
+  int16_t b;           // picture
+  uint16_t y, x;       // sample origin in the component plane
+  uint8_t log2n;
+  int8_t qp;           // incl. the bit-depth offset
+  uint8_t flags;       // kDst | kTskip | kBypass | kRotate | kScaled
+  uint8_t rdpcm;       // 0 off, 1 horizontal, 2 vertical
+  uint8_t midx;        // row of the scaling-matrix table
+  uint8_t bd;
+};
+static_assert(sizeof(TuRow) == 16, "TU_DTYPE is 16 bytes");
+
+enum { kDst = 1, kTskip = 2, kBypass = 4, kRotate = 8, kScaled = 16 };
+
+constexpr int kThreads = 256;
+constexpr int kBuf = 64 * 4 * 5;              // 64 4x4 TUs, stride n + 1
+
+struct Mats {
+  const uint8_t* m[4];                        // [M, n, n] for n = 4 .. 32
+};
+
+struct Counts {
+  int n[4];                                   // rows of each size
+};
 
 __device__ __forceinline__ int clip3(int lo, int hi, int v) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
-__device__ __forceinline__ int tmat(int use_dst, int n, int k, int c) {
-  return use_dst ? kDst4[k][c] : kDct32[k * (32 / n)][c];
+__device__ __forceinline__ int clip16(int v) {
+  return clip3(-32768, 32767, v);
 }
 
-enum Mode { kFlat = 0, kScaled = 1, kBypass = 2 };
-
-template <int MODE>
-__global__ void residual_kernel(
-    const int16_t* __restrict__ coeffs, const int8_t* __restrict__ qp,
-    const uint8_t* __restrict__ mats, const uint8_t* __restrict__ midx,
-    const int8_t* __restrict__ rdpcm, const int32_t* __restrict__ bsel,
-    const int32_t* __restrict__ ysel, const int32_t* __restrict__ xsel,
-    int n, int log2n, int use_dst, int tskip, int rotate, int bd,
-    int32_t* __restrict__ planes, int Bp, int H, int W) {
-  const int k = blockIdx.x;
-  const int b = bsel[k];
-  if (b < 0 || b >= Bp) return;               // padding entry
-  __shared__ int s_deq[32 * 32];
-  __shared__ int s_st1[32 * 32];
-  const int nn = n * n;
-  const int t = threadIdx.x;                  // blockDim.x == n * n
-  const int r = t / n, c = t % n;
-  // rotation (Rec. 8.6.2): the block is read back to front
-  const int src = rotate ? nn - 1 - t : t;
-  int res;
-  if (MODE == kBypass) {
-    res = coeffs[(long long)k * nn + src];    // int16: already clipped
-  } else {
-    // dequant (Rec. 8.6.3, non-extended precision: max_dyn_range 15)
-    const int q = qp[k];
-    const int per = q / 6, rem = q % 6;
-    const int tshift = 15 - bd - log2n;
-    int right, tbits, scale;
-    if (MODE == kScaled) {
-      // m[x][y] from the table; + 4 = log2 of the neutral factor 16
-      right = 6 - (tshift + per) + 4;
-      tbits = min(16, 32 + right - 15);
-      scale = (int)mats[(long long)midx[k] * nn + t] * kInvQuantScales[rem];
+// Outputs q, n/2-1-q, n/2+q, n-1-q of one line of the N-point inverse DCT
+// out[k] = sum_i T[i][k] src[i]; t holds T[i][k] for k < N/2 as t[i][N/2].
+template <int N>
+__device__ __forceinline__ void idct_line(const int* src, int stride,
+                                          const int* t, int q, int out[4]) {
+  constexpr int H = N / 2;
+  const int qb = H - 1 - q;
+  int oa = 0, ob = 0, eo = 0, ee = 0;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int v = src[i * stride];
+    if (i & 1) {
+      oa += t[i * H + q] * v;
+      ob += t[i * H + qb] * v;
+    } else if (i & 2) {
+      eo += t[i * H + q] * v;
     } else {
-      right = 6 - (tshift + per);
-      tbits = min(16, 32 + right - 7);
+      ee += t[i * H + q] * v;
+    }
+  }
+  const int ea = ee + eo, eb = ee - eo;
+  out[0] = ea + oa;
+  out[1] = eb + ob;
+  out[2] = eb - ob;
+  out[3] = ea - oa;
+}
+
+// the four output indices of idct_line, in its out[] order
+__device__ __forceinline__ int out_index(int n, int q, int j) {
+  return j == 0 ? q : j == 1 ? n / 2 - 1 - q : j == 2 ? n / 2 + q : n - 1 - q;
+}
+
+// one line (4 outputs) of the 4-point inverse DST: d holds DST[i][k]
+__device__ __forceinline__ void idst_line(const int* src, int stride,
+                                          const int* d, int out[4]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    int s = 0;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s += d[i * 4 + k] * src[i * stride];
+    out[k] = s;
+  }
+}
+
+// one pass (columns: stage 1, or rows: stage 2) of one line of a TU:
+// reads the line from `in` (stride along it `step`), writes the 4 outputs,
+// rounded by `shift` and clipped to int16, into `out` at the same stride
+__device__ __forceinline__ void transform_line(int log2n, bool dst,
+                                               const int* in, int* out,
+                                               int step, const int* t,
+                                               int q, int shift) {
+  int v[4];
+  const int n = 1 << log2n;
+  switch (log2n) {
+    case 2:
+      if (dst) idst_line(in, step, t + 8, v);
+      else idct_line<4>(in, step, t, q, v);
+      break;
+    case 3: idct_line<8>(in, step, t, q, v); break;
+    case 4: idct_line<16>(in, step, t, q, v); break;
+    default: idct_line<32>(in, step, t, q, v); break;
+  }
+  const int rnd = 1 << (shift - 1);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int k = dst ? j : out_index(n, q, j);
+    out[k * step] = clip16((v[j] + rnd) >> shift);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+residual_table_kernel(const TuRow* __restrict__ rows,
+                      const int16_t* __restrict__ coeffs, Mats mats,
+                      Counts counts, int32_t* __restrict__ planes, int Bp,
+                      int H, int W) {
+  __shared__ int s_a[kBuf];
+  __shared__ int s_b[kBuf];
+  __shared__ int s_t[32 * 16 + 16];
+  __shared__ TuRow s_row[64];
+
+  // the size segment of this CTA: rows are sorted 4x4, 8x8, 16x16, 32x32
+  int s = 0, cta0 = 0, row0 = 0;
+  for (; s < 3; ++s) {
+    const int per = 64 >> (2 * s);
+    const int ctas = (counts.n[s] + per - 1) / per;
+    if ((int)blockIdx.x < cta0 + ctas) break;
+    cta0 += ctas;
+    row0 += counts.n[s];
+  }
+  const int log2n = s + 2, n = 1 << log2n, nn = n * n, ps = n + 1;
+  const int per = 64 >> (2 * s);              // TUs in this CTA
+  const int first = row0 + ((int)blockIdx.x - cta0) * per;
+  const int ntu = min(per, row0 + counts.n[s] - first);
+  const int t = threadIdx.x;
+  // this CTA's rows and its n-point matrix (and the DST) into shared memory
+  if (t < ntu) s_row[t] = rows[first + t];
+  for (int e = t; e < n * (n / 2); e += kThreads)
+    s_t[e] = kDct32[(e / (n / 2)) * (32 / n)][e % (n / 2)];
+  if (n == 4 && t < 16) s_t[8 + t] = kDst4[t / 4][t % 4];
+  __syncthreads();
+
+  const int tpt = nn / 4;                     // threads per TU
+  const int j = t / tpt, tt = t % tpt;        // TU in the CTA, thread in it
+  const bool live = j < ntu && s_row[j].b >= 0 && s_row[j].b < Bp;
+  const TuRow r = s_row[min(j, ntu - 1)];
+  const int base = j * n * ps;
+  const bool skip = r.flags & (kTskip | kBypass);
+
+  // 1. coefficients (16-byte loads, 8 a thread) -> dequantized, int16
+  //    range, into s_a at row stride n + 1
+  if (live && tt < nn / 8) {
+    const int p0 = tt * 8;
+    const int16_t* src = coeffs + r.off + p0;
+    alignas(16) int16_t c[8];
+    if (((uintptr_t)src & 15) == 0) {
+      const int4 v = __ldg(reinterpret_cast<const int4*>(src));
+      *reinterpret_cast<int4*>(c) = v;
+    } else {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) c[k] = src[k];
+    }
+    int right = 0, hi = 0, scale = 0;
+    if (!(r.flags & kBypass)) {
+      // dequant (Rec. 8.6.3, non-extended precision: max_dyn_range 15)
+      const int per6 = r.qp / 6, rem = r.qp % 6;
+      const int tshift = 15 - r.bd - log2n;
+      right = 6 - (tshift + per6) + ((r.flags & kScaled) ? 4 : 0);
+      const int tbits = min(16, 32 + right - ((r.flags & kScaled) ? 15 : 7));
+      hi = (1 << (tbits - 1)) - 1;
       scale = kInvQuantScales[rem];
     }
-    const int hi = (1 << (tbits - 1)) - 1, lo = -hi - 1;
-    {
-      const int cf = clip3(lo, hi, (int)coeffs[(long long)k * nn + t]);
-      const int prod = cf * scale;
-      // a negative int must not be shifted left: multiply by 1 << -right
-      const int v = right > 0 ? (prod + (1 << (right - 1))) >> right
-                              : prod * (1 << -right);
-      s_deq[t] = clip3(-32768, 32767, v);
-    }
-    __syncthreads();
-
-    if (tskip) {
-      const int v = s_deq[src];
-      int o;
-      if (tshift >= 0) {
-        const int off = tshift == 0 ? 0 : (1 << (tshift - 1));
-        o = (v + off) >> tshift;
-      } else {
-        o = v * (1 << -tshift);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int p = p0 + k;
+      int v = c[k];
+      if (!(r.flags & kBypass)) {
+        const int m = (r.flags & kScaled)
+                          ? (int)mats.m[s][(size_t)r.midx * nn + p] : 1;
+        const int prod = clip3(-hi - 1, hi, v) * (scale * m);
+        // a negative int must not be shifted left: multiply by 1 << -right
+        v = clip16(right > 0 ? (prod + (1 << (right - 1))) >> right
+                             : prod * (1 << -right));
       }
-      res = clip3(-32768, 32767, o);
-    } else {
-      // stage 1: S1 = T^T @ C, shift 7, clip to int16
-      int s = 0;
-      for (int i = 0; i < n; ++i) s += tmat(use_dst, n, i, r) * s_deq[i * n + c];
-      s_st1[t] = clip3(-32768, 32767, (s + 64) >> 7);
-      __syncthreads();
-      // stage 2: S1 @ T, shift 20 - bd, clip to int16
-      const int shift2 = 20 - bd;
-      s = 0;
-      for (int i = 0; i < n; ++i) s += s_st1[r * n + i] * tmat(use_dst, n, i, c);
-      res = clip3(-32768, 32767, (s + (1 << (shift2 - 1))) >> shift2);
+      s_a[base + (p >> log2n) * ps + (p & (n - 1))] = v;
     }
   }
-  // RDPCM (Rec. 8.6.8): a running sum along rows (1) or columns (2), the
-  // direction uniform over the block, clipped to int16 at the end
-  const int dir = rdpcm ? rdpcm[k] : 0;
-  if (dir) {
-    __syncthreads();                          // s_deq reads are done
-    s_deq[t] = res;
-    __syncthreads();
-    int s = 0;
-    if (dir == 1) {
-      for (int i = 0; i <= c; ++i) s += s_deq[r * n + i];
+  __syncthreads();
+
+  // 2. columns (stage 1, shift 7) into s_b; transform skip and bypass
+  //    write their residual into s_b directly
+  const int tpl = n / 4, line = tt / tpl, q = tt % tpl;
+  if (live) {
+    if (!skip) {
+      transform_line(log2n, r.flags & kDst, s_a + base + line,
+                     s_b + base + line, ps, s_t, q, 7);
     } else {
-      for (int i = 0; i <= r; ++i) s += s_deq[i * n + c];
+      const int tshift = 15 - r.bd - log2n;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int p = tt * 4 + k;
+        // rotation (Rec. 8.6.2): the block is read back to front
+        const int sp = (r.flags & kRotate) ? nn - 1 - p : p;
+        int v = s_a[base + (sp >> log2n) * ps + (sp & (n - 1))];
+        if (r.flags & kTskip) {
+          v = tshift >= 0 ? (v + (tshift ? 1 << (tshift - 1) : 0)) >> tshift
+                          : v * (1 << -tshift);
+          v = clip16(v);
+        }
+        s_b[base + (p >> log2n) * ps + (p & (n - 1))] = v;
+      }
     }
-    res = clip3(-32768, 32767, s);
   }
-  const int y = ysel[k] + r, x = xsel[k] + c;
-  if (y < H && x < W) planes[((long long)b * H + y) * W + x] = res;
-}
+  __syncthreads();
 
-int log2_of(int n) {
-  int l = 0;
-  while ((1 << l) < n) ++l;
-  return l;
-}
+  // 3. rows (stage 2, shift 20 - bd) back into s_a
+  if (live && !skip)
+    transform_line(log2n, r.flags & kDst, s_b + base + line * ps,
+                   s_a + base + line * ps, 1, s_t, q, 20 - r.bd);
+  __syncthreads();
 
-template <int MODE>
-int launch(const void* coeffs, const void* qp, const void* mats,
-           const void* midx, const void* rdpcm, const void* bsel,
-           const void* ysel, const void* xsel, int P, int n, int use_dst,
-           int tskip, int rotate, int bd, void* planes, int Bp, int H, int W,
-           void* stream) {
-  residual_kernel<MODE><<<P, n * n, 0, (cudaStream_t)stream>>>(
-      (const int16_t*)coeffs, (const int8_t*)qp, (const uint8_t*)mats,
-      (const uint8_t*)midx, (const int8_t*)rdpcm, (const int32_t*)bsel,
-      (const int32_t*)ysel, (const int32_t*)xsel, n, log2_of(n), use_dst,
-      tskip, rotate, bd, (int32_t*)planes, Bp, H, W);
-  return (int)cudaGetLastError();
+  // 4. RDPCM (Rec. 8.6.8: a running sum along rows (1) or columns (2),
+  //    clipped to int16) and 16-byte row stores into the plane
+  if (!live) return;
+  const int* res = skip ? s_b + base : s_a + base;
+  const int p0 = tt * 4, ry = p0 >> log2n, rx = p0 & (n - 1);
+  int v[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) v[k] = res[ry * ps + rx + k];
+  if (r.rdpcm == 1) {
+    int acc = 0;
+    for (int i = 0; i < rx; ++i) acc += res[ry * ps + i];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[k] = clip16(acc += v[k]);
+  } else if (r.rdpcm == 2) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      int acc = 0;
+      for (int i = 0; i <= ry; ++i) acc += res[i * ps + rx + k];
+      v[k] = clip16(acc);
+    }
+  }
+  const int y = r.y + ry, x = r.x + rx;
+  if (y >= H) return;
+  int32_t* dst = planes + ((size_t)r.b * H + y) * W + x;
+  if (x + 3 < W && ((uintptr_t)dst & 15) == 0) {
+    *reinterpret_cast<int4*>(dst) = make_int4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (x + k < W) dst[k] = v[k];
+  }
 }
 
 }  // namespace
 
-extern "C" int residual_scatter(const void* coeffs, const void* qp,
-                                const void* rdpcm, const void* bsel,
-                                const void* ysel, const void* xsel, int P,
-                                int n, int use_dst, int tskip, int rotate,
-                                int bd, void* planes, int Bp, int H, int W,
-                                void* stream) {
-  return launch<kFlat>(coeffs, qp, nullptr, nullptr, rdpcm, bsel, ysel, xsel,
-                       P, n, use_dst, tskip, rotate, bd, planes, Bp, H, W,
-                       stream);
-}
-
-extern "C" int residual_scatter_scaled(
-    const void* coeffs, const void* qp, const void* mats, const void* midx,
-    const void* rdpcm, const void* bsel, const void* ysel, const void* xsel,
-    int P, int n, int use_dst, int tskip, int rotate, int bd, void* planes,
-    int Bp, int H, int W, void* stream) {
-  return launch<kScaled>(coeffs, qp, mats, midx, rdpcm, bsel, ysel, xsel, P,
-                         n, use_dst, tskip, rotate, bd, planes, Bp, H, W,
-                         stream);
-}
-
-extern "C" int residual_bypass(const void* coeffs, const void* rdpcm,
-                               const void* bsel, const void* ysel,
-                               const void* xsel, int P, int n, int rotate,
-                               void* planes, int Bp, int H, int W,
-                               void* stream) {
-  return launch<kBypass>(coeffs, nullptr, nullptr, nullptr, rdpcm, bsel, ysel,
-                         xsel, P, n, 0, 0, rotate, 8, planes, Bp, H, W,
-                         stream);
+// rows: [N] TU_DTYPE sorted by size (counts c4 .. c32 rows of each);
+// coeffs: the packed int16 coefficients; m4 .. m32: the scaling-matrix
+// tables per size (NULL where no row of that size is scaled).
+extern "C" int residual_table(const void* rows, const void* coeffs,
+                              const void* m4, const void* m8, const void* m16,
+                              const void* m32, int c4, int c8, int c16,
+                              int c32, void* planes, int Bp, int H, int W,
+                              void* stream) {
+  const Counts counts = {{c4, c8, c16, c32}};
+  const Mats mats = {{(const uint8_t*)m4, (const uint8_t*)m8,
+                      (const uint8_t*)m16, (const uint8_t*)m32}};
+  long long ctas = 0;
+  for (int s = 0; s < 4; ++s) {
+    const int per = 64 >> (2 * s);
+    if (counts.n[s] < 0) return (int)cudaErrorInvalidValue;
+    ctas += (counts.n[s] + per - 1) / per;
+  }
+  if (ctas == 0) return 0;
+  if (ctas > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  residual_table_kernel<<<(unsigned)ctas, kThreads, 0, (cudaStream_t)stream>>>(
+      (const TuRow*)rows, (const int16_t*)coeffs, mats, counts,
+      (int32_t*)planes, Bp, H, W);
+  return (int)cudaGetLastError();
 }

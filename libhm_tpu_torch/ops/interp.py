@@ -227,6 +227,8 @@ def mc_grid(stacked, res, refs, mv, dirm, sel, *, is_luma, sx, sy, bd, W,
             sel.shape != (B, h4, w4, 2) or dirm.shape[0] != B or \
             H > Hp or W > Wp or not 8 <= bd <= 12:
         raise ValueError("mc_grid: inconsistent plane/map shapes")
+    if mv.data_ptr() % 8 or sel.data_ptr() % 4:
+        raise ValueError("mc_grid: mv must be 8-byte and sel 4-byte aligned")
     taps, fbx, fby = _filter_args(is_luma, sx, sy)
     _K5(ptr(stacked), ptr(res), ptr(refs), ptr(mv), ptr(dirm), ptr(sel),
         B, Hp, Wp, R, H, W, h4, w4, sx, sy, taps, fbx, fby, bd)

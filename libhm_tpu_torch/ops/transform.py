@@ -2,13 +2,19 @@
 
 Port of libhm_tpu/ops/transform.py.  The plain functions keep the JAX
 semantics on [N, n, n] int32 tensors; the TPU's int8-limb matmul split is
-dropped (an int64 matmul is exact here).  `residual_scatter` is the
-kernel wrapper: dequant (flat, or with scaling matrices) -> inverse
-DCT/DST or transform skip (or, for transquant-bypass TUs, the
-coefficients as they are) -> RDPCM -> write into the stacked residual
-planes; one CUDA kernel (csrc/residual.cu) for a CUDA tensor and the plain
-functions for a CPU tensor.
+dropped (an int64 matmul is exact here).  `residual_table` is the kernel
+wrapper: every TU of one component of a level, from a flat table of
+TU_DTYPE rows sorted by size and a packed int16 coefficient buffer,
+dequantized (flat, or with scaling matrices) -> inverse DCT/DST or
+transform skip (or, for transquant-bypass TUs, the coefficients as they
+are) -> RDPCM -> written into the stacked residual planes; one CUDA launch
+(csrc/residual.cu) for a CUDA tensor, `residual_table_plain` for a CPU
+tensor.  `residual_scatter` keeps the per-bucket signature: it builds a
+one-size table and goes through `residual_table`.
 """
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from ..hostdec.tables import DCT, DST4, INV_QUANT_SCALES
@@ -133,100 +139,218 @@ def residual_blocks(coeffs, qp, n, use_dst, tskip, bd, max_dyn_range=15,
     return inverse_transform_batch(deq, n, use_dst, bd, max_dyn_range)
 
 
+# ---------------------------------------------------------------------------
+# K1: one launch per (level, component) over a flat table of TUs
+
+# one row of the TU table (csrc/residual.cu TuRow), 16 bytes: the first
+# coefficient of the TU in the packed int16 buffer, picture, sample
+# origin, log2 size, qp (incl. the bit-depth offset), mode flags, RDPCM
+# direction (0 off, 1 horizontal, 2 vertical), scaling-matrix row, bit depth
+TU_DTYPE = np.dtype([("off", "<u4"), ("b", "<i2"), ("y", "<u2"),
+                     ("x", "<u2"), ("log2n", "u1"), ("qp", "i1"),
+                     ("flags", "u1"), ("rdpcm", "u1"), ("midx", "u1"),
+                     ("bd", "u1")])
+F_DST, F_TSKIP, F_BYPASS, F_ROTATE, F_SCALED = 1, 2, 4, 8, 16
+SIZES = (4, 8, 16, 32)
+
+
+class TuTable(NamedTuple):
+    """The TUs of one component of one level, as K1 takes them."""
+    rows: torch.Tensor      # uint8 [N, 16]: TU_DTYPE rows sorted by size
+    coeffs: torch.Tensor    # int16 [K]: the packed coefficients
+    counts: tuple           # rows of each size in SIZES
+    flags: int              # OR of every row's flags
+
+
+def _fields(rows):
+    """The TU_DTYPE fields of uint8 [N, 16] rows, as int64 tensors."""
+    w = rows.view(torch.int32).long() & 0xFFFFFFFF           # [N, 4]
+    sext = lambda v, bits: (v ^ (1 << (bits - 1))) - (1 << (bits - 1))  # noqa
+    return {"off": w[:, 0], "b": sext(w[:, 1] & 0xFFFF, 16),
+            "y": w[:, 1] >> 16, "x": w[:, 2] & 0xFFFF,
+            "log2n": (w[:, 2] >> 16) & 0xFF, "qp": sext(w[:, 2] >> 24, 8),
+            "flags": w[:, 3] & 0xFF, "rdpcm": (w[:, 3] >> 8) & 0xFF,
+            "midx": (w[:, 3] >> 16) & 0xFF, "bd": w[:, 3] >> 24}
+
+
+def residual_table_plain(planes, table, mats=None):
+    """Plain torch version of residual_table (any device), in place."""
+    f = _fields(table.rows)
+    dev = planes.device
+    want = torch.repeat_interleave(
+        torch.arange(2, 6, device=dev),
+        torch.tensor(table.counts, device=dev))
+    if not torch.equal(f["log2n"], want):
+        raise ValueError("residual_table: rows not sorted by size as the "
+                         "counts say")
+    Bp, H, W = planes.shape
+    key = f["log2n"] | (f["flags"] << 3) | (f["bd"] << 8)
+    for k in torch.unique(key).tolist():
+        i = torch.nonzero(key == k).squeeze(1)
+        log2n, flags, bd = k & 7, (k >> 3) & 31, k >> 8
+        n = 1 << log2n
+        idx = f["off"][i, None] + torch.arange(n * n, device=dev)
+        c = table.coeffs[idx].view(-1, n, n)
+        rotate = bool(flags & F_ROTATE)
+        if flags & F_BYPASS:
+            res = bypass_blocks(c, rotate)
+        else:
+            mat = mats[n][f["midx"][i]] if flags & F_SCALED else None
+            res = residual_blocks(c, f["qp"][i], n, bool(flags & F_DST),
+                                  bool(flags & F_TSKIP), bd, rotate=rotate,
+                                  mat=mat)
+        rd = f["rdpcm"][i]
+        if rd.any():
+            res = inverse_rdpcm_batch(res, rd.to(torch.int32))
+        # rows of pictures outside [0, Bp) and samples outside the plane
+        # are not written
+        keep = (f["b"][i] >= 0) & (f["b"][i] < Bp)
+        b, y, x, res = f["b"][i][keep], f["y"][i][keep], f["x"][i][keep], \
+            res[keep]
+        ar = torch.arange(n, device=dev)
+        iy = (y[:, None, None] + ar[None, :, None]).expand(res.shape)
+        ix = (x[:, None, None] + ar[None, None, :]).expand(res.shape)
+        m = (iy < H) & (ix < W)
+        planes[b[:, None, None].expand(res.shape)[m], iy[m], ix[m]] = res[m]
+    return planes
+
+
+class _ModeCount:
+    """Launches of K1 whose table holds rows of one mode (a count only:
+    every mode runs in the one kernel)."""
+
+    def __init__(self, name):
+        self.name = name
+        self.launches = 0
+
+
+_K1 = Kernel("residual_table", [P] * 6 + [I] * 4 + [P] + [I] * 3)
+_K1_SCAL = _ModeCount("residual_table with scaled rows")
+_K1_BYPASS = _ModeCount("residual_table with bypass rows")
+
+
+def residual_table(planes, table, mats=None):
+    """Residuals of every TU of `table` written into the stacked planes,
+    in place: one K1 launch.
+
+    planes: [Bp, Hc, Wc] int32 residual planes of one component (updated).
+    table: a TuTable (rows sorted by size; rows of pictures outside
+    [0, Bp) are skipped, samples outside the plane not written).  mats:
+    {n: uint8 [M, n, n]} the level's scaling matrices per size, which the
+    scaled rows index by their `midx`.  Non-extended precision only
+    (max_dyn_range 15), bit depths 8-12 outside bypass rows.
+    """
+    if not planes.is_cuda:
+        return residual_table_plain(planes, table, mats)
+    dev = planes.device
+    check(planes, "planes", torch.int32, 3)
+    check(table.rows, "rows", torch.uint8, 2, dev)
+    check(table.coeffs, "coeffs", torch.int16, 1, dev)
+    counts = tuple(int(c) for c in table.counts)
+    N = table.rows.shape[0]
+    if table.rows.shape[1] != TU_DTYPE.itemsize or len(counts) != 4 or \
+            min(counts) < 0 or sum(counts) != N or \
+            table.rows.data_ptr() % 16:
+        raise ValueError("residual_table: rows must be 16-byte aligned "
+                         "TU_DTYPE rows, as many as the counts")
+    mp = []
+    for n in SIZES:
+        m = (mats or {}).get(n)
+        if m is not None:
+            check(m, f"mats[{n}]", torch.uint8, 3, dev)
+            if m.shape[1:] != (n, n):
+                raise ValueError("residual_table: inconsistent matrix shapes")
+        elif table.flags & F_SCALED and counts[SIZES.index(n)]:
+            raise ValueError(f"residual_table: scaled rows need mats[{n}]")
+        mp.append(ptr(m))
+    Bp, H, W = planes.shape
+    if Bp > 32767:
+        raise ValueError("residual_table: more pictures than an int16 holds")
+    if N == 0:
+        return planes
+    _K1(ptr(table.rows), ptr(table.coeffs), *mp, *counts, ptr(planes), Bp,
+        H, W)
+    if table.flags & F_SCALED:
+        _K1_SCAL.launches += 1
+    if table.flags & F_BYPASS:
+        _K1_BYPASS.launches += 1
+    return planes
+
+
+def _bucket_table(planes, coeffs, qp, bsel, ysel, xsel, n, use_dst, tskip,
+                  bd, bypass, mats, midx, rotate, rdpcm):
+    """residual_scatter's checks, and its bucket as a one-size TuTable
+    built on the tensors' device (entries with bsel outside [0, Bp) get
+    picture -1), with the matrices as residual_table takes them."""
+    P = coeffs.shape[0]
+    if coeffs.dim() != 3 or coeffs.shape[1:] != (n, n) or \
+            coeffs.dtype != torch.int16 or not (
+                bsel.shape[0] == ysel.shape[0] == xsel.shape[0] == P):
+        raise ValueError("residual_scatter: inconsistent bucket shapes")
+    for t in (qp, midx, rdpcm):
+        if t is not None and t.shape[0] != P:
+            raise ValueError("residual_scatter: inconsistent bucket shapes")
+    if n not in SIZES or (rotate and n != 4):
+        raise ValueError(f"residual_scatter: unsupported n={n} "
+                         f"rotate={rotate}")
+    if bypass:
+        if mats is not None:
+            raise ValueError("residual_scatter: bypass TUs take no matrix")
+    elif qp is None or (use_dst and n != 4) or not 8 <= bd <= 12:
+        raise ValueError(f"residual_scatter: unsupported n={n} "
+                         f"use_dst={use_dst} tskip={tskip} bd={bd}")
+    if mats is not None and (midx is None or mats.shape[1:] != (n, n)):
+        raise ValueError("residual_scatter: inconsistent matrix shapes")
+    dev = coeffs.device
+    flags = (F_BYPASS if bypass else
+             (F_TSKIP if tskip else F_DST * bool(use_dst)) |
+             F_SCALED * (mats is not None)) | F_ROTATE * bool(rotate)
+    z = torch.zeros(P, dtype=torch.int64, device=dev)
+    b = bsel.long()
+    b = torch.where((b >= 0) & (b < planes.shape[0]), b, -1)
+    w = torch.stack([
+        torch.arange(P, device=dev) * (n * n),
+        (b & 0xFFFF) | (ysel.long() << 16),
+        xsel.long() | ((n.bit_length() - 1) << 16) |
+        ((z if qp is None else qp.long() & 0xFF) << 24),
+        flags | ((z if rdpcm is None else rdpcm.long()) << 8) |
+        ((z if midx is None else midx.long()) << 16) | (bd << 24)], 1)
+    rows = ((w + (1 << 31)) % (1 << 32) - (1 << 31)).to(torch.int32) \
+        .view(torch.uint8)
+    counts = tuple(P if s == n else 0 for s in SIZES)
+    return (TuTable(rows, coeffs.contiguous().reshape(-1), counts, flags),
+            None if mats is None else {n: mats})
+
+
 def residual_scatter_plain(planes, coeffs, qp, bsel, ysel, xsel, *, n,
                            use_dst, tskip, bd, bypass=False, mats=None,
                            midx=None, rotate=False, rdpcm=None):
     """Plain torch version of residual_scatter (any device)."""
-    if bypass:
-        res = bypass_blocks(coeffs, rotate)
-    else:
-        mat = None if mats is None else mats[midx.long()]
-        res = residual_blocks(coeffs, qp, n, use_dst, tskip, bd,
-                              rotate=rotate, mat=mat)
-    if rdpcm is not None:
-        res = inverse_rdpcm_batch(res, rdpcm.to(torch.int32))
-    keep = bsel < planes.shape[0]
-    res, b, y, x = res[keep], bsel[keep].long(), ysel[keep].long(), \
-        xsel[keep].long()
-    ar = torch.arange(n, device=planes.device)
-    iy = (y[:, None, None] + ar[None, :, None]).expand(res.shape)
-    ix = (x[:, None, None] + ar[None, None, :]).expand(res.shape)
-    planes[b[:, None, None].expand(res.shape), iy, ix] = res
-    return planes
-
-
-# ---------------------------------------------------------------------------
-# K1: fused residual kernel, one C entry point (and launch count) per mode
-_K1 = Kernel("residual_scatter", [P] * 6 + [I] * 6 + [P] + [I] * 3)
-_K1_SCAL = Kernel("residual_scatter_scaled", [P] * 8 + [I] * 6 + [P] +
-                  [I] * 3)
-_K1_BYPASS = Kernel("residual_bypass", [P] * 5 + [I] * 3 + [P] + [I] * 3)
+    table, m = _bucket_table(planes, coeffs, qp, bsel, ysel, xsel, n,
+                             use_dst, tskip, bd, bypass, mats, midx, rotate,
+                             rdpcm)
+    return residual_table_plain(planes, table, m)
 
 
 def residual_scatter(planes, coeffs, qp, bsel, ysel, xsel, *, n, use_dst,
                      tskip, bd, bypass=False, mats=None, midx=None,
                      rotate=False, rdpcm=None):
-    """Residuals of one TU bucket written into the stacked planes, in place.
+    """Residuals of one TU bucket written into the stacked planes, in place:
+    a one-size TU table through residual_table, one K1 launch.
 
     planes: [Bp, Hc, Wc] int32 residual planes of one component (updated).
     coeffs: [P, n, n] int16 coefficient levels; qp: [P] int8 (incl. the
     bit-depth offset); bsel/ysel/xsel: [P] int32 picture index and sample
-    origin of each TU.  Entries with bsel >= Bp (padding) are skipped.
-    Three modes, each its own kernel entry point and launch count:
-    flat dequant (the default); scaling lists, with `mats` [M, n, n]
-    uint8 the level's matrices of this size and `midx` [P] uint8 each TU's
-    row of it; `bypass` (transquant bypass: qp, use_dst and tskip unused,
-    the coefficients are the residual).  `rotate`: the bucket's
+    origin of each TU (below 65536).  Entries with bsel >= Bp (padding)
+    are skipped.  Three modes: flat dequant (the default); scaling lists, with `mats`
+    [M, n, n] uint8 the level's matrices of this size and `midx` [P] uint8
+    each TU's row of it; `bypass` (transquant bypass: qp, use_dst and tskip
+    unused, the coefficients are the residual).  `rotate`: the bucket's
     transform-skip rotation; `rdpcm`: [P] int8 RDPCM direction per TU
     (0 off, 1 horizontal, 2 vertical) or None.  Non-extended precision
     only (max_dyn_range 15).
     """
-    if not planes.is_cuda:
-        return residual_scatter_plain(planes, coeffs, qp, bsel, ysel, xsel,
-                                      n=n, use_dst=use_dst, tskip=tskip,
-                                      bd=bd, bypass=bypass, mats=mats,
-                                      midx=midx, rotate=rotate, rdpcm=rdpcm)
-    dev = planes.device
-    check(planes, "planes", torch.int32, 3)
-    check(coeffs, "coeffs", torch.int16, 3, dev)
-    for t, name in ((bsel, "bsel"), (ysel, "ysel"), (xsel, "xsel")):
-        check(t, name, torch.int32, 1, dev)
-    npad = coeffs.shape[0]
-    if coeffs.shape[1:] != (n, n) or not (
-            bsel.shape[0] == ysel.shape[0] == xsel.shape[0] == npad):
-        raise ValueError("residual_scatter: inconsistent bucket shapes")
-    if rdpcm is not None:
-        check(rdpcm, "rdpcm", torch.int8, 1, dev)
-        if rdpcm.shape[0] != npad:
-            raise ValueError("residual_scatter: inconsistent bucket shapes")
-    if n not in (4, 8, 16, 32) or (rotate and n != 4):
-        raise ValueError(f"residual_scatter: unsupported n={n} "
-                         f"rotate={rotate}")
-    Bp, H, W = planes.shape
-    tail = (ptr(rdpcm), ptr(bsel), ptr(ysel), ptr(xsel), npad, n)
-    if bypass:
-        if mats is not None:
-            raise ValueError("residual_scatter: bypass TUs take no matrix")
-        if npad:
-            _K1_BYPASS(ptr(coeffs), *tail, int(rotate), ptr(planes), Bp, H,
-                       W)
-        return planes
-    check(qp, "qp", torch.int8, 1, dev)
-    if qp.shape[0] != npad:
-        raise ValueError("residual_scatter: inconsistent bucket shapes")
-    if (use_dst and n != 4) or not 8 <= bd <= 12:
-        raise ValueError(f"residual_scatter: unsupported n={n} "
-                         f"use_dst={use_dst} tskip={tskip} bd={bd}")
-    if npad == 0:
-        return planes
-    tail += (int(use_dst and not tskip), int(tskip), int(rotate), bd,
-             ptr(planes), Bp, H, W)
-    if mats is None:
-        _K1(ptr(coeffs), ptr(qp), *tail)
-        return planes
-    check(mats, "mats", torch.uint8, 3, dev)
-    check(midx, "midx", torch.uint8, 1, dev)
-    if mats.shape[1:] != (n, n) or midx.shape[0] != npad:
-        raise ValueError("residual_scatter: inconsistent matrix shapes")
-    _K1_SCAL(ptr(coeffs), ptr(qp), ptr(mats), ptr(midx), *tail)
-    return planes
+    table, m = _bucket_table(planes, coeffs, qp, bsel, ysel, xsel, n,
+                             use_dst, tskip, bd, bypass, mats, midx, rotate,
+                             rdpcm)
+    return residual_table(planes, table, m)

@@ -2,14 +2,14 @@
 
 Port of the device-resident half of libhm_tpu/parallel/batch_decode.py:
 
- - residual build: TU buckets keyed by (size, path, ...) over the union of
-   every picture's tu_list; each (bucket, component) is one K1 launch
-   (ops/transform.py residual_scatter) that dequantizes (with the level's
-   scaling matrices where the bucket has them), inverse transforms and
-   writes straight into the stacked [Bp, Hc, Wc] planes, or writes the
-   coefficients of transquant-bypass TUs as they are; then, in 4:4:4,
-   cross-component prediction on the finished luma residual, one K10
-   launch per chroma component (ops/ccp.py ccp_apply);
+ - residual build: every TU of every picture of the level in one flat
+   table per component (residual_tables), uploaded at once, and one K1
+   launch per component (ops/transform.py residual_table) that dequantizes
+   (with the level's scaling matrices where a TU has them), inverse
+   transforms and writes straight into the stacked [Bp, Hc, Wc] planes, or
+   writes the coefficients of transquant-bypass TUs as they are; then, in
+   4:4:4, cross-component prediction on the finished luma residual, one
+   K10 launch per chroma component (ops/ccp.py ccp_apply);
  - intra wavefront: each picture's levelized blocks (intra_wavefront.
    prepare_component) go into one flat table sorted by dependency level,
    every picture and block size mixed, and one K2 launch per component
@@ -28,16 +28,32 @@ from .intra_wavefront import prepare_component
 
 
 # ---------------------------------------------------------------------------
-def _tu_bucket_entries(items):
-    """Shared TU bucketing over a picture set.
+_ROW_FIELDS = ("b", "y", "x", "log2n", "qp", "flags", "rdpcm", "midx", "bd")
 
-    Copied from libhm_tpu/parallel/batch_decode.py (_tu_bucket_entries).
-    Returns {(n, use_dst, path, bd, rotate, scal, max_dyn):
-             [(b, i, scal_mats), ...]}.
+
+def residual_tables(items):
+    """The flat TU tables of one level: for each component, every TU of
+    every picture (picture b = its index in `items`) as one K1 table.
+
+    Replaces the JAX package's bucketing by (size, DST, path, bit depth,
+    rotation, scaling) (libhm_tpu/parallel/batch_decode.py
+    _tu_bucket_entries / _bucket_inputs, whose per-TU decisions are copied
+    here), which only serves XLA's compile cache.  Returns (tables, lists):
+    tables[c] = (rows, coeffs, counts, flags) with rows a numpy TU_DTYPE
+    array sorted stably by size, coeffs the packed int16 coefficients in
+    row order (each TU's offset a multiple of 16), counts the rows of each
+    size of TK.SIZES and flags the OR of the rows' flags; lists the
+    level's distinct scaling lists in the order of their matrix-table rows
+    (a scaled row's midx is 6 * list + matrixId), keyed by object as the
+    JAX package caches them (a PPS list overrides the SPS one).
     """
     from ..hostdec.tables import build_scaling_matrices
-    buckets = {}
-    mats_cache = {}
+    if len(items) > 32767:
+        raise ValueError("residual_tables: more pictures than an int16 holds")
+    sps0 = items[0]["sps"]
+    ncomp = 3 if sps0.chroma_format_idc else 1
+    built, lists = {}, {}
+    parts = [[([], []) for _ in TK.SIZES] for _ in range(ncomp)]
     for b, it in enumerate(items):
         sps, pic = it["sps"], it["pic"]
         scal_mats = None
@@ -45,85 +61,103 @@ def _tu_bucket_entries(items):
             data = getattr(it["pps"], "scaling_list_data", None)
             if data is None:
                 data = sps.scaling_list_data
-            key = id(data)
-            if key not in mats_cache:
-                mats_cache[key] = build_scaling_matrices(data)
-            scal_mats = mats_cache[key]
-        pred_mode_map = np.asarray(pic.pred_mode)
-        for i, tu in enumerate(pic.tu_list):
-            bd = sps.bit_depth_luma if tu.comp == 0 else sps.bit_depth_chroma
-            if tu.tq_bypass:
-                path = "bypass"
-            elif tu.transform_skip:
-                path = "tskip"
+            if id(data) not in built:
+                built[id(data)] = build_scaling_matrices(data)
+            scal_mats = built[id(data)]
+        pred_mode = np.asarray(pic.pred_mode)
+        rotation = bool(sps.transform_skip_rotation)
+        for tu in pic.tu_list:
+            c = tu.comp
+            bd = sps.bit_depth_luma if c == 0 else sps.bit_depth_chroma
+            if sps.extended_precision and bd + 6 > 15:
+                raise NotImplementedError("not ported: extended precision")
+            sx = sps.chroma_shift_x() if c else 0
+            sy = sps.chroma_shift_y() if c else 0
+            bypass, tskip = bool(tu.tq_bypass), bool(tu.transform_skip)
+            if bypass:
+                flags = TK.F_BYPASS
+            elif not 8 <= bd <= 12 or (tu.use_dst and tu.w != 4 and
+                                       not tskip):
+                raise ValueError(f"residual_tables: unsupported n={tu.w} "
+                                 f"use_dst={tu.use_dst} bd={bd}")
             else:
-                path = "itx"
-            sxr = sps.chroma_shift_x() if tu.comp else 0
-            syr = sps.chroma_shift_y() if tu.comp else 0
-            tu_is_intra = pred_mode_map[(tu.y << syr) >> 2,
-                                        (tu.x << sxr) >> 2] == MODE_INTRA
-            rotate = bool(sps.transform_skip_rotation) and tu.w == 4 and \
-                path in ("tskip", "bypass") and bool(tu_is_intra)
-            scal = scal_mats is not None and path != "bypass" and \
-                not (tu.transform_skip and tu.w > 4)
-            max_dyn = 15 if not sps.extended_precision else max(15, bd + 6)
-            key = (tu.w, bool(tu.use_dst), path, bd, rotate, scal, max_dyn)
-            buckets.setdefault(key, []).append((b, i, scal_mats))
-    return buckets
+                flags = TK.F_TSKIP if tskip else TK.F_DST * bool(tu.use_dst)
+            rotatable = rotation and tu.w == 4 and (bypass or tskip)
+            scaled = scal_mats is not None and not bypass and \
+                not (tskip and tu.w > 4)
+            intra = (rotatable or scaled) and pred_mode[
+                (tu.y << sy) >> 2, (tu.x << sx) >> 2] == MODE_INTRA
+            if rotatable and intra:
+                flags |= TK.F_ROTATE
+            midx = 0
+            if scaled:
+                j = lists.setdefault(id(scal_mats), (len(lists),
+                                                     scal_mats))[0]
+                if j * 6 + 5 > 255:
+                    raise ValueError("more scaling lists in a level than a "
+                                     "one-byte row index holds")
+                flags |= TK.F_SCALED
+                midx = j * 6 + (0 if intra else 3) + c
+            rows, blocks = parts[c][TK.SIZES.index(tu.w)]
+            rows.append((b, tu.y, tu.x, tu.w.bit_length() - 1, tu.qp,
+                         flags, tu.rdpcm_mode, midx, bd))
+            blocks.append(tu.coeffs)
+    tables = []
+    for c in range(ncomp):
+        row_list = [r for rows, _ in parts[c] for r in rows]
+        rows = np.zeros(len(row_list), TK.TU_DTYPE)
+        coeffs = np.zeros(0, np.int16)
+        if row_list:
+            a = np.asarray(row_list, np.int64)
+            for j, name in enumerate(_ROW_FIELDS):
+                rows[name] = a[:, j]
+            sizes = np.left_shift(1, 2 * a[:, 3])
+            rows["off"] = np.cumsum(sizes) - sizes
+            c32 = np.concatenate([blk.reshape(-1) for _, blocks in parts[c]
+                                  for blk in blocks])
+            if c32.min() < -32768 or c32.max() > 32767:
+                raise ValueError("coefficient level outside the int16 range")
+            coeffs = c32.astype(np.int16)
+        tables.append((rows, coeffs, tuple(len(r) for r, _ in parts[c]),
+                       int(np.bitwise_or.reduce(rows["flags"], initial=0))))
+    return tables, [m for _, m in sorted(lists.values(), key=lambda v: v[0])]
 
 
-def _bucket_inputs(items, entries, n, mat_row):
-    """Host-side input arrays for one TU bucket.
-
-    From libhm_tpu/parallel/batch_decode.py (_bucket_inputs), without the
-    pow2 padding and, instead of a [P, n, n] matrix per TU, each TU's row
-    of the level's scaling-matrix table: `mat_row(scal_mats, matrix_id)`
-    (None when the bucket takes no matrix).
-    """
-    P = len(entries)
-    coeffs = np.zeros((P, n, n), np.int32)
-    qp = np.zeros(P, np.int32)
-    rdpcm = np.zeros(P, np.int32)
-    midx = np.zeros(P, np.uint8) if mat_row else None
-    for k, (b, i, scal_mats) in enumerate(entries):
-        pic = items[b]["pic"]
-        sps = items[b]["sps"]
-        tu = pic.tu_list[i]
-        coeffs[k] = tu.coeffs
-        qp[k] = tu.qp
-        rdpcm[k] = tu.rdpcm_mode
-        if mat_row:
-            sxr = sps.chroma_shift_x() if tu.comp else 0
-            syr = sps.chroma_shift_y() if tu.comp else 0
-            intra = np.asarray(pic.pred_mode)[(tu.y << syr) >> 2,
-                                              (tu.x << sxr) >> 2] \
-                == MODE_INTRA
-            midx[k] = mat_row(scal_mats, (0 if intra else 3) + tu.comp)
-    return coeffs, qp, rdpcm, midx
+def upload_tables(tables, device):
+    """The TK.TuTable of each component of residual_tables' tables, from
+    ONE upload of every component's rows and coefficients (each part at a
+    16-byte boundary of the buffer)."""
+    parts, spans, o = [], [], 0
+    for rows, coeffs, _, _ in tables:
+        for a in (rows.view(np.uint8).reshape(-1), coeffs.view(np.uint8)):
+            pad = -a.nbytes % 16
+            parts += [a, np.zeros(pad, np.uint8)]
+            spans.append((o, a.nbytes))
+            o += a.nbytes + pad
+    buf = xfer.up(np.concatenate(parts), "coeff", device)
+    out = []
+    for k, (_, _, counts, flags) in enumerate(tables):
+        (ro, rn), (co, cn) = spans[2 * k], spans[2 * k + 1]
+        # (a component with no TU: empty views of an empty buffer)
+        src = buf if rn else buf.new_zeros(0)
+        out.append(TK.TuTable(src[ro:ro + rn].view(-1, TK.TU_DTYPE.itemsize),
+                              src[co:co + cn].view(torch.int16), counts,
+                              flags))
+    return out
 
 
 class _MatrixTable:
     """The level's distinct scaling matrices, uploaded once as one uint8
     table: per size, [L * 6, n, n] rows (list l, matrixId m at l * 6 + m),
-    the lists keyed by object as _tu_bucket_entries caches them (a PPS
-    list overrides the SPS one)."""
+    the lists in the order residual_tables gives them."""
 
-    def __init__(self, buckets, device):
-        lists = {}
-        for (_, _, _, _, _, scal, _), entries in buckets.items():
-            if scal:
-                for _, _, mats in entries:
-                    lists.setdefault(id(mats), mats)
-        if len(lists) * 6 > 256:
-            raise ValueError("more scaling lists in a level than a one-byte "
-                             "row index holds")
-        self.row_of = {k: j for j, k in enumerate(lists)}
+    def __init__(self, lists, device):
         self.tables = {}
         if not lists:
             return
         parts, offs, o = [], {}, 0
         for size_id in range(4):
-            t = np.stack([mats[(size_id, m)] for mats in lists.values()
+            t = np.stack([mats[(size_id, m)] for mats in lists
                           for m in range(6)])
             if t.min() < 1 or t.max() > 255:
                 raise ValueError("scaling factor outside 1..255")
@@ -135,17 +169,15 @@ class _MatrixTable:
             self.tables[4 << size_id] = flat[o:o + int(np.prod(shape))] \
                 .view(shape)
 
-    def row(self, mats, matrix_id):
-        return self.row_of[id(mats)] * 6 + matrix_id
-
 
 def _residual_planes_batch_device(items, Bp, device):
     """Device-resident residual build: every TU of every picture written
     into stacked [Bp, Hc, Wc] int32 device planes, one K1 launch per
-    (bucket, component): flat dequant, scaling lists (one matrix table per
-    level, a one-byte row per TU) or transquant bypass, with the bucket's
-    rotation and each TU's RDPCM direction.  Only the coefficient buckets,
-    the table and the indices are uploaded.
+    component over the level's flat TU table (residual_tables): flat
+    dequant, scaling lists (one matrix table per level, a one-byte row per
+    TU) or transquant bypass, each TU with its rotation and RDPCM
+    direction.  One upload holds every component's table and
+    coefficients, one more the scaling matrices where the level has any.
     """
     sps0 = items[0]["sps"]
     Wp = sps0.pic_width_ctbs << sps0.log2_ctb
@@ -157,42 +189,10 @@ def _residual_planes_batch_device(items, Bp, device):
         sy = sps0.chroma_shift_y() if c else 0
         res_stacked.append(torch.zeros((Bp, Hp >> sy, Wp >> sx),
                                        dtype=torch.int32, device=device))
-    buckets = _tu_bucket_entries(items)
-    table = _MatrixTable(buckets, device)
-    for (n, use_dst, path, bd, rotate, scal, max_dyn), entries \
-            in buckets.items():
-        coeffs, qp, rdpcm, midx = _bucket_inputs(
-            items, entries, n, table.row if scal else None)
-        if max_dyn != 15:
-            raise NotImplementedError("not ported: extended precision")
-        if coeffs.min(initial=0) < -32768 or coeffs.max(initial=0) > 32767:
-            raise ValueError("coefficient level outside the int16 range")
-        comp_arr = np.asarray([items[b]["pic"].tu_list[i].comp
-                               for b, i, _ in entries])
-        bsel = np.asarray([b for b, _, _ in entries], np.int32)
-        ysel = np.asarray([items[b]["pic"].tu_list[i].y
-                           for b, i, _ in entries], np.int32)
-        xsel = np.asarray([items[b]["pic"].tu_list[i].x
-                           for b, i, _ in entries], np.int32)
-        bypass = path == "bypass"
-        for c in range(ncomp):
-            sel = np.nonzero(comp_arr == c)[0]
-            if not len(sel):
-                continue
-            TK.residual_scatter(
-                res_stacked[c],
-                xfer.up(coeffs[sel].astype(np.int16), "coeff", device),
-                None if bypass else
-                xfer.up(qp[sel].astype(np.int8), "coeff", device),
-                xfer.up(bsel[sel], "idx", device),
-                xfer.up(ysel[sel], "idx", device),
-                xfer.up(xsel[sel], "idx", device),
-                n=n, use_dst=use_dst, tskip=path == "tskip", bd=bd,
-                bypass=bypass, mats=table.tables[n] if scal else None,
-                midx=xfer.up(midx[sel], "idx", device) if scal else None,
-                rotate=rotate,
-                rdpcm=xfer.up(rdpcm[sel].astype(np.int8), "coeff", device)
-                if rdpcm[sel].any() else None)
+    tables, lists = residual_tables(items)
+    mats = _MatrixTable(lists, device).tables
+    for c, table in enumerate(upload_tables(tables, device)):
+        TK.residual_table(res_stacked[c], table, mats)
     # cross-component prediction (4:4:4), once every luma residual of the
     # level is final: one K10 launch per chroma component over its TUs of
     # every size

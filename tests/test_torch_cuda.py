@@ -59,6 +59,161 @@ def test_residual_kernel(gpu):
         assert torch.equal(got, want), (n, use_dst, tskip)
 
 
+def _mixed_tu_table(rng, gpu, B=2, H=250, W=296):
+    """One TU table of every size and mode: flat DCT, DST, transform skip
+    (rotated at 4x4), bypass (rotated at 4x4), scaled, RDPCM in both
+    directions, rows of a padding picture (-1 and B), TUs across the
+    plane's bottom and right edges, and one TU whose coefficients start 2
+    bytes past a 4-byte boundary.  Returns (TuTable, mats, plane shape)."""
+    from libhm_tpu_torch.hostdec.tables import build_scaling_matrices
+    from libhm_tpu_torch.ops import transform as TK
+    sm = build_scaling_matrices(None)
+    mats = {n: torch.from_numpy(np.stack(
+        [sm[(n.bit_length() - 3, m)] for m in range(6)]).astype(np.uint8))
+        .to(gpu) for n in TK.SIZES}
+    modes = (0, TK.F_DST, TK.F_TSKIP, TK.F_TSKIP | TK.F_ROTATE, TK.F_BYPASS,
+             TK.F_BYPASS | TK.F_ROTATE, TK.F_SCALED,
+             TK.F_SCALED | TK.F_TSKIP)
+    ny, nx = -(-H // 32), -(-W // 32)          # 32x32 slots, edge ones cut
+    slots = rng.permutation(B * ny * nx + 8)
+    rows, blocks, off, k = [], [], 0, 0
+    for log2n, count in ((2, 70), (3, 40), (4, 20), (5, 9)):
+        n = 1 << log2n
+        for i in range(count):
+            fl = modes[i % len(modes)]
+            if n > 4:
+                fl &= ~(TK.F_DST | TK.F_ROTATE)
+                if fl & TK.F_TSKIP:
+                    fl &= ~TK.F_SCALED
+            sl = slots[k]
+            k += 1
+            b = sl // (ny * nx) if sl < B * ny * nx else (-1, B)[sl % 2]
+            y = sl % (ny * nx) // nx * 32 + int(rng.integers(0, 33 - n)) // 4 * 4
+            x = sl % nx * 32 + int(rng.integers(0, 33 - n)) // 4 * 4
+            if log2n == 4 and i == 5:
+                off += 1                       # the misaligned TU
+            rd = int(rng.integers(0, 3)) if fl & (TK.F_TSKIP | TK.F_BYPASS) \
+                else 0
+            rows.append((off, b, y, x, log2n, int(rng.integers(0, 64)), fl, rd,
+                         int(rng.integers(0, 6)), (8, 10, 12)[i % 3]))
+            blocks.append((off, rng.integers(-3000, 3000, n * n)))
+            off += n * n
+            if log2n == 4 and i == 5:
+                off += 7                       # back on a 16-byte boundary
+    t = np.zeros(len(rows), TK.TU_DTYPE)
+    for j, name in enumerate(TK.TU_DTYPE.names):
+        t[name] = [r[j] for r in rows]
+    coeffs = np.zeros(off, np.int16)
+    for o, c in blocks:
+        coeffs[o:o + len(c)] = c
+    table = TK.TuTable(
+        torch.from_numpy(t.view(np.uint8).reshape(-1, 16)).to(gpu),
+        torch.from_numpy(coeffs).to(gpu), (70, 40, 20, 9),
+        int(np.bitwise_or.reduce(t["flags"])))
+    assert any(r[0] % 2 for r in rows)
+    return table, mats, (B, H, W)
+
+
+def test_residual_table_kernel(gpu):
+    """K1 over one mixed table (every size and mode, edges, padding rows, a
+    misaligned coefficient offset) in ONE launch == its plain version, 20
+    times bit-identical."""
+    from libhm_tpu_torch.ops import transform as TK
+    table, mats, shape = _mixed_tu_table(np.random.default_rng(21), gpu)
+    want = TK.residual_table_plain(
+        torch.zeros(shape, dtype=torch.int32, device=gpu), table, mats)
+    assert want.any()
+    n0 = (TK._K1.launches, TK._K1_SCAL.launches, TK._K1_BYPASS.launches)
+    for _ in range(20):
+        got = TK.residual_table(
+            torch.zeros(shape, dtype=torch.int32, device=gpu), table, mats)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), int((got != want).sum())
+    assert (TK._K1.launches, TK._K1_SCAL.launches, TK._K1_BYPASS.launches) \
+        == tuple(v + 20 for v in n0)
+
+
+@pytest.mark.parametrize("name", ["randomaccess_main10_416x240",
+                                  "customsl_lowdelay_160x96",
+                                  "lossless_intra_416x240"])
+def test_residual_level_one_launch_per_component(gpu, name):
+    """A level's residual planes through K1: one launch per component,
+    equal to the same tables through the plain version on the CPU."""
+    from libhm_tpu_torch.ops import transform as TK
+    from libhm_tpu_torch.parallel import batch_decode as TB
+    from libhm_tpu_torch.parallel.dag_decode import reference_levels
+    for level in reference_levels(_items(name))[:3]:
+        tables, _ = TB.residual_tables(level)
+        n0 = TK._K1.launches
+        got = TB._residual_planes_batch_device(level, len(level), gpu)
+        torch.cuda.synchronize()
+        assert TK._K1.launches - n0 == sum(len(t[0]) > 0 for t in tables)
+        assert len(got) == 3 and len(tables[0][0])
+        want = TB._residual_planes_batch_device(level, len(level),
+                                                torch.device("cpu"))
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+
+
+def _mc_tile_inputs(rng, bd, sx, sy, B=2, R=3, HpL=96, WpL=128, HL=88,
+                    WL=120):
+    """Per-4x4 maps that hold every kind of 16x16 tile: no inter cell,
+    every inter cell on one MV (8x8 and larger PUs, bi and uni), every cell
+    its own MV, and windows past each of the four picture edges."""
+    h4, w4 = HpL // 4, WpL // 4
+    mv = rng.integers(-96, 97, (B, h4, w4, 2, 2))
+    dirm = rng.integers(0, 4, (B, h4, w4))
+    sel = rng.integers(0, R + 1, (B, h4, w4, 2))      # R: clamped
+    dirm[0, 0:4, 4:8] = 0                             # no inter cell
+    far = 4 * 600                                     # quarter-pels
+    mv[1, 0:2, :, :, 1] = -far                        # above the top edge
+    mv[1, -4:, :, :, 1] = far                         # below the bottom
+    mv[0, :, 0:2, :, 0] = -far                        # left of the left
+    mv[0, :, -4:, :, 0] = far + 3                     # right of the right
+    for b, ys, xs, d in ((0, slice(0, 4), slice(0, 4), 3),
+                         (1, slice(4, 12), slice(8, 16), 1),
+                         (0, slice(8, 12), slice(16, 20), 2)):
+        mv[b, ys, xs] = mv[b, ys.start, xs.start]     # one PU per tile
+        sel[b, ys, xs] = sel[b, ys.start, xs.start]
+        dirm[b, ys, xs] = d
+    dirm[1, 12:16, 0:4] = np.where(np.arange(4)[:, None] == 1, 0, 3)
+    mv[1, 12:16, 0:4] = mv[1, 12, 0]                  # shared, one gap
+    sel[1, 12:16, 0:4] = sel[1, 12, 0]
+    hp, wp, h, w = HpL >> sy, WpL >> sx, HL >> sy, WL >> sx
+    t = lambda a, dt: torch.from_numpy(np.ascontiguousarray(a).astype(dt))  # noqa
+    return dict(
+        stacked=t(rng.integers(0, 1 << bd, (B, hp, wp)), np.int32),
+        res=t(rng.integers(-512, 512, (B, hp, wp)), np.int32),
+        refs=t(rng.integers(0, 1 << bd, (R, h, w)), np.int32),
+        mv=t(mv, np.int16), dirm=t(dirm, np.int8), sel=t(sel, np.int16),
+        W=w, H=h)
+
+
+@pytest.mark.parametrize("is_luma,bd,sx,sy", [(True, 8, 0, 0),
+                                              (True, 12, 0, 0),
+                                              (False, 8, 1, 1),
+                                              (False, 12, 1, 0),
+                                              (False, 10, 0, 0)])
+def test_mc_grid_tiles(gpu, is_luma, bd, sx, sy):
+    """K5 == mc_grid_plain on every kind of tile (none inter, one shared
+    MV, one MV a cell, windows past all four edges), luma and 4:2:0,
+    4:2:2, 4:4:4 chroma at 8-12 bits, 20 times bit-identical."""
+    from libhm_tpu_torch.ops import interp as MK
+    a = _mc_tile_inputs(np.random.default_rng(30 + bd + 2 * sx + sy), bd,
+                        sx, sy)
+    args = [a[k].to(gpu) for k in ("stacked", "res", "refs", "mv", "dirm",
+                                   "sel")]
+    kw = dict(is_luma=is_luma, sx=sx, sy=sy, bd=bd, W=a["W"], H=a["H"])
+    want = MK.mc_grid_plain(args[0].clone(), *args[1:], **kw)
+    assert not torch.equal(want, args[0])
+    n0 = MK._K5.launches
+    for _ in range(20):
+        got = MK.mc_grid(args[0].clone(), *args[1:], **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), int((got != want).sum())
+    assert MK._K5.launches == n0 + 20
+
+
 def _dag_levels(name):
     """The reference-DAG levels of a golden: K2 launches at most once per
     component in each."""

@@ -31,11 +31,21 @@ result line is not printed):
     1920x1088 4:4:4 residual planes with a seeded table of TUs over 30% of
     the area; then K3 chroma, K4 and K5 chroma again at the RExt chroma
     geometries, 4:2:2 (960x1088, 32x64 chroma CTBs, 2x4 MC blocks) and
-    4:4:4 (1920x1088), their errors joining those kernels' results; row
-    15 of the kernel table: K5 on one picture with K3 and K4;
+    4:4:4 (1920x1088), their errors joining those kernels' results (K3
+    and K4 through their single-pass entry points); the loop-filter level
+    kernel (K3 + K4 in one launch per level, csrc/loopfilter.cu) on the
+    RA stream's largest level (the decode's own maps, seeded planes; 20
+    launches bit-identical), on one RA picture beside the nine
+    single-pass launches that filter it pass by pass (enqueue rate and
+    device time), on the tool stream's multi-slice/tile maps and on
+    seeded 12-bit, 4:2:2, 4:4:4, SAO-off and one-CTA levels
+    (tests/lf_cases.py); row 15 of the kernel table: K5 and the level
+    kernel on one picture;
  4. the main paths, each with the launch counters reset just before it and
     read just after, and the reference-DAG levels it reconstructs counted:
-    K1 and K2 launch at most once per component and level on every path;
+    K1 and K2 launch at most once per component and level on every path,
+    the loop-filter kernel exactly once per level and no single-pass
+    K3/K4 entry point;
     - testdata/randomaccess_main10_1080p.bin pushed NAL by NAL through
       libhm_tpu_torch.api.HmDecoder (native parse, recon="torch" on the
       card: each picture reconstructed as soon as it is parsed) and every
@@ -53,8 +63,9 @@ result line is not printed):
       YUV's golden MD5;
     - decode_intra_batch on the all-intra 1080p stream: golden MD5, every
       hash SEI OK, K1-K4;
-    - entry()'s fused recon step at 1080p (K1, K6, K3, K4, K7) equal to
-      its plain version, sum and frame, timed (row 16);
+    - entry()'s fused recon step at 1080p (K1, K6, the loop-filter
+      kernel with V + SAO, K7) equal to its plain version, sum and frame,
+      timed (row 16);
     - testdata/randomaccess_main10_1080p.bin through
       parallel.dag_decode.decode_batch(device="cuda"): golden MD5, K1-K5
       launched; the inputs K1 and K5 get on its level with the most
@@ -67,25 +78,29 @@ result line is not printed):
     - the all-intra 1080p and 416x240 streams: golden MD5, K1-K4;
     - testdata/tools_main10_1080p.bin (6 slices, 2 tiles, scaling lists;
       testdata/port_streams.json) through decode_batch(device="cuda",
-      check_sei_hash=True): its MD5, K1 scaled and K4 multi launched, and
+      check_sei_hash=True): its MD5, K1 scaled and the loop filter's
+      multi-slice/tile SAO form launched, and
       decode_batch_device on it: the checksum of those pictures;
     - the slice, tile, PCM, lossless and scaling-list goldens and the PCM
       stream of port_streams.json: their MD5s, each with the launches of
-      the modes it needs (K1 scaled / bypass, K4 multi, K8, K9);
+      the modes it needs (K1 scaled / bypass, SAO multi, K8, K9);
     - testdata/rext422_main10_1080p.bin (Main 4:2:2 10, I then P;
       port_streams.json) through decode_batch(check_sei_hash=True): its
       MD5, K1-K5 launched, and decode_batch_device: the checksum of those
       pictures;
     - the 13 RExt goldens (4:2:2, 4:4:4 with cross-component prediction,
-      4:0:0, 12 bits): their MD5s, with K10 on the CCP streams and K3's
-      int16 form on the 12-bit one;
+      4:0:0, 12 bits): their MD5s, with K10 on the CCP streams and the
+      loop filter's int16-tc form on the 12-bit one;
     - decode_streams over two 4:2:0 streams of one geometry, one of them
       twice: each stream's MD5;
  5. timed runs of the RA stream, of the tool stream and of the 4:2:2
     stream (every picture's hash SEI checked OK for the last two), and a
     breakdown (cProfile, torch.profiler) of the RA stream, with the intra
     tables' H2D bytes beside those of the per-(level, size) slot layout,
-    and K1's and K5's launches and device time and the H2D memcpy count;
+    the device time summed over device-side events only (kernels,
+    memcpys, memsets; a CPU op's row carries the device time of what it
+    launched), and K1's, K5's and the loop filter's launches and device
+    time and the H2D memcpy count;
  6. one JSON line of per-kernel results, then the result line
     {"ok": true, "device": {...}}.
 """
@@ -105,9 +120,9 @@ SMALL = ("intra_main10_416x240", "intra_416x240")
 WP = "wp_lowdelayP_416x240"               # the only weighted-prediction golden
 TOOLS = "tools_main10_1080p"    # slices, tiles, scaling lists (port_streams)
 # small streams of the tools path, and the kernel modes each must launch
-TOOL_SMALL = {"slices_416x240": ["sao_apply_multi"],
-              "tiles_832x480": ["sao_apply_multi"],
-              "tiles_nolfcross_512x128": ["sao_apply_multi"],
+TOOL_SMALL = {"slices_416x240": ["loop_filter_multi"],
+              "tiles_832x480": ["loop_filter_multi"],
+              "tiles_nolfcross_512x128": ["loop_filter_multi"],
               "pcm_intra_416x240": ["restore_unfiltered"],
               "pcm_reduceddepth_160x96": [],
               "pcm_port_416x240": ["pcm_scatter"],
@@ -118,7 +133,7 @@ TOOL_SMALL = {"slices_416x240": ["sao_apply_multi"],
               "wppdep_lowdelay_160x96": ["residual_scatter"]}
 REXT = "rext422_main10_1080p"   # Main 4:2:2 10, I then P (port_streams)
 # the RExt goldens, and the kernel entry points each must launch beyond K2
-REXT_SMALL = {"rext422_intra_416x240": ["deblock_chroma"],
+REXT_SMALL = {"rext422_intra_416x240": ["loop_filter_level"],
               "rext422_lowdelayP_416x240": ["mc_grid"],
               "rext422_noRdoq_160x96": ["mc_grid"],
               "wpp422_ra_160x96": ["mc_grid"],
@@ -126,9 +141,9 @@ REXT_SMALL = {"rext422_intra_416x240": ["deblock_chroma"],
               "rext444_randomaccess_416x240": ["ccp_apply", "mc_grid"],
               "ccp444_lowdelay_160x96": ["ccp_apply", "mc_grid"],
               "ht_rext444_intra_160x96": ["ccp_apply"],
-              "mono_intra_416x240": ["deblock_luma", "sao_apply"],
+              "mono_intra_416x240": ["loop_filter_level"],
               "mono_lowdelay_160x96": ["mc_grid"],
-              "main12_intra_416x240": ["deblock_chroma16"],
+              "main12_intra_416x240": ["loop_filter_ctc16"],
               "intra_rext444_nofilt": [],
               "intra_rext444_nosao": []}
 # independent streams of one geometry through decode_streams
@@ -142,14 +157,14 @@ PICTURE_SMALL = {"intra_64x64": [], "lowdelayP_416x240": ["mc_grid"],
                  "tids4_ra_160x96": ["mc_grid"], FIELD: [],
                  "cra_start_416x240": [],
                  "wp_lowdelayP_416x240": ["mc_weighted"],
-                 "tiles_nolfcross_512x128": ["sao_apply_multi"],
+                 "tiles_nolfcross_512x128": ["loop_filter_multi"],
                  "lossless_intra_416x240": ["residual_bypass",
                                             "restore_unfiltered"],
                  "pcm_port_416x240": ["pcm_scatter"],
                  "scaling_intra_416x240": ["residual_scatter_scaled"],
                  "ccp444_lowdelay_160x96": ["ccp_apply"],
                  "mono_lowdelay_160x96": ["mc_grid"],
-                 "main12_intra_416x240": ["deblock_chroma16"],
+                 "main12_intra_416x240": ["loop_filter_ctc16"],
                  "rext422_lowdelayP_416x240": ["mc_grid"]}
 DEC_APP = "lowdelayP_416x240"             # through the dec_app CLI
 # the golden sweep: goldens no other phase decodes, through HmDecoder, and
@@ -165,19 +180,19 @@ ROWS = (("row14", "_scan_fn per picture: intra_wavefront (K2), luma and "
          "libhm_tpu_torch/csrc/intra.cu",
          "libhm_tpu/parallel/intra_wavefront.py:175"),
         ("row15", "_mc_fn, _deblock_v_fn, _deblock_cv_fn, _sao_fn per "
-         "picture: mc_grid (K5), deblock_luma, deblock_chroma (K3), "
-         "sao_apply (K4)", "libhm_tpu_torch/recon_torch.py",
+         "picture: mc_grid (K5), loop_filter_level (K3 + K4, one launch)",
+         "libhm_tpu_torch/recon_torch.py",
          "libhm_tpu/recon_tpu.py:85"),
         ("row16", "_fused_recon_step: residual_scatter (K1), mc_weighted "
-         "(K6), deblock_luma (K3), sao_apply (K4), plane_checksum (K7)",
+         "(K6), loop_filter_level (K3 V + K4, one launch), plane_checksum "
+         "(K7)",
          "libhm_tpu_torch/entry.py", "__graft_entry__.py:22"))
 # the main path whose launches the kernel table reports, for the modes
 # that the tool stream does not run
 LAUNCHES_FROM = {"residual_bypass": "lossless_intra_416x240",
                  "restore_unfiltered": "lossless_intra_416x240",
                  "pcm_scatter": "pcm_port_416x240",
-                 "ccp_apply": "rext444_randomaccess_416x240",
-                 "deblock_chroma16": "main12_intra_416x240"}
+                 "ccp_apply": "rext444_randomaccess_416x240"}
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and the
 # CUDA-core rate (67 TFLOP/s float32 outside the tensor cores; the table
@@ -207,7 +222,7 @@ def cuda_ms(fn, reps):
 
 def device_ms(fn, reps):
     """Mean device milliseconds of fn() over `reps` runs queued behind a
-    sleeping kernel (~0.1 ms a run), so that the host enqueues them all
+    sleeping kernel (~0.5 ms a run), so that the host enqueues them all
     before the first starts: for launches shorter than their enqueue,
     which cuda_ms would time at the host's rate."""
     import torch
@@ -215,7 +230,7 @@ def device_ms(fn, reps):
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(reps * 200000)
+    torch.cuda._sleep(reps * 1000000)
     start.record()
     for _ in range(reps):
         fn()
@@ -703,6 +718,144 @@ def check_k4_multi(items, card, rng, bd=10):
     return r
 
 
+def _lf_work(planes, maps, kw):
+    """(bytes, operations) of one loop-filter level: every plane read and
+    a new one written (int32), every map the mask reads once; ~40
+    integer operations per sample for the two edge passes and SAO."""
+    from libhm_tpu_torch.ops import loopfilter as LF
+    n = sum(p.numel() for p in planes)
+    read = {"bsn", "qp", "bo", "to", "ctc"} if kw["mask"] & (
+        LF.PASS_V | LF.PASS_H) else set()
+    if kw["mask"] & LF.PASS_SAO:
+        read |= {"sao", "s4", "lf4", "tm", "lft"}
+    nmap = sum(t.numel() * t.element_size() for k, t in maps.items()
+               if k.split("_")[0] in read)
+    return n * 8 + nmap, n * 40
+
+
+def _lf_case(label, planes, maps, kw, card, r, reps=20, time_it=True):
+    """The level kernel against its plain version: `reps` launches, each
+    bit-identical to the plain result; timed at the host's enqueue rate
+    and queued behind a sleep (device time).  Adds to Result r."""
+    import torch
+    from libhm_tpu_torch.ops import loopfilter as LF
+    want = LF.loop_filter_level_plain(planes, maps, **kw)
+    err = bad = 0
+    for _ in range(reps):
+        got = LF.loop_filter_level(planes, maps, **kw)
+        torch.cuda.synchronize()
+        err = max([err] + [max_abs_err(g, w) for g, w in zip(got, want)])
+        bad += sum(int((g != w).sum()) for g, w in zip(got, want))
+    changed = sum(int((w != p).sum()) for w, p in zip(want, planes))
+    nbytes, ops = _lf_work(planes, maps, kw)
+    ms = dms = pms = 0.0
+    if time_it:
+        ms = cuda_ms(lambda: LF.loop_filter_level(planes, maps, **kw), 20)
+        dms = device_ms(lambda: LF.loop_filter_level(planes, maps, **kw), 20)
+        pms = cuda_ms(lambda: LF.loop_filter_level_plain(planes, maps, **kw),
+                      2)
+    shapes = [tuple(p.shape) for p in planes]
+    log(f"loop_filter_level {label} {shapes} mask={kw['mask']} "
+        f"multi={kw['multi']} bd={kw['bd_l']}/{kw['bd_c']}: {reps} launches,"
+        f" mismatches={bad} (samples changed {changed}); "
+        + (f"kernel {ms:.4f} ms (device, queued behind a sleep: {dms:.4f} "
+           f"ms), plain {pms:.4f} ms; " if time_it else "")
+        + f"bound: bytes {nbytes / HBM_BPS * 1e3:.6f} ms ({nbytes} bytes), "
+        f"operations {ops / CORE_OPS * 1e3:.6f} ms ({card})")
+    if time_it:
+        r.add(err, ms, pms, nbytes, ops)
+    else:
+        r.err = max(r.err, err)
+    return ms, dms, nbytes
+
+
+def check_lf(ra_levels, tool_levels, card, rng):
+    """The loop-filter level kernel (K3 + K4, one launch per level) against
+    loop_filter_level_plain: the RA stream's largest level (3 pictures at
+    1080p, the decode's own maps, seeded smooth planes) is the kernel's
+    line; then the RA stream's first picture alone beside the nine
+    single-pass launches that filter it the per-pass way; the tool
+    stream's multi-slice/tile maps; and seeded levels (tests/lf_cases.py):
+    12-bit chroma (int16 tc), 4:2:2, 4:4:4, SAO off, a one-CTA grid.
+    Returns (level Result, one-picture Result)."""
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from lf_cases import level_case, smooth_planes
+    from libhm_tpu_torch.ops import deblock as DK
+    from libhm_tpu_torch.ops import sao as SK
+    from libhm_tpu_torch.parallel import device_filters as DF
+    r, pic = Result(), Result()
+
+    def real(items):
+        sps = items[0]["sps"]
+        maps, kw, _ = DF.level_maps(items, sps, len(items), DEV)
+        Hp = sps.pic_height_ctbs << sps.log2_ctb
+        Wp = sps.pic_width_ctbs << sps.log2_ctb
+        planes = [torch.from_numpy(smooth_planes(
+            rng, (len(items), Hp >> (kw["sy"] if c else 0),
+                  Wp >> (kw["sx"] if c else 0)),
+            kw["bd_c"] if c else kw["bd_l"])).to(DEV)
+            for c in range(3 if sps.chroma_format_idc else 1)]
+        return planes, maps, kw
+    level = max(ra_levels, key=len)
+    _lf_case(f"RA level ({len(level)} pictures)", *real(level), card, r)
+    # one picture, V + H + SAO of its three components: one launch, and
+    # the nine single-pass launches (V and H per component, SAO per
+    # component) on the same inputs
+    planes, maps, kw = real(ra_levels[0][:1])
+    ms, dms, nbytes = _lf_case("RA picture 0 (one launch)", planes, maps,
+                               kw, card, pic)
+    hc, wc = kw["hc"], kw["wc"]
+    per = [{t: maps[f"ctc_{t}"][:, c].contiguous() for t in "vh"}
+           for c in range(2)]
+    sao = [tuple(maps[k][:, :, c].reshape((1, hc, wc) + (4,) * (k == "sao_o"))
+                 .contiguous() for k in ("sao_t", "sao_b", "sao_o"))
+           for c in range(3)]
+    scratch = [p.clone() for p in planes]
+
+    def nine():
+        for t, vertical in (("v", True), ("h", False)):
+            DK.deblock_luma(scratch[0], maps[f"bsn_{t}"], maps[f"qp_{t}"],
+                            maps.get(f"bo_{t}"), maps.get(f"to_{t}"),
+                            vertical=vertical, bd=kw["bd_l"])
+            for c in (1, 2):
+                DK.deblock_chroma(scratch[c], per[c - 1][t], maps[f"bsn_{t}"],
+                                  vertical=vertical, bd=kw["bd_c"],
+                                  ssx=kw["sx"], ssy=kw["sy"])
+        for c in range(3):
+            s = (kw["sx"], kw["sy"]) if c else (0, 0)
+            SK.sao(scratch[c], *sao[c],
+                   maps["sao_scale_c" if c else "sao_scale_l"],
+                   log2cx=kw["log2_ctb"] - s[0], log2cy=kw["log2_ctb"] - s[1],
+                   bd=kw["bd_c"] if c else kw["bd_l"], W=kw["W"] >> s[0],
+                   H=kw["H"] >> s[1])
+    nine_ms = cuda_ms(nine, 20)
+    nine_dev = device_ms(nine, 20)
+    log(f"one 1080p picture, V + H + SAO of its three components: ONE "
+        f"loop_filter_level launch {ms:.4f} ms at the enqueue rate, "
+        f"{dms:.4f} ms device time; the nine single-pass launches (each "
+        f"deblocking one copied back in place) {nine_ms:.4f} ms, "
+        f"{nine_dev:.4f} ms device time; byte bound "
+        f"{nbytes / HBM_BPS * 1e3:.6f} ms ({card})")
+    tool = max(tool_levels, key=len)
+    _lf_case(f"tools level ({len(tool)} pictures, multi-slice/tile SAO)",
+             *real(tool), card, r, time_it=False)
+    for label, args in (
+            ("12-bit chroma (int16 tc)",
+             dict(Hp=1088, Wp=1920, H=1080, W=1920, bd_l=12, log2_ctb=6)),
+            ("4:2:2", dict(Hp=1088, Wp=1920, H=1080, W=1920, chroma=2,
+                           bd_l=10, log2_ctb=6)),
+            ("4:4:4", dict(Hp=1088, Wp=1920, H=1080, W=1920, chroma=3,
+                           bd_l=10, log2_ctb=6)),
+            ("SAO off", dict(Hp=1088, Wp=1920, H=1080, W=1920, bd_l=10,
+                             log2_ctb=6, sao=False)),
+            ("one-CTA grid", dict(Hp=32, Wp=32, H=28, W=24, chroma=0,
+                                  log2_ctb=5))):
+        _lf_case(label, *level_case(rng, device=DEV, **args), card, r,
+                 time_it=False)
+    return r, pic
+
+
 def check_k8(card, rng, B=3):
     """K8 on a level of three 1920x1088 luma and 960x544 chroma planes with
     a seeded restore mask (one 4x4 in ten), against its plain version and
@@ -957,19 +1110,18 @@ def check_k7(card, rng, npics=17, bd=10):
 
 def check_fused(card):
     """Row 16: entry()'s fused recon step at 1080p Main10 through K1, K6,
-    K3, K4 and K7 against the same step through the plain versions: the
-    int32 sum and the frame exactly.  Returns (Result, launches per kernel
-    of one step)."""
+    the loop-filter kernel (V luma edges and SAO, one launch) and K7
+    against the same step through the plain versions: the int32 sum and
+    the frame exactly.  Returns (Result, launches per kernel of one
+    step)."""
     import torch
     from libhm_tpu_torch import entry as E
     from libhm_tpu_torch.ops import checksum as CK
-    from libhm_tpu_torch.ops import deblock as DK
     from libhm_tpu_torch.ops import interp as MK
-    from libhm_tpu_torch.ops import sao as SK
+    from libhm_tpu_torch.ops import loopfilter as LF
     from libhm_tpu_torch.ops import transform as TK
     kern = {"residual_scatter": TK._K1, "mc_weighted": MK._K6,
-            "deblock_luma": DK._K3_LUMA, "sao_apply": SK._K4,
-            "plane_checksum": CK._K7}
+            "loop_filter_level": LF._LF, "plane_checksum": CK._K7}
     fn, args = E.entry(device="cuda")
     before = {k: v.launches for k, v in kern.items()}
     s, f = fn(*args)
@@ -1152,8 +1304,8 @@ def breakdown(data, card):
     names = {"prepare_component", "residual_tables", "upload_tables",
              "residual_table", "_residual_planes_batch_device", "_intra_batch", "filter_level",
              "prepare_filter_maps", "compute_bs_maps", "residual_scatter",
-             "intra_wavefront", "intra_table", "deblock_luma",
-             "deblock_chroma", "sao", "up",
+             "intra_wavefront", "intra_table", "level_maps",
+             "pack_filter_maps", "loop_filter_level", "up",
              "__call__", "_inter_level", "_inter_level_grid",
              "_inter_level_gathered", "_level_refs", "_ref_stack", "mc_grid",
              "mc_weighted", "reference_levels", "_recon_levels"}
@@ -1166,8 +1318,9 @@ def breakdown(data, card):
 
     its = items()
     from libhm_tpu_torch.ops import interp as MK
+    from libhm_tpu_torch.ops import loopfilter as LF
     from libhm_tpu_torch.ops import transform as TK
-    TK._K1.launches = MK._K5.launches = 0
+    TK._K1.launches = MK._K5.launches = LF._LF.launches = 0
     torch.cuda.synchronize()
     t0 = time.monotonic()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1175,29 +1328,36 @@ def breakdown(data, card):
         DD._recon_levels(its, cuda)
         torch.cuda.synchronize()
     wall = time.monotonic() - t0
-    k1_k5 = (TK._K1.launches, MK._K5.launches)
+    k1_k5 = (TK._K1.launches, MK._K5.launches, LF._LF.launches)
+    # device-side events only (kernels, memcpys, memsets): a CPU op's row
+    # carries the device time of what it launched, so summing every row
+    # counts that work twice
     dev = {}
     for e in p.key_averages():
         us = getattr(e, "self_device_time_total", 0)
-        if us > 0:
+        if us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
             dev[e.key] = (us, e.count)
     total = sum(us for us, _ in dev.values())
     log(f"breakdown ({card}): recon under torch.profiler {wall:.3f} s; "
-        f"device time {total / 1e3:.3f} ms, busy share "
-        f"{(total / 1e6) / wall:.2%}" if total else
+        f"device time (kernel, memcpy and memset events only) "
+        f"{total / 1e3:.3f} ms, busy share {(total / 1e6) / wall:.2%}"
+        if total else
         "device time: not measured (the profiler saw no device activity)")
     for key, (us, cnt) in sorted(dev.items(), key=lambda kv: -kv[1][0])[:14]:
-        log(f"  {key[:60]:60s} {us / 1e3:9.3f} ms  ({cnt})")
+        log(f"  {key[:60]:60s} {us / 1e3:9.3f} ms  ({cnt}) "
+            f"{us / total:6.1%}")
 
     def dev_sum(part):
         hits = [v for k, v in dev.items() if part in k]
         return sum(us for us, _ in hits) / 1e3, sum(n for _, n in hits)
-    (k1_ms, k1_n), (k5_ms, k5_n), (h2d_ms, h2d_n) = (
+    (k1_ms, k1_n), (k5_ms, k5_n), (lf_ms, lf_n), (h2d_ms, h2d_n) = (
         dev_sum(k) for k in ("residual_table_kernel", "mc_grid_kernel",
-                             "HtoD"))
+                             "loop_filter_kernel", "HtoD"))
     log(f"breakdown ({card}): K1 {k1_k5[0]} launches, {k1_ms:.3f} ms device "
         f"({k1_n} kernels seen); K5 {k1_k5[1]} launches, {k5_ms:.3f} ms "
-        f"device ({k5_n} seen); H2D memcpy {h2d_n}, {h2d_ms:.3f} ms device")
+        f"device ({k5_n} seen); loop filter (K3 + K4) {k1_k5[2]} launches, "
+        f"{lf_ms:.4f} ms device ({lf_n} seen); H2D memcpy {h2d_n}, "
+        f"{h2d_ms:.3f} ms device")
 
 
 class LevelCapture:
@@ -1406,6 +1566,8 @@ def main():
         tool_levels, card, rng, "residual_scatter_scaled")
     results["residual_bypass"] = check_k1(tool_levels, card, rng,
                                           "residual_bypass", bypass=True)
+    results["loop_filter_level"], results["lf_picture"] = check_lf(
+        ra_levels, tool_levels, card, rng)
     del ra_levels, tool_levels
     rt_us = l2_round_trip_us(card)
     results["intra_wavefront"], results["row14"] = check_k2(items, card, rng,
@@ -1424,9 +1586,8 @@ def main():
     # (one picture: the intra wavefront of a whole 1080p picture; MC of
     # one picture; deblocking and SAO are per picture already)
     results["row15"] = check_k5(card, rng, B=1)
-    for k in ("deblock_luma", "deblock_chroma", "sao_apply"):
-        v = results[k]
-        results["row15"].add(v.err, v.ms, v.plain_ms, v.bytes, v.ops)
+    v = results.pop("lf_picture")
+    results["row15"].add(v.err, v.ms, v.plain_ms, v.bytes, v.ops)
     # the chroma geometries of the RExt path: 4:2:2 (chroma 960x1088) and
     # 4:4:4 (1920x1088).  Their errors join the kernels' lines; the times
     # there stay those of the 4:2:0 shapes above, comparable across runs
@@ -1449,6 +1610,7 @@ def main():
     from libhm_tpu_torch.ops import deblock as DK
     from libhm_tpu_torch.ops import interp as MK
     from libhm_tpu_torch.ops import intra as IK
+    from libhm_tpu_torch.ops import loopfilter as LF
     from libhm_tpu_torch.ops import pcm as PK
     from libhm_tpu_torch.ops import sao as SK
     from libhm_tpu_torch.ops import transform as TK
@@ -1457,14 +1619,20 @@ def main():
     kernels = {"residual_scatter": TK._K1,
                "residual_scatter_scaled": TK._K1_SCAL,
                "residual_bypass": TK._K1_BYPASS, "intra_wavefront": IK._K2,
+               "loop_filter_level": LF._LF,
                "deblock_luma": DK._K3_LUMA, "deblock_chroma": DK._K3_CHROMA,
                "sao_apply": SK._K4, "sao_apply_multi": SK._K4_MULTI,
                "mc_grid": MK._K5, "mc_weighted": MK._K6,
                "plane_checksum": CK._K7, "restore_unfiltered": PK._K8,
                "pcm_scatter": PK._K9, "deblock_chroma16": DK._K3_CHROMA16,
                "ccp_apply": CC._K10}
-    k1_k4 = ["residual_scatter", "intra_wavefront", "deblock_luma",
-             "deblock_chroma", "sao_apply"]
+    # the single-pass K3/K4 entry points: no decode path launches them
+    single_pass = ["deblock_luma", "deblock_chroma", "deblock_chroma16",
+                   "sao_apply", "sao_apply_multi"]
+    # the level kernel's forms, counted with its launches
+    counters = dict(kernels, loop_filter_multi=LF.FORMS["multi"],
+                    loop_filter_ctc16=LF.FORMS["ctc16"])
+    k1_k4 = ["residual_scatter", "intra_wavefront", "loop_filter_level"]
 
     levels_of = DD.reference_levels
 
@@ -1478,7 +1646,7 @@ def main():
             out = levels_of(items)
             seen.append(len(out))
             return out
-        for k in kernels.values():
+        for k in counters.values():
             k.launches = 0
         DD.reference_levels = counted
         try:
@@ -1486,7 +1654,7 @@ def main():
         finally:
             DD.reference_levels = levels_of
         torch.cuda.synchronize()
-        counts = {nm: k.launches for nm, k in kernels.items()}
+        counts = {nm: k.launches for nm, k in counters.items()}
         idle = [nm for nm in needed if counts[nm] == 0]
         if idle:
             raise AssertionError(f"{label}: kernels never launched: {idle}")
@@ -1494,6 +1662,11 @@ def main():
             if counts[k] > 3 * sum(seen) and sum(seen):
                 raise AssertionError(f"{label}: {counts[k]} {k} launches "
                                      f"over {sum(seen)} DAG levels")
+        # one loop-filter launch per level, no single-pass one
+        if sum(seen) and (counts["loop_filter_level"] != sum(seen) or
+                          any(counts[k] for k in single_pass)):
+            raise AssertionError(f"{label}: loop-filter launches "
+                                 f"{counts} over {sum(seen)} DAG levels")
         log(f"{label}: {sum(seen)} DAG levels, launches {counts}")
         return out, counts
 
@@ -1504,8 +1677,7 @@ def main():
                          lambda: picture_main_path(data, gold, card),
                          k1_k4 + ["mc_grid"])
     launches["row14"] = counts["intra_wavefront"]
-    launches["row15"] = sum(counts[k] for k in (
-        "mc_grid", "deblock_luma", "deblock_chroma", "sao_apply"))
+    launches["row15"] = counts["mc_grid"] + counts["loop_filter_level"]
     for name, modes in PICTURE_SMALL.items():
         table = ports if name in ports else gold
         stream = open(os.path.join(ROOT, "testdata", table[name]["bitstream"]),
@@ -1592,7 +1764,7 @@ def main():
     del dps
     (results["row16"], step), _ = run_path(
         "entry() fused_recon_step", lambda: check_fused(card),
-        ["residual_scatter", "mc_weighted", "deblock_luma", "sao_apply",
+        ["residual_scatter", "mc_weighted", "loop_filter_level",
          "plane_checksum"])
     launches["row16"] = sum(step.values())
     if results["row16"].err:
@@ -1608,7 +1780,8 @@ def main():
     check_real_level(capture, card)
     del capture
     log(f"{STREAM}: {npics} pictures, MD5 matches golden")
-    launches.update({k: counts[k] for k in k1_k4 + ["mc_grid"]})
+    launches.update({k: counts[k] for k in k1_k4 + ["mc_grid"] +
+                     single_pass})
     (n, _), counts = run_path(f"{WP} decode_batch",
                               lambda: decode_md5(WP, gold), ["mc_weighted"])
     log(f"{WP}: {n} pictures, MD5 matches golden")
@@ -1640,16 +1813,15 @@ def main():
     (n, tool_outs), counts = run_path(
         f"{TOOLS} decode_batch",
         lambda: decode_md5(TOOLS, ports, check_sei_hash=True),
-        ["residual_scatter_scaled", "intra_wavefront", "deblock_luma",
-         "deblock_chroma", "sao_apply_multi", "mc_grid"])
+        ["residual_scatter_scaled", "intra_wavefront", "loop_filter_level",
+         "loop_filter_multi", "mc_grid"])
     log(f"{TOOLS}: {n} pictures, MD5 matches port_streams.json")
-    for k in ("residual_scatter_scaled", "sao_apply_multi"):
-        launches[k] = counts[k]
+    launches["residual_scatter_scaled"] = counts["residual_scatter_scaled"]
     xfer.reset()
     (parse_s, comp_s, csum, n), _ = run_path(
         f"{TOOLS} decode_batch_device",
         lambda: DD.decode_batch_device(tools_data, device="cuda"),
-        ["residual_scatter_scaled", "sao_apply_multi", "plane_checksum"])
+        ["residual_scatter_scaled", "loop_filter_multi", "plane_checksum"])
     want = DD.cropped_checksum(tool_outs)
     if csum != want or n != len(tool_outs) or xfer.D2H != 4:
         raise AssertionError(f"{TOOLS} decode_batch_device: checksum {csum} "
@@ -1662,7 +1834,7 @@ def main():
         table = ports if name in ports else gold
         (n, _), counts = run_path(
             f"{name} decode_batch", lambda: decode_md5(name, table),
-            ["intra_wavefront", "deblock_luma", "deblock_chroma"] + modes)
+            ["intra_wavefront", "loop_filter_level"] + modes)
         for k, src in LAUNCHES_FROM.items():
             if src == name:
                 launches[k] = counts[k]
@@ -1734,11 +1906,13 @@ def main():
                                 "libhm_tpu/recon_tpu.py:60"),
            "intra_wavefront": ("libhm_tpu_torch/csrc/intra.cu",
                            "libhm_tpu/parallel/batch_decode.py:266"),
-           "deblock_luma": ("libhm_tpu_torch/csrc/deblock.cu",
+           "loop_filter_level": ("libhm_tpu_torch/csrc/loopfilter.cu",
+                                 "libhm_tpu/parallel/device_filters.py:102"),
+           "deblock_luma": ("libhm_tpu_torch/csrc/loopfilter.cu",
                             "libhm_tpu/ops/deblock.py:28"),
-           "deblock_chroma": ("libhm_tpu_torch/csrc/deblock.cu",
+           "deblock_chroma": ("libhm_tpu_torch/csrc/loopfilter.cu",
                               "libhm_tpu/ops/deblock.py:136"),
-           "sao_apply": ("libhm_tpu_torch/csrc/sao.cu",
+           "sao_apply": ("libhm_tpu_torch/csrc/loopfilter.cu",
                          "libhm_tpu/ops/sao.py:19"),
            "mc_grid": ("libhm_tpu_torch/csrc/mc.cu",
                        "libhm_tpu/parallel/dag_decode.py:190"),
@@ -1750,13 +1924,13 @@ def main():
                                        "libhm_tpu/ops/transform.py:81"),
            "residual_bypass": ("libhm_tpu_torch/csrc/residual.cu",
                                "libhm_tpu/recon_tpu.py:63"),
-           "sao_apply_multi": ("libhm_tpu_torch/csrc/sao.cu",
+           "sao_apply_multi": ("libhm_tpu_torch/csrc/loopfilter.cu",
                                "libhm_tpu/parallel/device_filters.py:169"),
            "restore_unfiltered": ("libhm_tpu_torch/csrc/pcm.cu",
                                   "libhm_tpu/parallel/device_filters.py:191"),
            "pcm_scatter": ("libhm_tpu_torch/csrc/pcm.cu",
                            "libhm_tpu/parallel/dag_decode.py:483"),
-           "deblock_chroma16": ("libhm_tpu_torch/csrc/deblock.cu",
+           "deblock_chroma16": ("libhm_tpu_torch/csrc/loopfilter.cu",
                                 "libhm_tpu/ops/deblock.py:136"),
            "ccp_apply": ("libhm_tpu_torch/csrc/ccp.cu",
                          "libhm_tpu/parallel/batch_decode.py:164")}

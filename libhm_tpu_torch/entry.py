@@ -7,8 +7,8 @@ the port's kernels:
     16x16 DCT and 4x4 DST residual buckets     K1 residual_scatter
     16x16 bi-predicted MC + residual, clipped  K6 mc_weighted (plain
                                                epilogue, per 4x4 block)
-    one vertical luma deblocking pass          K3 deblock_luma
-    SAO of the frame (BO and the EO classes)   K4 sao_apply
+    one vertical luma deblocking pass, then    K3 + K4 loop_filter_level
+    SAO of the frame (BO and the EO classes)   (one launch, mask V + SAO)
     int32 sum of the 4x4 residuals and frame   K7 plane_checksum
 
 `fused_recon_step` runs the kernels for CUDA tensors and their plain
@@ -23,9 +23,8 @@ import numpy as np
 import torch
 
 from .ops import checksum as CK
-from .ops import deblock as DK
 from .ops import interp as MK
-from .ops import sao as SK
+from .ops import loopfilter as LF
 from .ops import transform as TK
 
 BD = 10
@@ -33,10 +32,9 @@ LOG2_CTB = 6
 R4_COLS = 32            # 4x4 residual blocks per row of the scratch plane
 
 _KERNELS = dict(residual=TK.residual_scatter, mc=MK.mc_weighted,
-                deblock=DK.deblock_luma, sao=SK.sao,
-                checksum=CK.plane_checksum)
+                filter=LF.loop_filter_level, checksum=CK.plane_checksum)
 _PLAIN = dict(residual=TK.residual_scatter_plain, mc=MK.mc_weighted_plain,
-              deblock=DK.deblock_luma_plain, sao=SK.sao_plain,
+              filter=LF.loop_filter_level_plain,
               checksum=CK.plane_checksum_plain)
 
 
@@ -149,10 +147,16 @@ def _step(k, coeffs16, qp16, coeffs4, qp4, frame, refs, sel, bx, by, mv, bs,
     bsn[0, :, 0::2] = bs.to(torch.uint8)
     qp = torch.zeros((1, H // 4, W // 4), dtype=torch.int8, device=dev)
     qp[0, :, 0::2] = qpmap.to(torch.int8)
-    k["deblock"](out, bsn, qp, None, None, vertical=True, bd=BD)
-    out = k["sao"](out, sao_type.to(torch.int8)[None],
-                   sao_band.to(torch.int8)[None],
-                   sao_off.to(torch.int8)[None], torch.zeros(1, **i32),
-                   log2cx=LOG2_CTB, log2cy=LOG2_CTB, bd=BD, W=W, H=H)
+    # then SAO in the same launch: the per-CTB maps as one component
+    # column of [1, hc * wc, 1]
+    hc, wc = sao_type.shape
+    out, = k["filter"](
+        [out], {"bsn_v": bsn, "qp_v": qp,
+                "sao_t": sao_type.to(torch.int8).reshape(1, -1, 1),
+                "sao_b": sao_band.to(torch.int8).reshape(1, -1, 1),
+                "sao_o": sao_off.to(torch.int8).reshape(1, -1, 1, 4),
+                "sao_scale_l": torch.zeros(1, **i32)},
+        mask=LF.PASS_V | LF.PASS_SAO, bd_l=BD, bd_c=BD, sx=0, sy=0,
+        log2_ctb=LOG2_CTB, hc=hc, wc=wc, W=W, H=H)
     total = k["checksum"]([out[0], res4[0]])
     return _wrap_int32(total), out[0]

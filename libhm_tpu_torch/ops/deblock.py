@@ -3,16 +3,19 @@
 Port of libhm_tpu/ops/deblock.py.  The plain `deblock_luma_vertical` and
 `deblock_chroma_vertical` keep the JAX formulation (segment maps, the H
 pass on the transposed plane).  `deblock_luma` / `deblock_chroma` are the
-kernel wrappers: they take the stacked [B, H, W] planes and the per-4x4
-maps of prepare_filter_maps plus the edge direction, and run
-csrc/deblock.cu in place for CUDA planes, or the plain functions for CPU
-planes.
+single-pass kernel wrappers: they take the stacked [B, H, W] planes and
+the per-4x4 maps of prepare_filter_maps plus the edge direction, and
+update the planes in place: for CUDA planes one launch of the loop-filter
+kernel (csrc/loopfilter.cu, ops/loopfilter.py) with a one-pass mask,
+into a new plane that is then copied back; for CPU planes the plain
+functions.
 """
 import torch
 
 from ..hostdec.loopfilter_np import BETA_TABLE, TC_TABLE
 
-from ..kernels.build import I, P, Kernel, check, ptr
+from ..kernels.build import I, P, Kernel, check
+from . import loopfilter as LF
 
 
 def deblock_luma_vertical(plane, bs, qp_l, beta_off, tc_off, no_p, no_q,
@@ -149,12 +152,12 @@ def deblock_chroma_vertical(plane, tc_c, filt, no_p, no_q, bit_depth):
 
 
 # ---------------------------------------------------------------------------
-# K3: deblocking kernels (in place, one direction per launch)
-_K3_LUMA = Kernel("deblock_luma", [P, P, P, P, P, I, I, I, I, I, I, I])
-_K3_CHROMA = Kernel("deblock_chroma", [P, P, P, I, I, I, I, I, I, I, I, I])
-# the int16-tc form (chroma above 11 bits) is its own entry point
-_K3_CHROMA16 = Kernel("deblock_chroma16",
-                      [P, P, P, I, I, I, I, I, I, I, I, I])
+# K3: the single-pass entry points of the loop-filter kernel (one edge
+# direction of one plane per launch); the int16-tc form (chroma above 11
+# bits) is its own entry point
+_K3_LUMA = Kernel("deblock_luma", [P, I])
+_K3_CHROMA = Kernel("deblock_chroma", [P, I])
+_K3_CHROMA16 = Kernel("deblock_chroma16", [P, I])
 
 
 def _seg(a, vertical, nsy, nsx):
@@ -223,9 +226,14 @@ def deblock_luma(planes, bsn, qp, bo, to, *, vertical, bd):
     if bsn.shape[0] != B or h4 * 4 < H or w4 * 4 < W or H % 8 or W % 8 or \
             any(t is not None and t.shape != bsn.shape for t in (qp, bo, to)):
         raise ValueError("deblock_luma: inconsistent plane/map shapes")
-    _K3_LUMA(ptr(planes), ptr(bsn), ptr(qp), ptr(bo), ptr(to), B, H, W, h4,
-             w4, int(vertical), bd)
-    return planes
+    tag = "v" if vertical else "h"
+    out = torch.empty_like(planes)
+    LF.launch(_K3_LUMA, [{"in": planes, "out": out, "Hp": H, "Wp": W,
+                          "luma": 1, "bd": bd}],
+              {f"bsn_{tag}": bsn, f"qp_{tag}": qp, f"bo_{tag}": bo,
+               f"to_{tag}": to},
+              mask=LF.PASS_V if vertical else LF.PASS_H, h4=h4, w4=w4)
+    return planes.copy_(out)
 
 
 def deblock_chroma(planes, ctc, bsn, *, vertical, bd, ssx, ssy):
@@ -249,7 +257,11 @@ def deblock_chroma(planes, ctc, bsn, *, vertical, bd, ssx, ssy):
     if bsn.shape[0] != B or ctc.shape != bsn.shape or H % 8 or W % 8 or \
             ((H - 1) >> (2 - ssy)) >= h4 or ((W - 1) >> (2 - ssx)) >= w4:
         raise ValueError("deblock_chroma: inconsistent plane/map shapes")
-    (_K3_CHROMA16 if wide else _K3_CHROMA)(
-        ptr(planes), ptr(ctc), ptr(bsn), B, H, W, h4, w4, int(vertical), ssx,
-        ssy, bd)
-    return planes
+    tag = "v" if vertical else "h"
+    out = torch.empty_like(planes)
+    LF.launch(_K3_CHROMA16 if wide else _K3_CHROMA,
+              [{"in": planes, "out": out, "Hp": H, "Wp": W, "sx": ssx,
+                "sy": ssy, "luma": 0, "bd": bd}],
+              {f"bsn_{tag}": bsn, f"ctc_{tag}": ctc},
+              mask=LF.PASS_V if vertical else LF.PASS_H, h4=h4, w4=w4)
+    return planes.copy_(out)

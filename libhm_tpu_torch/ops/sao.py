@@ -4,12 +4,15 @@ Port of libhm_tpu/ops/sao.py: edge-offset neighbours are limited by the
 picture bounds and either `valid_mask` (the single-slice form) or the
 pairwise slice/tile rules of the multi-slice form (`slice_map`, `lf_map`,
 `tile_map`, `lf_across_tiles`).  `sao` and `sao_multi` are the kernel
-wrappers over stacked [B, Hp, Wp] planes: csrc/sao.cu (one kernel, two
-entry points) for CUDA planes, `sao_component` per picture for CPU planes.
+wrappers over stacked [B, Hp, Wp] planes: for CUDA planes one launch of
+the loop-filter kernel (csrc/loopfilter.cu, ops/loopfilter.py) with the
+SAO mask, through an entry point of each form; `sao_component` per
+picture for CPU planes.
 """
 import torch
 
-from ..kernels.build import I, P, Kernel, check, ptr
+from ..kernels.build import I, P, Kernel, check
+from . import loopfilter as LF
 
 # EO class neighbour offsets (dy1, dx1, dy2, dx2), indexed by type-1
 EO_NB = [[0, -1, 0, 1],
@@ -102,11 +105,30 @@ def sao_component(plane, valid_mask, ctu_type, ctu_band, ctu_offsets,
 
 
 # ---------------------------------------------------------------------------
-# K4: SAO kernel (reads the deblocked planes, writes new ones); the
-# multi-slice/tile form is its own entry point with its own launch count
-_K4 = Kernel("sao_apply", [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I])
-_K4_MULTI = Kernel("sao_apply_multi",
-                   [P] * 10 + [I] * 15)
+# K4: the SAO entry points of the loop-filter kernel (reads the deblocked
+# planes, writes new ones); the multi-slice/tile form is its own entry
+# point with its own launch count
+_K4 = Kernel("sao_apply", [P, I])
+_K4_MULTI = Kernel("sao_apply_multi", [P, I])
+
+
+def _launch_sao(kernel, planes, sao_t, sao_b, sao_o, scale, *, log2cx,
+                log2cy, bd, W, H, sx=0, sy=0, extra=None, **geo):
+    """One plane's SAO through the loop-filter kernel: the per-CTB maps
+    as [B, hc * wc, 1] views (one component column)."""
+    B, Hp, Wp = planes.shape
+    _, hc, wc = sao_t.shape
+    out = torch.empty_like(planes)
+    maps = {"sao_t": sao_t.view(B, hc * wc, 1),
+            "sao_b": sao_b.view(B, hc * wc, 1),
+            "sao_o": sao_o.view(B, hc * wc, 1, 4)}
+    maps.update(extra or {})
+    LF.launch(kernel, [{"in": planes, "out": out, "Hp": Hp, "Wp": Wp,
+                        "W": W, "H": H, "sx": sx, "sy": sy, "bd": bd,
+                        "log2cx": log2cx, "log2cy": log2cy,
+                        "scale": scale}],
+              maps, mask=LF.PASS_SAO, hc=hc, wc=wc, **geo)
+    return out
 
 
 def sao_plain(planes, sao_t, sao_b, sao_o, scale, *, log2cx, log2cy, bd, W,
@@ -127,7 +149,8 @@ def sao(planes, sao_t, sao_b, sao_o, scale, *, log2cx, log2cy, bd, W, H):
     planes: [B, Hp, Wp] int32 (deblocked); sao_t/sao_b: [B, hc, wc] int8
     type (-1 off, 0 BO, 1..4 EO) and band position; sao_o: [B, hc, wc, 4]
     int8 offsets; scale: [B] int32 offset shift (sao_offset_scale).
-    W, H: the component's picture size.
+    W, H: the component's picture size; CTBs of at least 8 samples each
+    way (log2cx, log2cy >= 3).
     """
     if not planes.is_cuda:
         return sao_plain(planes, sao_t, sao_b, sao_o, scale, log2cx=log2cx,
@@ -143,12 +166,11 @@ def sao(planes, sao_t, sao_b, sao_o, scale, *, log2cx, log2cy, bd, W, H):
     if sao_t.shape[0] != B or sao_b.shape != sao_t.shape or \
             sao_o.shape != (B, hc, wc, 4) or scale.shape[0] != B or \
             (hc << log2cy) < Hp or (wc << log2cx) < Wp or \
-            W > Wp or H > Hp or not 8 <= bd <= 12:
+            W > Wp or H > Hp or not 8 <= bd <= 12 or \
+            min(log2cx, log2cy) < 3:
         raise ValueError("sao: inconsistent plane/map shapes")
-    out = torch.empty_like(planes)
-    _K4(ptr(planes), ptr(out), ptr(sao_t), ptr(sao_b), ptr(sao_o), ptr(scale),
-        B, Hp, Wp, hc, wc, log2cx, log2cy, bd, W, H)
-    return out
+    return _launch_sao(_K4, planes, sao_t, sao_b, sao_o, scale,
+                       log2cx=log2cx, log2cy=log2cy, bd=bd, W=W, H=H)
 
 
 def sample_maps(s4, lf4, tm, Hp, Wp, sx, sy, log2_ctb):
@@ -221,11 +243,12 @@ def sao_multi(planes, sao_t, sao_b, sao_o, scale, s4, lf4, tm, lft, *,
             sao_o.shape != (B, hc, wc, 4) or scale.shape[0] != B or \
             (hc << log2cy) < Hp or (wc << log2cx) < Wp or \
             W > Wp or H > Hp or not 8 <= bd <= 12 or \
+            min(log2cx, log2cy) < 3 or \
             s4.shape[0] != B or lf4.shape != s4.shape or \
             tm.shape != (B, hc, wc) or lft.shape[0] != B:
         raise ValueError("sao_multi: inconsistent plane/map shapes")
-    out = torch.empty_like(planes)
-    _K4_MULTI(ptr(planes), ptr(out), ptr(sao_t), ptr(sao_b), ptr(sao_o),
-              ptr(scale), ptr(s4), ptr(lf4), ptr(tm), ptr(lft), B, Hp, Wp,
-              hc, wc, log2cx, log2cy, bd, W, H, h4, w4, sx, sy, log2_ctb)
-    return out
+    return _launch_sao(_K4_MULTI, planes, sao_t, sao_b, sao_o, scale,
+                       log2cx=log2cx, log2cy=log2cy, bd=bd, W=W, H=H, sx=sx,
+                       sy=sy, extra={"s4": s4, "lf4": lf4, "tm": tm,
+                                     "lft": lft},
+                       h4=h4, w4=w4, log2_ctb=log2_ctb, multi=True)

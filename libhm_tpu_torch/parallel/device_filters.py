@@ -1,15 +1,17 @@
 """Device-resident in-loop filters for a reference-DAG level.
 
-Port of libhm_tpu/parallel/device_filters.py.  The host uploads compact
-per-4x4 syntax maps (int8 / uint8 / int16) and the stacked planes never
-leave the device:
+Port of libhm_tpu/parallel/device_filters.py.  The host packs the compact
+per-4x4 and per-CTB syntax maps (int8 / uint8 / int16) of every picture
+of the level into one buffer, uploads it once, and the stacked planes
+never leave the device:
 
-    deblock V (luma K3, chroma K3 x2; its int16-tc form above 11-bit
-    chroma) -> deblock H (same)
-    -> SAO (K4 x3; its multi form where a picture of the level has
-       several slices or tiles)
+    deblock V -> deblock H -> SAO, every component of every picture, in
+    ONE launch of the loop-filter kernel (K3 + K4, csrc/loopfilter.cu;
+    int16 tc above 11-bit chroma; SAO's multi form where a picture of the
+    level has several slices or tiles)
     -> restore (K8 x3, where PCM without loop filter or transquant bypass
-       is enabled): masked samples take back their pre-deblock value
+       is enabled): masked samples take back their pre-deblock value, read
+       from the kernel's input planes
 
 Boundary-strength derivation stays host-side numpy
 (hostdec/deblock_maps.compute_bs_maps).
@@ -21,8 +23,8 @@ from ..hostdec.deblock_maps import compute_bs_maps
 from ..hostdec.tables import CHROMA_QP_SCALE
 
 from ..ops import deblock as DK
+from ..ops import loopfilter as LF
 from ..ops import pcm as PK
-from ..ops import sao as SK
 from ..utils import xfer
 
 _TC_NP = np.asarray(DK.TC_TABLE)
@@ -96,31 +98,77 @@ def picture_filter_flags(items):
 
 
 # ---------------------------------------------------------------------------
-def filter_level(items, stacked, sps, device):
-    """Deblock (V, then H), SAO and restore a level's stacked device planes.
+# one packed upload of a level's maps
+def _map_order(keys):
+    """The level's map names in the order the loop-filter kernel reads
+    them: per direction bsn, qp, bo, to, ctc; the SAO maps; the slice/tile
+    maps; the offset scales; the restore mask."""
+    order = [f"{k}_{t}" for t in "vh" for k in ("bsn", "qp", "bo", "to",
+                                                 "ctc")]
+    order += ["sao_t", "sao_b", "sao_o", "s4", "lf4", "tm", "lft",
+              "sao_scale_l", "sao_scale_c", "rmask"]
+    return [k for k in order if k in keys]
 
-    items: the level's collect items; stacked: list per component of
-    [Bp, Hp, Wp] int32 device planes.  Deblocking updates them in place;
-    returns the filtered planes.
+
+def pack_filter_maps(items, maps, Bp, skip=()):
+    """One host byte buffer holding every map the level's filters read.
+
+    maps: prepare_filter_maps of each item (picture b = its index); each
+    map is stacked over the Bp pictures (zeros where a picture lacks it;
+    bool maps as uint8), plus the per-picture SAO offset scales
+    (sao_scale_l, sao_scale_c: int32) and, where the slice/tile maps are
+    kept, loop_filter_across_tiles (lft: uint8).  Each part starts at a
+    16-byte boundary.  Returns (buf, layout) with layout[name] = (offset,
+    numpy dtype, shape).
     """
-    multi, restore, sao_on = picture_filter_flags(items)
-    ncomp = 3 if sps.chroma_format_idc else 1
-    ssx = sps.chroma_shift_x() if ncomp > 1 else 0
-    ssy = sps.chroma_shift_y() if ncomp > 1 else 0
-    maps = [prepare_filter_maps(it["pic"], it["sps"], it["pps"],
-                                it["tile_map"]) for it in items]
-    B = len(items)
-    Bp = int(stacked[0].shape[0])
-
-    def up(k):
+    arrays = {}
+    for k in {k for mp in maps for k in mp} - set(skip):
         proto = next(mp[k] for mp in maps if k in mp)
-        # bool maps (lf4) go up as uint8
         a = np.zeros((Bp,) + proto.shape,
                      np.uint8 if proto.dtype == bool else proto.dtype)
         for b, mp in enumerate(maps):
             if k in mp:
                 a[b] = mp[k]
-        return xfer.up(a, "filter", device)
+        arrays[k] = a
+    for k, attr in (("sao_scale_l", "sao_offset_scale_luma"),
+                    ("sao_scale_c", "sao_offset_scale_chroma")):
+        a = np.zeros(Bp, np.int32)
+        a[:len(items)] = [int(getattr(it["pps"], attr, 0)) for it in items]
+        arrays[k] = a
+    if "tm" in arrays:
+        a = np.zeros(Bp, np.uint8)
+        a[:len(items)] = [bool(it["pps"].loop_filter_across_tiles)
+                          for it in items]
+        arrays["lft"] = a
+    parts, layout, o = [], {}, 0
+    for k in _map_order(arrays):
+        a = arrays[k]
+        layout[k] = (o, a.dtype, a.shape)
+        pad = -a.nbytes % 16
+        parts += [a.reshape(-1).view(np.uint8), np.zeros(pad, np.uint8)]
+        o += a.nbytes + pad
+    return np.concatenate(parts), layout
+
+
+def unpack_filter_maps(buf, layout):
+    """Views of the uploaded buffer, one per map of `layout`."""
+    out = {}
+    for k, (o, dt, shape) in layout.items():
+        n = int(np.prod(shape)) * dt.itemsize
+        out[k] = buf[o:o + n].view(torch.from_numpy(np.zeros(0, dt)).dtype) \
+            .view(shape)
+    return out
+
+
+# ---------------------------------------------------------------------------
+def level_maps(items, sps, Bp, device):
+    """Every map the level's filters read, packed and uploaded in ONE
+    transfer, as views by name (pack_filter_maps), with the keyword
+    arguments of ops/loopfilter.py loop_filter_level for the level.
+    Returns (maps, kwargs, restore)."""
+    multi, restore, sao_on = picture_filter_flags(items)
+    maps = [prepare_filter_maps(it["pic"], it["sps"], it["pps"],
+                                it["tile_map"]) for it in items]
     # the slice/tile maps and the restore mask only where they are read,
     # as the JAX `skip` set
     skip = set()
@@ -128,67 +176,37 @@ def filter_level(items, stacked, sps, device):
         skip |= {"s4", "lf4", "tm"}
     if not restore:
         skip.add("rmask")
-    keys = {k for mp in maps for k in mp} - skip
-    mb = {k: up(k) for k in sorted(keys)}
-    # pre-deblock copies of the planes (restore writes them back)
-    pre = [p.clone() for p in stacked] if restore else None
+    buf, layout = pack_filter_maps(items, maps, Bp, skip)
+    mb = unpack_filter_maps(xfer.up(buf, "filter", device), layout)
+    ncomp = 3 if sps.chroma_format_idc else 1
+    kw = dict(mask=LF.PASS_V | LF.PASS_H | (LF.PASS_SAO if sao_on else 0),
+              bd_l=sps.bit_depth_luma, bd_c=sps.bit_depth_chroma,
+              sx=sps.chroma_shift_x() if ncomp > 1 else 0,
+              sy=sps.chroma_shift_y() if ncomp > 1 else 0,
+              log2_ctb=sps.log2_ctb, hc=sps.pic_height_ctbs,
+              wc=sps.pic_width_ctbs, W=sps.width, H=sps.height,
+              multi=sao_on and multi)
+    return mb, kw, restore
 
-    # ---- deblocking: V pass then H pass (spec order) ----
-    for tag, vertical in (("v", True), ("h", False)):
-        DK.deblock_luma(stacked[0], mb[f"bsn_{tag}"], mb[f"qp_{tag}"],
-                        mb.get(f"bo_{tag}"), mb.get(f"to_{tag}"),
-                        vertical=vertical, bd=sps.bit_depth_luma)
-        for c in range(1, ncomp):
-            ctc = mb[f"ctc_{tag}"][:, c - 1].contiguous()
-            DK.deblock_chroma(stacked[c], ctc, mb[f"bsn_{tag}"],
-                              vertical=vertical, bd=sps.bit_depth_chroma,
-                              ssx=ssx, ssy=ssy)
 
-    # ---- SAO ----
-    out = stacked
-    if sao_on:
-        out = _sao_level(items, stacked, sps, mb, multi, Bp, device)
+def filter_level(items, stacked, sps, device):
+    """Deblock (V, then H), SAO and restore a level's stacked device planes.
 
+    items: the level's collect items; stacked: list per component of
+    [Bp, Hp, Wp] int32 device planes (not written).  Every map goes up in
+    one upload (level_maps); deblocking and SAO of every component are ONE
+    launch of the loop-filter kernel (ops/loopfilter.py loop_filter_level)
+    on CUDA planes, its plain version on CPU planes; then the restore
+    (K8), which reads the unfiltered input planes.  Returns the filtered
+    planes.
+    """
+    mb, kw, restore = level_maps(items, sps, int(stacked[0].shape[0]),
+                                 device)
+    out = LF.loop_filter_level(stacked, mb, **kw)
     # ---- PCM / transquant-bypass restoration ----
     if restore:
-        for c in range(ncomp):
-            PK.restore_unfiltered(out[c], pre[c], mb["rmask"],
-                                  sx=ssx if c else 0, sy=ssy if c else 0)
-    return out
-
-
-def _sao_level(items, stacked, sps, mb, multi, Bp, device):
-    """SAO of every component (K4, its multi form when `multi`)."""
-    B = len(items)
-    ncomp = len(stacked)
-    ssx = sps.chroma_shift_x() if ncomp > 1 else 0
-    ssy = sps.chroma_shift_y() if ncomp > 1 else 0
-    hc, wc = sps.pic_height_ctbs, sps.pic_width_ctbs
-    scales = []
-    for key in ("sao_offset_scale_luma", "sao_offset_scale_chroma"):
-        s = np.zeros(Bp, np.int32)
-        s[:B] = [int(getattr(it["pps"], key, 0)) for it in items]
-        scales.append(xfer.up(s, "filter", device))
-    if multi:
-        lft = np.zeros(Bp, np.uint8)
-        lft[:B] = [bool(it["pps"].loop_filter_across_tiles) for it in items]
-        lft = xfer.up(lft, "filter", device)
-        tm = mb["tm"].reshape(Bp, hc, wc)
-    out = []
-    for c in range(ncomp):
-        sx = ssx if c else 0
-        sy = ssy if c else 0
-        args = (stacked[c],
-                mb["sao_t"][:, :, c].reshape(Bp, hc, wc).contiguous(),
-                mb["sao_b"][:, :, c].reshape(Bp, hc, wc).contiguous(),
-                mb["sao_o"][:, :, c].reshape(Bp, hc, wc, 4).contiguous(),
-                scales[0] if c == 0 else scales[1])
-        kw = dict(log2cx=sps.log2_ctb - sx, log2cy=sps.log2_ctb - sy,
-                  bd=sps.bit_depth_luma if c == 0 else sps.bit_depth_chroma,
-                  W=sps.width >> sx, H=sps.height >> sy)
-        if multi:
-            out.append(SK.sao_multi(*args, mb["s4"], mb["lf4"], tm, lft, sx=sx,
-                                    sy=sy, log2_ctb=sps.log2_ctb, **kw))
-        else:
-            out.append(SK.sao(*args, **kw))
+        for c in range(len(out)):
+            PK.restore_unfiltered(out[c], stacked[c], mb["rmask"],
+                                  sx=kw["sx"] if c else 0,
+                                  sy=kw["sy"] if c else 0)
     return out

@@ -30,10 +30,13 @@ def reconstruct_picture(item, device):
                                              with one picture
         recon_tpu._mc_fn                  -> K5 (mc_grid, plain epilogue)
                                              or K6 (mc_weighted, WP)
-        recon_tpu._deblock_v_fn /         -> K3 (deblock_luma /
-          _deblock_cv_fn                     deblock_chroma, uint8 tc, or
-                                             deblock_chroma16 above 11 bits)
-        recon_tpu._sao_fn / _sao_fn_multi -> K4 (sao_apply / sao_apply_multi)
+        recon_tpu._deblock_v_fn /         -> K3 + K4 in one launch of the
+          _deblock_cv_fn /                   loop-filter kernel
+          _sao_fn / _sao_fn_multi            (ops/loopfilter.py
+                                             loop_filter_level: V, H and
+                                             SAO of every component; int16
+                                             tc above 11-bit chroma; the
+                                             multi-slice/tile SAO form)
         recon_tpu._residual_fn            -> K1
         host CCP, PCM write, restore      -> K10, K9, K8
 

@@ -214,6 +214,14 @@ def test_mc_grid_tiles(gpu, is_luma, bd, sx, sy):
     assert MK._K5.launches == n0 + 20
 
 
+def _single_pass_filters():
+    """The single-pass K3/K4 entry points, off the decode paths."""
+    from libhm_tpu_torch.ops import deblock as DK
+    from libhm_tpu_torch.ops import sao as SK
+    return (DK._K3_LUMA, DK._K3_CHROMA, DK._K3_CHROMA16, SK._K4,
+            SK._K4_MULTI)
+
+
 def _dag_levels(name):
     """The reference-DAG levels of a golden: K2 launches at most once per
     component in each."""
@@ -224,13 +232,13 @@ def _dag_levels(name):
 @pytest.mark.parametrize("name", ["intra_main10_416x240", "intra_416x240"])
 def test_decode_on_gpu(gpu, name):
     """Every kernel launches, K2 at most once per component and DAG level,
-    and the picture MD5 matches the golden one."""
-    from libhm_tpu_torch.ops import deblock as DK
+    the loop-filter kernel once per level (and no single-pass K3/K4 entry
+    point), and the picture MD5 matches the golden one."""
     from libhm_tpu_torch.ops import intra as IK
-    from libhm_tpu_torch.ops import sao as SK
+    from libhm_tpu_torch.ops import loopfilter as LF
     from libhm_tpu_torch.ops import transform as TK
     from libhm_tpu_torch.parallel.dag_decode import decode_batch
-    kernels = (TK._K1, IK._K2, DK._K3_LUMA, DK._K3_CHROMA, SK._K4)
+    kernels = (TK._K1, IK._K2, LF._LF) + _single_pass_filters()
     for k in kernels:
         k.launches = 0
     data = open(os.path.join(ROOT, "testdata", GOLD[name]["bitstream"]),
@@ -238,8 +246,10 @@ def test_decode_on_gpu(gpu, name):
     outs = decode_batch(data, device=gpu)
     buf = b"".join(p.tobytes() for pic in outs for p in pic)
     assert hashlib.md5(buf).hexdigest() == GOLD[name]["decoded_yuv_md5"]
-    assert all(k.launches > 0 for k in kernels)
+    assert all(k.launches > 0 for k in kernels[:3])
+    assert not any(k.launches for k in kernels[3:])
     assert IK._K2.launches <= 3 * _dag_levels(name)
+    assert LF._LF.launches == _dag_levels(name)
 
 
 @pytest.mark.parametrize("comp", [0, 1])
@@ -524,21 +534,23 @@ def test_restore_kernel_geometries(gpu, sx, sy, aligned):
 
 
 @pytest.mark.parametrize("name,kernel", [
-    ("tiles_nolfcross_512x128", "_K4_MULTI"),
+    ("tiles_nolfcross_512x128", "multi"),
     ("lossless_intra_416x240", "_K1_BYPASS"),
     ("customsl_lowdelay_160x96", "_K1_SCAL"),
     ("pcm_port_416x240", "_K9")])
 def test_tool_decode_on_gpu(gpu, name, kernel):
-    """The coding-tool streams match their MD5 through the new modes."""
+    """The coding-tool streams match their MD5 through the new modes (the
+    loop-filter kernel's multi-slice/tile SAO form for "multi")."""
+    from libhm_tpu_torch.ops import loopfilter as LF
     from libhm_tpu_torch.ops import pcm as PK
-    from libhm_tpu_torch.ops import sao as SK
     from libhm_tpu_torch.ops import transform as TK
     from libhm_tpu_torch.parallel import dag_decode as DD
     table = json.load(open(os.path.join(ROOT, "testdata",
                                         "port_streams.json")))
     if name in GOLD:
         table = GOLD
-    k = next(getattr(m, kernel) for m in (SK, TK, PK) if hasattr(m, kernel))
+    k = LF.FORMS.get(kernel) or next(getattr(m, kernel) for m in (TK, PK)
+                                     if hasattr(m, kernel))
     k.launches = 0
     data = open(os.path.join(ROOT, "testdata", table[name]["bitstream"]),
                 "rb").read()
@@ -635,17 +647,19 @@ def test_sao_kernel_rext(gpu, sx, sy):
 
 @pytest.mark.parametrize("name,kernel", [
     ("ccp444_lowdelay_160x96", "_K10"),
-    ("main12_intra_416x240", "_K3_CHROMA16"),
+    ("main12_intra_416x240", "ctc16"),
     ("rext422_lowdelayP_416x240", "_K5"),
     ("mono_lowdelay_160x96", "_K5")])
 def test_rext_decode_on_gpu(gpu, name, kernel):
     """The RExt goldens match their MD5 through the kernels of their
-    chroma format and bit depth."""
+    chroma format and bit depth (the loop-filter kernel's int16-tc form
+    for "ctc16")."""
     from libhm_tpu_torch.ops import ccp as CK
-    from libhm_tpu_torch.ops import deblock as DK
     from libhm_tpu_torch.ops import interp as MK
+    from libhm_tpu_torch.ops import loopfilter as LF
     from libhm_tpu_torch.parallel import dag_decode as DD
-    k = next(getattr(m, kernel) for m in (CK, DK, MK) if hasattr(m, kernel))
+    k = LF.FORMS.get(kernel) or next(getattr(m, kernel) for m in (CK, MK)
+                                     if hasattr(m, kernel))
     k.launches = 0
     data = open(os.path.join(ROOT, "testdata", GOLD[name]["bitstream"]),
                 "rb").read()
@@ -692,33 +706,31 @@ def test_picture_decode_on_gpu(gpu, name, kernel):
 
 
 def test_fused_step_on_gpu(gpu):
-    """entry(): the fused step through K1, K6, K3, K4 and K7 equals its
-    plain version at 1080p, the wrapped int32 sum and the frame."""
+    """entry(): the fused step through K1, K6, the loop-filter kernel (V
+    luma edges and SAO in one launch) and K7 equals its plain version at
+    1080p, the wrapped int32 sum and the frame."""
     from libhm_tpu_torch import entry as E
     from libhm_tpu_torch.ops import checksum as CK
-    from libhm_tpu_torch.ops import deblock as DK
     from libhm_tpu_torch.ops import interp as MK
-    from libhm_tpu_torch.ops import sao as SK
+    from libhm_tpu_torch.ops import loopfilter as LF
     from libhm_tpu_torch.ops import transform as TK
-    kernels = (TK._K1, MK._K6, DK._K3_LUMA, SK._K4, CK._K7)
+    kernels = (TK._K1, MK._K6, LF._LF, CK._K7)
     fn, args = E.entry(device=gpu)
     before = [k.launches for k in kernels]
     s, f = fn(*args)
     torch.cuda.synchronize()
-    assert [k.launches - b for k, b in zip(kernels, before)] == \
-        [2, 1, 1, 1, 1]
+    assert [k.launches - b for k, b in zip(kernels, before)] == [2, 1, 1, 1]
     s_p, f_p = E.fused_recon_step_plain(*args)
     assert int(s) == int(s_p) and torch.equal(f, f_p)
     assert not torch.equal(f, args[4])
 
 
 def test_decode_intra_batch_on_gpu(gpu):
-    from libhm_tpu_torch.ops import deblock as DK
     from libhm_tpu_torch.ops import intra as IK
-    from libhm_tpu_torch.ops import sao as SK
+    from libhm_tpu_torch.ops import loopfilter as LF
     from libhm_tpu_torch.ops import transform as TK
     from libhm_tpu_torch.parallel.batch_decode import decode_intra_batch
-    kernels = (TK._K1, IK._K2, DK._K3_LUMA, DK._K3_CHROMA, SK._K4)
+    kernels = (TK._K1, IK._K2, LF._LF)
     for k in kernels:
         k.launches = 0
     name = "intra_416x240"
@@ -730,3 +742,41 @@ def test_decode_intra_batch_on_gpu(gpu):
     assert [dp.hash_status for dp in dps] == ["OK"] * len(dps)
     assert all(k.launches > 0 for k in kernels)
     assert IK._K2.launches <= 3 * _dag_levels(name)
+    assert LF._LF.launches == _dag_levels(name) == 1
+
+
+# the loop-filter kernel's level cases: (lf_cases.level_case arguments)
+LF_CASES = {
+    "level_1080p": dict(B=3, Hp=1088, Wp=1920, H=1080, W=1920, bd_l=10,
+                        log2_ctb=6),
+    "chroma12": dict(Hp=256, Wp=448, H=240, W=416, bd_l=12, log2_ctb=6),
+    "rext422": dict(B=2, Hp=128, Wp=192, H=120, W=184, chroma=2, bd_l=10,
+                    log2_ctb=5),
+    "rext444": dict(B=2, Hp=128, Wp=192, H=120, W=184, chroma=3, bd_l=10,
+                    log2_ctb=4),
+    "sao_off": dict(B=2, Hp=128, Wp=192, H=124, W=180, sao=False,
+                    offsets=False),
+    "multi": dict(B=2, Hp=128, Wp=256, H=120, W=248, bd_l=10, log2_ctb=5,
+                  multi=True),
+    "one_cta": dict(Hp=32, Wp=32, H=28, W=24, chroma=0, log2_ctb=5)}
+
+
+@pytest.mark.parametrize("case", sorted(LF_CASES))
+def test_loop_filter_level_kernel(gpu, case):
+    """The loop-filter kernel == loop_filter_level_plain (V, H and SAO of
+    every component of the level in one launch), 20 launches
+    bit-identical, the input planes untouched."""
+    from lf_cases import level_case
+    from libhm_tpu_torch.ops import loopfilter as LF
+    rng = np.random.default_rng(sorted(LF_CASES).index(case))
+    planes, maps, kw = level_case(rng, device=gpu, **LF_CASES[case])
+    keep = [p.clone() for p in planes]
+    want = LF.loop_filter_level_plain(planes, maps, **kw)
+    n0 = LF._LF.launches
+    for _ in range(20):
+        got = LF.loop_filter_level(planes, maps, **kw)
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert LF._LF.launches == n0 + 20
+    assert all(torch.equal(p, k) for p, k in zip(planes, keep))
+    assert any(not torch.equal(w, k) for w, k in zip(want, keep))

@@ -128,9 +128,10 @@ def test_cuda_tables_equal_numpy():
                                   t["dst4"].ravel())
     np.testing.assert_array_equal(
         _cuda_table("residual.cu", "kInvQuantScales"), t["inv_quant_scales"])
-    np.testing.assert_array_equal(_cuda_table("deblock.cu", "kBeta"),
+    np.testing.assert_array_equal(_cuda_table("loopfilter.cu", "kBeta"),
                                   t["beta"])
-    np.testing.assert_array_equal(_cuda_table("deblock.cu", "kTc"), t["tc"])
+    np.testing.assert_array_equal(_cuda_table("loopfilter.cu", "kTc"),
+                                  t["tc"])
     np.testing.assert_array_equal(_cuda_table("intra.cu", "kAng"),
                                   np.asarray(ANG_TABLE))
     np.testing.assert_array_equal(_cuda_table("mc.cu", "kLumaFilter"),
@@ -148,9 +149,9 @@ def test_wrappers_refuse_cpu_tensors():
 def test_build_rule_sees_every_source():
     from libhm_tpu_torch.kernels import build
     names = sorted(os.path.basename(s) for s in build._sources())
-    assert names == ["ccp.cu", "checksum.cu", "deblock.cu", "errors.cu",
-                     "intra.cu", "mc.cu", "pcm.cu", "probe.cu", "residual.cu",
-                     "sao.cu"]
+    assert names == ["ccp.cu", "checksum.cu", "errors.cu", "intra.cu",
+                     "loopfilter.cu", "mc.cu", "pcm.cu", "probe.cu",
+                     "residual.cu"]
     assert build.LIB_PATH.startswith(os.path.join(PKG, "_build"))
 
 

@@ -25,6 +25,11 @@ result line is not printed):
     five kernel runs each against one plain run, luma also with a grid of
     one CTA, beside its chain-depth bound: the levels times one dependent
     L2 round trip, measured by a one-thread pointer chase (csrc/probe.cu);
+    K6 on a seeded 1080p level of random per-4x4 MVs and on one of 8x8 to
+    64x64 PUs (tests/mc_cases.py), 20 launches bit-identical with the
+    luma rows grouped by tile beforehand and 20 on the rows as they come,
+    with its device time queued behind a sleep; K7 over 51 cropped 1080p views, its
+    device time and no upload;
     K4's multi form with the tool stream's slice/tile maps, K8 and K9 on a
     seeded mask and block table at 1920x1088, K3 chroma's int16-tc form on
     a 12-bit 960x544 plane, K10 (cross-component prediction) on two
@@ -65,16 +70,20 @@ result line is not printed):
       hash SEI OK, K1-K4;
     - entry()'s fused recon step at 1080p (K1, K6, the loop-filter
       kernel with V + SAO, K7) equal to its plain version, sum and frame,
-      timed (row 16);
+      timed (row 16), with K6's and K7's device time in one step
+      (torch.profiler);
     - testdata/randomaccess_main10_1080p.bin through
       parallel.dag_decode.decode_batch(device="cuda"): golden MD5, K1-K5
       launched; the inputs K1 and K5 get on its level with the most
       pictures are kept, and both kernels are then held against their
       plain versions on them and timed (the decode's own coefficients,
       TU tables, MV maps and reference planes);
-    - testdata/wp_lowdelayP_416x240.bin the same way: golden MD5, K6;
+    - testdata/wp_lowdelayP_416x240.bin the same way: golden MD5, K6's
+      launches and its device time summed over a second decode
+      (torch.profiler, device events only);
     - decode_batch_device on the 1080p RA stream: its checksum equals
-      cropped_checksum of the decoded pictures, K7 launched, 4 bytes down;
+      cropped_checksum of the decoded pictures, K7 launched once, nothing
+      uploaded for it, 4 bytes down; the H2D memcpy count of a second run;
     - the all-intra 1080p and 416x240 streams: golden MD5, K1-K4;
     - testdata/tools_main10_1080p.bin (6 slices, 2 tiles, scaling lists;
       testdata/port_streams.json) through decode_batch(device="cuda",
@@ -237,6 +246,32 @@ def device_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_events(fn):
+    """(fn()'s result, {event name: (device us, count)}) over one run of fn()
+    under torch.profiler, device-side events only (kernels, memcpys,
+    memsets): a CPU op's row carries the device time of what it launched,
+    so summing every row would count that work twice."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        out = fn()
+        torch.cuda.synchronize()
+    dev = {}
+    for e in p.key_averages():
+        us = getattr(e, "self_device_time_total", 0)
+        if us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
+            dev[e.key] = (us, e.count)
+    return out, dev
+
+
+def dev_sum(dev, part):
+    """(device ms, events) of the events whose name holds `part`."""
+    hits = [v for k, v in dev.items() if part in k]
+    return sum(us for us, _ in hits) / 1e3, sum(n for _, n in hits)
 
 
 def max_abs_err(a, b):
@@ -1030,59 +1065,109 @@ def check_k5(card, rng, bd=10, comps=COMPS, B=LEVEL_B):
     return r
 
 
+def _k6_work(blk, refs, is_luma, sx, sy):
+    """(bytes, operations) of K6 on a block table: the reference planes,
+    each block's residual read and samples written (int32) and the table;
+    each list's filter (_mc_list_ops) and ~10 epilogue operations a
+    sample."""
+    from libhm_tpu_torch.ops import interp as MK
+    per_blk = (4 >> sx) * (4 >> sy)
+    taps, fbx, fby = MK._filter_args(is_luma, sx, sy)
+    t = blk.long().cpu()
+    ops = sum(_mc_list_ops((t[:, 4 + 2 * l] & ((1 << fbx) - 1)) != 0,
+                           (t[:, 5 + 2 * l] & ((1 << fby) - 1)) != 0,
+                           (t[:, 3] & (1 << l)) != 0, taps)
+              for l in range(2)) + 10
+    nbytes = refs.numel() * 4 + len(t) * per_blk * 8 + t.numel() * 4
+    return nbytes, int(ops.sum()) * per_blk
+
+
+def _k6_case(label, blk, planes, kw, card):
+    """K6 on one block table, 20 launches each bit-identical to the plain
+    version: with the rows as the decode hands them (luma grouped by tile
+    beforehand; enqueue rate and device time) and as they come (luma
+    grouped on the device; enqueue rate).  Returns (max error, ms, plain
+    ms, bytes, operations)."""
+    import torch
+    from libhm_tpu_torch.ops import interp as MK
+    stacked, res, refs = planes
+    B, Hp, Wp = stacked.shape
+    rows, groups = blk, None
+    if kw["is_luma"]:
+        rows, groups = MK.tile_groups(blk, B=B, Hp=Hp, Wp=Wp)
+    want = stacked.clone()
+    MK.mc_weighted_plain(want, res, refs, blk, **kw)
+    err = 0
+    got = stacked.clone()
+
+    def run(table, grp):
+        MK.mc_weighted(got, res, refs, table, groups=grp, **kw)
+    for table, grp in ((rows, groups), (blk, None)):
+        for _ in range(20):
+            got.copy_(stacked)
+            run(table, grp)
+            torch.cuda.synchronize()
+            err = max(err, max_abs_err(got, want))
+    bms = cuda_ms(lambda: run(rows, groups), 20)
+    dms = device_ms(lambda: run(rows, groups), 20)
+    ams = cuda_ms(lambda: run(blk, None), 20)
+    pms = cuda_ms(lambda: MK.mc_weighted_plain(want, res, refs, blk, **kw), 2)
+    nbytes, ops = _k6_work(blk, refs, kw["is_luma"], kw["sx"], kw["sy"])
+    # (run starts past the last row are padding)
+    runs = "in any order" if groups is None else \
+        f"in {int((groups < len(blk)).sum())} tile runs"
+    log(f"K6 mc_weighted {label}: {len(blk)} blocks {runs}, denom "
+        f"{kw['denom']}: max error {err} over 20 launches a table; kernel "
+        f"{bms:.4f} ms (device {dms:.4f} ms), rows as they come (luma "
+        f"grouped on the device) {ams:.4f} ms, plain {pms:.4f} ms; bound "
+        f"{max(nbytes / HBM_BPS, ops / CORE_OPS) * 1e3:.5f} ms ({card})")
+    return err, bms, pms, nbytes, ops
+
+
 def check_k6(card, rng, bd=10, denom=6):
-    """K6 (weighted epilogue) on every inter 4x4 of a 1080p level."""
+    """K6 (weighted epilogue) on every inter 4x4 of a 1080p level of random
+    per-4x4 MVs (row 8), then on a PU-shaped 1080p level of 8x8 to 64x64
+    PUs (tests/mc_cases.py pu_maps), whose error joins the row's."""
     import numpy as np
     import torch
     from libhm_tpu_torch.ops import interp as MK
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from mc_cases import block_table, pu_maps
     r = Result()
+    maps = pu_maps(rng, LEVEL_B, LEVEL_R, COMPS[0][3], COMPS[0][4],
+                   sizes=(16, 8, 4, 2))
     for is_luma, sx, sy, Hp, Wp, H, W in COMPS:
         stacked, res, refs, mv, dirm, sel = _mc_inputs(rng, bd, Hp, Wp, H, W)
         d = dirm[:, :COMPS[0][5] // 4, :COMPS[0][6] // 4].cpu().numpy()
         b, ys4, xs4 = np.nonzero(d)
         N = len(b)
-        mvn = mv.cpu().numpy()[b, ys4, xs4].reshape(N, 4)
-        sn = sel.cpu().numpy()[b, ys4, xs4]
         blk = np.zeros((N, len(MK.BLK_FIELDS)), np.int32)
         blk[:, 0], blk[:, 1], blk[:, 2] = b, (xs4 << 2) >> sx, (ys4 << 2) >> sy
         blk[:, 3] = d[b, ys4, xs4]
-        blk[:, 4:8], blk[:, 8:10] = mvn, sn
+        blk[:, 4:8] = mv.cpu().numpy()[b, ys4, xs4].reshape(N, 4)
+        blk[:, 8:10] = sel.cpu().numpy()[b, ys4, xs4]
         blk[:, 10:12] = rng.integers(-128, 256, (N, 2))
         blk[:, 12:14] = rng.integers(-128, 128, (N, 2)) << (bd - 8)
-        blk_dev = torch.from_numpy(blk).to(DEV)
         kw = dict(is_luma=is_luma, sx=sx, sy=sy, bd=bd, wp=True, denom=denom,
                   W=W, H=H)
-        got, want = stacked.clone(), stacked.clone()
-        MK.mc_weighted(got, res, refs, blk_dev, **kw)
-        MK.mc_weighted_plain(want, res, refs, blk_dev, **kw)
-        torch.cuda.synchronize()
-        e = max_abs_err(got, want)
-        bms = cuda_ms(lambda: MK.mc_weighted(got, res, refs, blk_dev, **kw),
-                      20)
-        pms = cuda_ms(lambda: MK.mc_weighted_plain(want, res, refs, blk_dev,
-                                                   **kw), 2)
-        per_blk = (4 >> sx) * (4 >> sy)
-        taps, fbx, fby = MK._filter_args(is_luma, sx, sy)
-        t = torch.from_numpy(blk).long()
-        ops = sum(_mc_list_ops((t[:, 4 + 2 * l] & ((1 << fbx) - 1)) != 0,
-                               (t[:, 5 + 2 * l] & ((1 << fby) - 1)) != 0,
-                               (t[:, 3] & (1 << l)) != 0, taps)
-                  for l in range(2)) + 10
-        nbytes = refs.numel() * 4 + N * per_blk * 8 + blk.nbytes
-        log(f"K6 mc_weighted {'luma' if is_luma else 'chroma'} {(Hp, Wp)} "
-            f"blocks={N} denom={denom}: mismatches="
-            f"{int((got != want).sum())} kernel {bms:.4f} ms, plain "
-            f"{pms:.4f} ms ({card})")
-        r.add(e, bms, pms, nbytes, int(ops.sum()) * per_blk)
+        comp = f"{'luma' if is_luma else 'chroma'} {(Hp, Wp)}"
+        r.add(*_k6_case(f"{comp} per-4x4 MVs",
+                        torch.from_numpy(blk).to(DEV), (stacked, res, refs),
+                        kw, card))
+        pu = torch.from_numpy(block_table(maps, sx, sy, bd, past=False))
+        r.err = max(r.err, _k6_case(f"{comp} PUs 8x8-64x64", pu.to(DEV),
+                                    (stacked, res, refs), kw, card)[0])
     return r
 
 
 def check_k7(card, rng, npics=17, bd=10):
-    """K7 over the cropped output planes of a 17-picture 1080p stream,
-    against its plain version and the library sum."""
+    """K7 over the cropped output planes of a 17-picture 1080p stream (51
+    views, one launch), against its plain version and the library sum;
+    nothing is uploaded."""
     import numpy as np
     import torch
     from libhm_tpu_torch.ops import checksum as CK
+    from libhm_tpu_torch.utils import xfer
     r = Result()
     views = []
     for Hp, Wp, H, W in ((1088, 1920, 1080, 1920), (544, 960, 540, 960),
@@ -1090,18 +1175,26 @@ def check_k7(card, rng, npics=17, bd=10):
         planes = torch.from_numpy(rng.integers(
             0, 1 << bd, (npics, Hp, Wp)).astype(np.int32)).to(DEV)
         views += [planes[b, :H, :W] for b in range(npics)]
+    xfer.reset()
+    n0 = CK._K7.launches
     got = int(CK.plane_checksum(views).item()) & 0xFFFFFFFF
+    launches = CK._K7.launches - n0
+    if xfer.H2D or "checksum" in xfer.BY_TAG or launches != 1:
+        raise AssertionError(f"K7: {launches} launches, uploads "
+                             f"{xfer.BY_TAG}")
     want = int(CK.plane_checksum_plain(views).item())
     lib = [v.sum(dtype=torch.int64) for v in views]
     lib = int(sum(int(s.item()) for s in lib)) & 0xFFFFFFFF
     bms = cuda_ms(lambda: CK.plane_checksum(views), 20)
+    dms = device_ms(lambda: CK.plane_checksum(views), 20)
     pms = cuda_ms(lambda: CK.plane_checksum_plain(views), 5)
     r.library_ms = cuda_ms(
         lambda: [v.sum(dtype=torch.int64) for v in views], 5)
     n = sum(v.numel() for v in views)
     log(f"K7 plane_checksum {len(views)} views, {n} samples: kernel {got}, "
-        f"plain {want}, library {lib}; kernel {bms:.4f} ms, plain {pms:.4f} "
-        f"ms, view.sum(dtype=torch.int64) per view {r.library_ms:.4f} ms "
+        f"plain {want}, library {lib}; {launches} launch, no upload; kernel "
+        f"{bms:.4f} ms (device {dms:.4f} ms), plain {pms:.4f} ms, "
+        f"view.sum(dtype=torch.int64) per view {r.library_ms:.4f} ms "
         f"({card})")
     r.add(abs(got - want) + abs(got - lib), bms, pms, n * 4 + len(views) * 32,
           n)
@@ -1133,6 +1226,9 @@ def check_fused(card):
     e = max(abs(int(s) - int(s_p)), max_abs_err(f, f_p))
     bms = cuda_ms(lambda: fn(*args), 20)
     pms = cuda_ms(lambda: E.fused_recon_step_plain(*args), 3)
+    _, dev = device_events(lambda: fn(*args))
+    (k6_ms, _), (k7_ms, _) = (dev_sum(dev, k) for k in (
+        "mc_weighted", "checksum_kernel"))
     # every input read once, the frame and the sum written once; of the two
     # reference frames only what MC reads: each 16x16 block, on both lists,
     # reads a (16 + 7)^2 window of int32 samples
@@ -1144,7 +1240,9 @@ def check_fused(card):
     log(f"row 16 fused_recon_step (1088x1920, 256 16x16 + 1024 4x4 "
         f"blocks): sum {int(s)} (plain {int(s_p)}), frame mismatches "
         f"{int((f != f_p).sum())}; launches {launches}; kernel {bms:.4f} ms"
-        f", plain {pms:.4f} ms, {nbytes} bytes: bound "
+        f" (host-bound; device time of one step under torch.profiler: K6 "
+        f"{k6_ms:.4f} ms, K7 {k7_ms:.4f} ms), plain {pms:.4f} ms, {nbytes} "
+        f"bytes: bound "
         f"{nbytes / HBM_BPS * 1e3:.4f} ms ({card})")
     r = Result()
     r.add(e, bms, pms, nbytes, 0)
@@ -1265,7 +1363,6 @@ def breakdown(data, card):
     import cProfile
     import pstats
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from libhm_tpu_torch.hostdec.decoder import Decoder
     from libhm_tpu_torch.parallel import batch_decode as TB
     from libhm_tpu_torch.parallel import dag_decode as DD
@@ -1323,20 +1420,9 @@ def breakdown(data, card):
     TK._K1.launches = MK._K5.launches = LF._LF.launches = 0
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as p:
-        DD._recon_levels(its, cuda)
-        torch.cuda.synchronize()
+    _, dev = device_events(lambda: DD._recon_levels(its, cuda))
     wall = time.monotonic() - t0
     k1_k5 = (TK._K1.launches, MK._K5.launches, LF._LF.launches)
-    # device-side events only (kernels, memcpys, memsets): a CPU op's row
-    # carries the device time of what it launched, so summing every row
-    # counts that work twice
-    dev = {}
-    for e in p.key_averages():
-        us = getattr(e, "self_device_time_total", 0)
-        if us > 0 and str(getattr(e, "device_type", "")).endswith("CUDA"):
-            dev[e.key] = (us, e.count)
     total = sum(us for us, _ in dev.values())
     log(f"breakdown ({card}): recon under torch.profiler {wall:.3f} s; "
         f"device time (kernel, memcpy and memset events only) "
@@ -1346,13 +1432,9 @@ def breakdown(data, card):
     for key, (us, cnt) in sorted(dev.items(), key=lambda kv: -kv[1][0])[:14]:
         log(f"  {key[:60]:60s} {us / 1e3:9.3f} ms  ({cnt}) "
             f"{us / total:6.1%}")
-
-    def dev_sum(part):
-        hits = [v for k, v in dev.items() if part in k]
-        return sum(us for us, _ in hits) / 1e3, sum(n for _, n in hits)
     (k1_ms, k1_n), (k5_ms, k5_n), (lf_ms, lf_n), (h2d_ms, h2d_n) = (
-        dev_sum(k) for k in ("residual_table_kernel", "mc_grid_kernel",
-                             "loop_filter_kernel", "HtoD"))
+        dev_sum(dev, k) for k in ("residual_table_kernel", "mc_grid_kernel",
+                                  "loop_filter_kernel", "HtoD"))
     log(f"breakdown ({card}): K1 {k1_k5[0]} launches, {k1_ms:.3f} ms device "
         f"({k1_n} kernels seen); K5 {k1_k5[1]} launches, {k5_ms:.3f} ms "
         f"device ({k5_n} seen); loop filter (K3 + K4) {k1_k5[2]} launches, "
@@ -1784,8 +1866,12 @@ def main():
                      single_pass})
     (n, _), counts = run_path(f"{WP} decode_batch",
                               lambda: decode_md5(WP, gold), ["mc_weighted"])
-    log(f"{WP}: {n} pictures, MD5 matches golden")
     launches["mc_weighted"] = counts["mc_weighted"]
+    _, dev = device_events(lambda: decode_md5(WP, gold))
+    k6_ms, k6_n = dev_sum(dev, "mc_weighted")
+    log(f"{WP}: {n} pictures, MD5 matches golden; K6 {counts['mc_weighted']}"
+        f" launches, {k6_ms:.4f} ms device over the decode ({k6_n} kernels "
+        f"seen under torch.profiler) ({card})")
 
     xfer.reset()
     (parse_s, comp_s, csum, n), counts = run_path(
@@ -1793,14 +1879,21 @@ def main():
         lambda: DD.decode_batch_device(data, device="cuda"),
         k1_k4 + ["mc_grid", "plane_checksum"])
     want = DD.cropped_checksum(ra_outs)
-    if csum != want or n != npics or xfer.D2H != 4:
+    if csum != want or n != npics or xfer.D2H != 4 or \
+            "checksum" in xfer.BY_TAG or counts["plane_checksum"] != 1:
         raise AssertionError(f"decode_batch_device: checksum {csum} vs "
-                             f"{want}, {n} pictures, {xfer.D2H} bytes down")
+                             f"{want}, {n} pictures, {xfer.D2H} bytes down, "
+                             f"uploads {xfer.BY_TAG}, "
+                             f"{counts['plane_checksum']} K7 launches")
     launches["plane_checksum"] = counts["plane_checksum"]
+    _, dev = device_events(lambda: DD.decode_batch_device(data, device="cuda"))
+    h2d_n = dev_sum(dev, "HtoD")[1]
     log(f"decode_batch_device {STREAM} ({card}): checksum {csum} equals "
         f"cropped_checksum; parse {parse_s:.3f} s, device recon + checksum "
         f"{comp_s:.3f} s, {n / (parse_s + comp_s):.2f} fps, D2H "
-        f"{xfer.D2H} bytes, H2D {xfer.H2D / n / 1e6:.3f} MB/picture")
+        f"{xfer.D2H} bytes, H2D {xfer.H2D / n / 1e6:.3f} MB/picture by tag "
+        f"{sorted(xfer.BY_TAG)}; K7 1 launch; H2D memcpy {h2d_n} (a second "
+        "run, torch.profiler)")
     del ra_outs
 
     for name in (INTRA,) + SMALL:

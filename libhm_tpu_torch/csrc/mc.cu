@@ -30,8 +30,22 @@
 //   straight from the reference plane; every staged form measured was
 //   slower there (PERF.md section 6).  Each thread stores its own sample,
 //   coalesced.
-// K6 computes each sample directly (predict<TAPS>: every tap's coordinate
-//   clamped, read through __ldg), one thread per sample of its 4x4 blocks.
+// K6's design: the component picks the kernel.  Luma takes the same tiles
+//   and forms as K5 over a block table whose rows come grouped by 16 x
+//   16-sample tile (ops/interp.py tile_groups: index preparation, on the
+//   host for the decode, on the device for rows in any order).  Each CTA
+//   walks tile runs with a grid stride and copies the next chunk's rows
+//   into shared memory (cp.async) while it filters the current one; one
+//   vote says whether the rows sit on the tile's cell grid and share one
+//   PU (direction, MVs, references and, when weighted, weights and
+//   offsets), and the threads map onto the tile's samples: one window a
+//   list for a PU (form a), one a cell and list where enough cells filter
+//   both ways (form b), direct prediction otherwise (form c); rows off the
+//   grid are predicted directly, one thread a sample.  Chroma takes no
+//   shared memory and no runs: one thread a sample of the rows in any
+//   order, each field read where it is used; the tiled forms were slower
+//   there (PERF.md section 6).  The epilogue's constants are computed once
+//   a CTA; nothing divides by a runtime value per sample.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -164,22 +178,33 @@ struct Geom {
 
 // Copy both lists' windows of every used slot into win[2][ns][wh][ww]
 // (cp.async, 4 bytes each); where a slot's fraction is 0 in a direction,
-// only the samples that direction's copy reads.
+// only the samples that direction's copy reads.  One work item is a part
+// of a window row: its source row's address is computed once and each
+// column clamped, so the index arithmetic is paid per row part, not per
+// sample (the per-sample form was 13% slower for K6's luma and 5% for K5's
+// on the card, PERF.md section 6)
 template <int TAPS, int SW, int SH, class Get>
 __device__ __forceinline__ void stage(Get slot, int* win,
                                       const int32_t* __restrict__ refs,
                                       long long plane, int H, int W) {
   using G = Geom<TAPS, SW, SH>;
-  for (int e = threadIdx.x; e < 2 * G::ns * G::wn; e += kThreads) {
-    const int k = e / G::wn, rem = e - k * G::wn;
-    const int r = rem / G::ww, c = rem - r * G::ww;
+  constexpr int kRows = 2 * G::ns * G::wh;
+  constexpr int kParts = kRows >= kThreads ? 1 : kThreads / kRows;
+  constexpr int kCols = (G::ww + kParts - 1) / kParts;
+  for (int it = threadIdx.x; it < kRows * kParts; it += kThreads) {
+    const int row = it / kParts, part = it - row * kParts;
+    const int k = row / G::wh, r = row - k * G::wh;
     const Slot s = slot(k);
-    if (!(s.f & 1)) continue;
-    if ((!(s.f & 0x1e) && (c < G::half || c >= G::half + SW)) ||
-        (!(s.f >> 5) && (r < G::half || r >= G::half + SH)))
+    if (!(s.f & 1) || (!(s.f >> 5) && (r < G::half || r >= G::half + SH)))
       continue;
-    const int gy = clampi(s.iy + r, 0, H - 1), gx = clampi(s.ix + c, 0, W - 1);
-    cp_async4(win + e, refs + s.ref * plane + (long long)gy * W + gx);
+    const bool hx = (s.f & 0x1e) != 0;
+    const int c0 = max(part * kCols, hx ? 0 : G::half);
+    const int c1 = min((part + 1) * kCols, hx ? G::ww : G::half + SW);
+    const int32_t* src =
+        refs + s.ref * plane + (long long)clampi(s.iy + r, 0, H - 1) * W;
+    int* dst = win + k * G::wn + r * G::ww;
+    for (int c = c0; c < c1; ++c)
+      cp_async4(dst + c, src + clampi(s.ix + c, 0, W - 1));
   }
 }
 
@@ -408,58 +433,300 @@ void launch_grid(dim3 grid, cudaStream_t s, void* stacked, const void* res,
 enum { kB, kX, kY, kDir, kMv0x, kMv0y, kMv1x, kMv1y, kSel0, kSel1, kW0, kW1,
        kO0, kO1, kFields };
 
-template <int TAPS>
-__global__ void mc_weighted_kernel(int32_t* __restrict__ stacked,
-                                   const int32_t* __restrict__ res,
-                                   const int32_t* __restrict__ refs,
-                                   const int32_t* __restrict__ blk, int N,
-                                   int B, int Hp, int Wp, int R, int H, int W,
-                                   int fbx, int fby, int blkw, int blkh,
-                                   int bd, int wp, int denom) {
-  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const int per = blkw * blkh;
-  if (gid >= (long long)N * per) return;
-  const int32_t* q = blk + (gid / per) * kFields;
-  const int rem = (int)(gid % per);
-  const int b = q[kB];
-  const int y = q[kY] + rem / blkw;
-  const int x = q[kX] + rem % blkw;
-  // blocks past the plane are dropped, as the JAX scatter's mode="drop"
-  if (b < 0 || b >= B || y < 0 || y >= Hp || x < 0 || x >= Wp) return;
+// the lists a row's epilogue reads: bi (3) both, 1 list 0, any other
+// direction list 1, as the plain version's torch.where picks them
+__device__ __forceinline__ bool uses(int d, int l) {
+  return l == 0 ? (d == 1 || d == 3) : d != 1;
+}
+
+// the plain (uni_round / bi_average) or weighted (ops/interp.py
+// weighted_uni / weighted_bi) epilogue of one sample of row q
+__device__ __forceinline__ int epilogue(const int* q, const int p[2], int bd,
+                                        int headroom, int maxs, int wp,
+                                        int denom) {
   const int d = q[kDir];
-  const int headroom = max(2, kIfPrec - bd);
-  const int maxs = (1 << bd) - 1;
-  const long long plane = (long long)H * W;
-  int p[2] = {0, 0};
-#pragma unroll
-  for (int l = 0; l < 2; ++l) {
-    if (d == 3 || d == l + 1) {
-      const int r = clampi(q[kSel0 + l], 0, R - 1);
-      p[l] = predict<TAPS>(refs + r * plane, H, W, y, x, q[kMv0x + 2 * l],
-                           q[kMv0y + 2 * l], fbx, fby, headroom);
-    }
-  }
-  int pred;
-  if (!wp) {
-    pred = d == 3 ? bi_average(p[0], p[1], bd, maxs)
+  if (!wp)
+    return d == 3 ? bi_average(p[0], p[1], bd, maxs)
                   : uni_round(d == 1 ? p[0] : p[1], headroom, maxs);
-  } else if (d == 3) {
-    // ops/interp.py weighted_bi
+  if (d == 3) {
     const int shift = denom + 1 + headroom;
     const int v = (q[kW0] * (p[0] + kIfOffs) + q[kW1] * (p[1] + kIfOffs) +
                    (1 << (shift - 1)) + (q[kO0] + q[kO1]) * (1 << (shift - 1)))
                   >> shift;
-    pred = clampi(v, 0, maxs);
-  } else {
-    // ops/interp.py weighted_uni
-    const int l = d == 1 ? 0 : 1;
-    const int shift = denom + headroom;
-    const int v = ((q[kW0 + l] * (p[l] + kIfOffs) + (1 << (shift - 1))) >> shift)
-                  + q[kO0 + l];
-    pred = clampi(v, 0, maxs);
+    return clampi(v, 0, maxs);
   }
+  const int l = d == 1 ? 0 : 1;
+  const int shift = denom + headroom;
+  const int v = ((q[kW0 + l] * (p[l] + kIfOffs) + (1 << (shift - 1))) >> shift)
+                + q[kO0 + l];
+  return clampi(v, 0, maxs);
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// wait until at most `n` of the newest committed copy groups are pending
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(n));
+}
+
+// copy rows [c0, c0 + n) of the block table into dst (cp.async)
+__device__ __forceinline__ void load_rows(int* dst,
+                                          const int32_t* __restrict__ blk,
+                                          int c0, int n) {
+  for (int e = threadIdx.x; e < n * kFields; e += kThreads)
+    cp_async4(dst + e, blk + (long long)c0 * kFields + e);
+}
+
+// K6's luma kernel holds 64 registers a thread, four CTAs an SM: two,
+// three or six CTAs (128, 80 or 40 registers) were slower on the card
+constexpr int kK6Ctas = 4;
+
+// K6 for luma: the rows of a block table grouped by 16 x 16-sample tile
+// (ops/interp.py tile_groups: grp[g] is the first row of tile run g, runs
+// past the last start at N).  Each CTA takes runs with a grid stride and
+// each run in chunks of up to 16 rows, read into shared memory while the
+// chunk before is filtered (two buffers).  A chunk whose blocks sit on the
+// 4 x 4 grid of its first row's tile maps its threads onto that tile's
+// samples and takes one form: (a) every row shares the first one's
+// direction, MVs, references and, when weighted, weights and offsets: one
+// window per list for the tile; (b) at least kCellsHv rows filter a list
+// both ways: one window per cell and list; (c) otherwise each sample
+// straight from the reference plane.  Forms (a) and (b) stage with
+// cp.async and filter separably, as K5 does.  Any other chunk predicts
+// each row's samples directly.
+__global__ void __launch_bounds__(kThreads, kK6Ctas)
+mc_weighted_luma_kernel(int32_t* __restrict__ stacked,
+                        const int32_t* __restrict__ res,
+                        const int32_t* __restrict__ refs,
+                        const int32_t* __restrict__ blk,
+                        const int32_t* __restrict__ grp, int N, int G, int B,
+                        int Hp, int Wp, int R, int H, int W, int bd, int wp,
+                        int denom) {
+  constexpr int TAPS = 8, CW = 4, CH = 4;     // 8 taps on 4 x 4 cells
+  constexpr int kFb = 2, kFrac = 3;           // quarter-pel MVs
+  using C = Geom<TAPS, CW, CH>;               // one slot a cell
+  using T = Geom<TAPS, kTile, kTile>;         // one slot for the tile
+  constexpr int half = C::half, per = CW * CH, ns = C::ns;
+  static_assert(ns * per == kThreads, "a chunk fills the CTA");
+  constexpr int kWin = 2 * (ns * C::wn > T::wn ? ns * C::wn : T::wn);
+  constexpr int kHor = 2 * (ns * C::hn > T::hn ? ns * C::hn : T::hn);
+  constexpr int kPhases = 4;                  // filter phases
+  constexpr int kWarps = kThreads / 32;
+  __shared__ int s_win[kWin];
+  __shared__ int s_hor[kHor];
+  __shared__ Slot s_slot[2 * ns];
+  __shared__ int s_row[2][ns * kFields];      // this chunk's, the next's
+  __shared__ int s_cell[2][ns];               // tile cell -> chunk row
+  __shared__ unsigned s_vote[3][kWarps];
+  __shared__ int s_taps[TAPS * kPhases];
+  const int t = threadIdx.x, lane = t % 32, warp = t / 32;
+  if (t < TAPS * kPhases) s_taps[t] = kLumaFilter[t / TAPS][t % TAPS];
+  const int headroom = max(2, kIfPrec - bd), maxs = (1 << bd) - 1;
+  const int s1 = 6 - headroom, o1 = -(kIfOffs << s1);
+  const long long plane = (long long)H * W;
+  // list l's slot for a window at (y0, x0) - half of row q
+  auto make_slot = [&](const int* q, int l, int y0, int x0) {
+    const int mx = q[kMv0x + 2 * l], my = q[kMv0y + 2 * l];
+    return Slot{y0 + (my >> kFb) - half, x0 + (mx >> kFb) - half,
+                clampi(q[kSel0 + l], 0, R - 1),
+                (int)uses(q[kDir], l) | (mx & kFrac) << 1 | (my & kFrac) << 5};
+  };
+  auto direct = [&](const int* q, int l, int y, int x) {
+    return predict<TAPS>(refs + clampi(q[kSel0 + l], 0, R - 1) * plane, H,
+                         W, y, x, q[kMv0x + 2 * l], q[kMv0y + 2 * l], kFb,
+                         kFb, headroom);
+  };
+  int g = blockIdx.x;
+  if (g >= G) return;
+  int c0 = grp[g], g1 = min(grp[g + 1], N);   // this chunk, its run's end
+  if (c0 >= N) return;                        // runs past the last one
+  load_rows(s_row[0], blk, c0, min(ns, g1 - c0));
+  cp_async_commit();
+  for (int buf = 0;; buf ^= 1) {
+    const int n = min(ns, g1 - c0);
+    // the next chunk: the rest of this run, or the CTA's next run
+    int nc0 = c0 + ns, ng1 = g1;
+    if (nc0 >= g1) {
+      g += gridDim.x;
+      nc0 = N;
+      if (g < G) {
+        nc0 = grp[g];
+        ng1 = min(grp[g + 1], N);
+      }
+    }
+    int* cell = s_cell[buf];
+    if (t < ns) cell[t] = -1;
+    cp_async_wait<0>();
+    __syncthreads();          // the rows have landed, the last chunk is done
+    const int* rows = s_row[buf];
+    const int* q0 = rows;
+    const int ty0 = (q0[kY] >> 4) << 4, tx0 = (q0[kX] >> 4) << 4;
+    // does this thread's row sit on the tile's cell grid, share the first
+    // row's PU, filter a list both ways
+    bool fits = true, same = true, hv = false;
+    if (t < n) {
+      const int* q = rows + t * kFields;
+      const int cy = q[kY] - ty0, cx = q[kX] - tx0;
+      fits = q[kB] == q0[kB] && cy >= 0 && cy < kTile && cx >= 0 &&
+             cx < kTile && cy % CH == 0 && cx % CW == 0;
+      if (fits) cell[(cy / CH) * (kTile / CW) + cx / CW] = t;
+      same = q[kDir] == q0[kDir];
+#pragma unroll
+      for (int l = 0; l < 2; ++l) {
+        if (!uses(q[kDir], l)) continue;
+        same = same && q[kMv0x + 2 * l] == q0[kMv0x + 2 * l] &&
+               q[kMv0y + 2 * l] == q0[kMv0y + 2 * l] &&
+               q[kSel0 + l] == q0[kSel0 + l] &&
+               (!wp || (q[kW0 + l] == q0[kW0 + l] &&
+                        q[kO0 + l] == q0[kO0 + l]));
+        hv = hv || ((q[kMv0x + 2 * l] & kFrac) && (q[kMv0y + 2 * l] & kFrac));
+      }
+    }
+    {
+      const unsigned vf = __ballot_sync(0xffffffffu, fits);
+      const unsigned vs = __ballot_sync(0xffffffffu, same);
+      const unsigned vh = __ballot_sync(0xffffffffu, hv);
+      if (lane == 0) {
+        s_vote[0][warp] = vf;
+        s_vote[1][warp] = vs;
+        s_vote[2][warp] = vh;
+      }
+    }
+    __syncthreads();
+    bool tiled = true, tile_pu = true;
+    int cells_hv = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      tiled = tiled && s_vote[0][w] == 0xffffffffu;
+      tile_pu = tile_pu && s_vote[1][w] == 0xffffffffu;
+      cells_hv += __popc(s_vote[2][w]);
+    }
+    tile_pu = tile_pu && tiled;
+    const bool cells = tiled && !tile_pu && cells_hv >= kCellsHv;
+    // this thread's sample: on the tile's grid, or of its own row
+    int r, y, x, k = 0;
+    if (tiled) {
+      const int ty = t / kTile, tx = t % kTile;
+      k = (ty / CH) * (kTile / CW) + tx / CW;
+      r = cell[k];
+      y = ty0 + ty;
+      x = tx0 + tx;
+    } else {
+      r = t / per < n ? t / per : -1;
+      y = rows[max(r, 0) * kFields + kY] + (t % per) / CW;
+      x = rows[max(r, 0) * kFields + kX] + (t % per) % CW;
+    }
+    const int* q = rows + max(r, 0) * kFields;
+    const int b = r >= 0 ? q[kB] : -1;
+    // samples past the plane are dropped, as the JAX scatter's mode="drop"
+    const bool out = b >= 0 && b < B && y >= 0 && y < Hp && x >= 0 &&
+                     x < Wp;
+    const long long o = ((long long)b * Hp + y) * Wp + x;
+    const int rv = out ? res[o] : 0;          // in flight during the staging
+    Slot ts[2];
+#pragma unroll
+    for (int l = 0; l < 2; ++l) ts[l] = make_slot(q0, l, ty0, tx0);
+    auto tile_slot = [&](int l) { return l ? ts[1] : ts[0]; };
+    auto cell_slot = [&](int j) { return s_slot[j]; };
+    if (cells) {
+      if (t < 2 * ns) {
+        const int cr = cell[t % ns];
+        s_slot[t] = cr >= 0 ? make_slot(rows + cr * kFields, t / ns,
+                                        rows[cr * kFields + kY],
+                                        rows[cr * kFields + kX])
+                            : Slot{0, 0, 0, 0};
+      }
+      __syncthreads();
+      stage<TAPS, CW, CH>(cell_slot, s_win, refs, plane, H, W);
+    } else if (tile_pu) {
+      stage<TAPS, kTile, kTile>(tile_slot, s_win, refs, plane, H, W);
+    }
+    cp_async_commit();
+    // the next chunk's rows load while this one filters
+    if (nc0 < N) load_rows(s_row[buf ^ 1], blk, nc0, min(ns, ng1 - nc0));
+    cp_async_commit();
+    if (tile_pu || cells) {
+      cp_async_wait<1>();
+      __syncthreads();
+      if (tile_pu)
+        horizontal<TAPS, kTile, kTile>(tile_slot, s_win, s_hor, s_taps, o1,
+                                       s1);
+      else
+        horizontal<TAPS, CW, CH>(cell_slot, s_win, s_hor, s_taps, o1, s1);
+      __syncthreads();
+    }
+    if (out) {
+      int p[2] = {0, 0};
+#pragma unroll
+      for (int l = 0; l < 2; ++l) {
+        if (!uses(q[kDir], l)) continue;
+        if (tile_pu)
+          p[l] = vertical<TAPS, kTile, kTile>(ts[l], l, s_hor, y - ty0,
+                                              x - tx0, s_taps, o1, s1,
+                                              headroom);
+        else if (cells)
+          p[l] = vertical<TAPS, CW, CH>(s_slot[l * ns + k], l * ns + k, s_hor,
+                                        (y - ty0) % CH, (x - tx0) % CW,
+                                        s_taps, o1, s1, headroom);
+        else
+          p[l] = direct(q, l, y, x);
+      }
+      stacked[o] = clampi(epilogue(q, p, bd, headroom, maxs, wp, denom) + rv,
+                          0, maxs);
+    }
+    if (nc0 >= N) break;
+    c0 = nc0;
+    g1 = ng1;
+  }
+}
+
+// K6 for chroma: one thread a sample of the rows, in any order, with no
+// shared memory and no barrier; each field of a row is read where it is
+// used.  The tiled forms' per-chunk barriers cost more than the 4 taps
+// they save (PERF.md section 6).
+template <int CW, int CH>
+__global__ void __launch_bounds__(kThreads)
+mc_weighted_chroma_kernel(int32_t* __restrict__ stacked,
+                          const int32_t* __restrict__ res,
+                          const int32_t* __restrict__ refs,
+                          const int32_t* __restrict__ blk, int N, int B,
+                          int Hp, int Wp, int R, int H, int W, int fbx,
+                          int fby, int bd, int wp, int denom) {
+  constexpr int per = CW * CH;
+  const long long gid = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (gid >= (long long)N * per) return;
+  const int32_t* q = blk + (gid / per) * kFields;
+  const int s = (int)(gid % per);
+  const int b = q[kB], y = q[kY] + s / CW, x = q[kX] + s % CW;
+  // samples past the plane are dropped, as the JAX scatter's mode="drop"
+  if (b < 0 || b >= B || y < 0 || y >= Hp || x < 0 || x >= Wp) return;
+  const int headroom = max(2, kIfPrec - bd), maxs = (1 << bd) - 1;
+  const long long plane = (long long)H * W;
+  int p[2] = {0, 0};
+#pragma unroll
+  for (int l = 0; l < 2; ++l)
+    if (uses(q[kDir], l))
+      p[l] = predict<4>(refs + clampi(q[kSel0 + l], 0, R - 1) * plane, H, W,
+                        y, x, q[kMv0x + 2 * l], q[kMv0y + 2 * l], fbx, fby,
+                        headroom);
   const long long o = ((long long)b * Hp + y) * Wp + x;
-  stacked[o] = clampi(pred + res[o], 0, maxs);
+  stacked[o] = clampi(epilogue(q, p, bd, headroom, maxs, wp, denom) + res[o],
+                      0, maxs);
+}
+
+template <int CW, int CH>
+void launch_chroma(cudaStream_t s, void* stacked, const void* res,
+                   const void* refs, const void* blk, int N, int B, int Hp,
+                   int Wp, int R, int H, int W, int fbx, int fby, int bd,
+                   int wp, int denom) {
+  const long long n = (long long)N * CW * CH;
+  mc_weighted_chroma_kernel<CW, CH>
+      <<<(unsigned)((n + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+          (int32_t*)stacked, (const int32_t*)res, (const int32_t*)refs,
+          (const int32_t*)blk, N, B, Hp, Wp, R, H, W, fbx, fby, bd, wp, denom);
 }
 
 }  // namespace
@@ -492,26 +759,47 @@ extern "C" int mc_grid(void* stacked, const void* res, const void* refs,
   return (int)cudaGetLastError();
 }
 
+// blk: N rows of kFields int32.  Luma (taps 8): the rows in tile order
+// and grp, G + 1 int32 tile run starts (ops/interp.py tile_groups); a grid
+// of at most kCtasPerSm CTAs an SM (or `ctas`, when > 0) walks the runs.
+// Chroma (taps 4): one thread a sample of the rows in any order; grp, G and
+// ctas unread.
 extern "C" int mc_weighted(void* stacked, const void* res, const void* refs,
-                           const void* blk, int N, int B, int Hp, int Wp,
-                           int R, int H, int W, int taps, int fbx, int fby,
-                           int bd, int wp, int denom, void* stream) {
-  const int blkw = 4 >> (fbx - 2), blkh = 4 >> (fby - 2);
-  const long long n = (long long)N * blkw * blkh;
-  if (n == 0) return 0;
-  const int threads = 256;
-  const unsigned blocks = (unsigned)((n + threads - 1) / threads);
+                           const void* blk, const void* grp, int N, int G,
+                           int B, int Hp, int Wp, int R, int H, int W,
+                           int taps, int fbx, int fby, int bd, int wp,
+                           int denom, int ctas, void* stream) {
+  if (N == 0) return 0;
   auto s = (cudaStream_t)stream;
-  if (taps == 8)
-    mc_weighted_kernel<8><<<blocks, threads, 0, s>>>(
+  if (taps == 8) {
+    if (fbx != 2 || fby != 2 || G < 1 || grp == nullptr)
+      return (int)cudaErrorInvalidValue;
+    constexpr int kCtasPerSm = 8;
+    int dev = 0, sms = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    const int most = ctas > 0 ? ctas : kCtasPerSm * max(sms, 1);
+    mc_weighted_luma_kernel<<<max(1, min(G, most)), kThreads, 0, s>>>(
         (int32_t*)stacked, (const int32_t*)res, (const int32_t*)refs,
-        (const int32_t*)blk, N, B, Hp, Wp, R, H, W, fbx, fby, blkw, blkh, bd,
-        wp, denom);
-  else if (taps == 4)
-    mc_weighted_kernel<4><<<blocks, threads, 0, s>>>(
-        (int32_t*)stacked, (const int32_t*)res, (const int32_t*)refs,
-        (const int32_t*)blk, N, B, Hp, Wp, R, H, W, fbx, fby, blkw, blkh, bd,
-        wp, denom);
+        (const int32_t*)blk, (const int32_t*)grp, N, G, B, Hp, Wp, R, H, W,
+        bd, wp, denom);
+    return (int)cudaGetLastError();
+  }
+  const auto args = [&](auto fn) {
+    fn(s, stacked, res, refs, blk, N, B, Hp, Wp, R, H, W, fbx, fby, bd, wp,
+       denom);
+  };
+  const int cw = 4 >> (fbx - 2), ch = 4 >> (fby - 2);
+  if (taps != 4)
+    return (int)cudaErrorInvalidValue;
+  else if (cw == 2 && ch == 2)
+    args(launch_chroma<2, 2>);
+  else if (cw == 2 && ch == 4)
+    args(launch_chroma<2, 4>);
+  else if (cw == 4 && ch == 4)
+    args(launch_chroma<4, 4>);
+  else if (cw == 4 && ch == 2)
+    args(launch_chroma<4, 2>);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();

@@ -6,7 +6,8 @@ the port's kernels:
 
     16x16 DCT and 4x4 DST residual buckets     K1 residual_scatter
     16x16 bi-predicted MC + residual, clipped  K6 mc_weighted (plain
-                                               epilogue, per 4x4 block)
+                                               epilogue, 4x4 blocks in
+                                               one run per 16x16 block)
     one vertical luma deblocking pass, then    K3 + K4 loop_filter_level
     SAO of the frame (BO and the EO classes)   (one launch, mask V + SAO)
     int32 sum of the 4x4 residuals and frame   K7 plane_checksum
@@ -130,7 +131,9 @@ def _step(k, coeffs16, qp16, coeffs4, qp4, frame, refs, sel, bx, by, mv, bs,
                   n=4, use_dst=True, tskip=False, bd=BD)
     # bi-prediction of each 16x16 block as its sixteen 4x4 blocks (every
     # sample is predicted from its own position, so the split changes
-    # nothing), both lists on `sel`, + residual, clipped, into the frame
+    # nothing), both lists on `sel`, + residual, clipped, into the frame;
+    # each 16x16 block's rows are one run (one tile of K6 where the block
+    # sits on the 16-sample grid, as make_inputs puts it)
     out = frame.to(torch.int32).clone().reshape(1, H, W)
     off = torch.arange(0, 16, 4, device=dev, dtype=torch.int32)
     blk = torch.zeros((nb16, 4, 4, len(MK.BLK_FIELDS)), **i32)
@@ -140,7 +143,8 @@ def _step(k, coeffs16, qp16, coeffs4, qp4, frame, refs, sel, bx, by, mv, bs,
     blk[..., 4:8] = mv.to(torch.int32).reshape(nb16, 1, 1, 4)
     blk[..., 8] = blk[..., 9] = sel.to(torch.int32)[:, None, None]
     k["mc"](out, res16, refs.to(torch.int32), blk.reshape(-1, blk.shape[-1]),
-            is_luma=True, sx=0, sy=0, bd=BD, wp=False, denom=0, W=W, H=H)
+            is_luma=True, sx=0, sy=0, bd=BD, wp=False, denom=0, W=W, H=H,
+            groups=torch.arange(0, 16 * nb16 + 1, 16, **i32))
     # vertical luma deblocking: each segment's bs and qp on the even 4x4
     # columns of the per-4x4 maps (the odd ones hold no vertical edge)
     bsn = torch.zeros((1, H // 4, W // 4), dtype=torch.uint8, device=dev)

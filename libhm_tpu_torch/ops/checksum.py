@@ -4,16 +4,17 @@ The uint32 sum (mod 2^32) of a set of cropped 2-D int32 views: what
 libhm_tpu/parallel/dag_decode.py decode_batch_device computes on the device
 so that only 4 bytes come back.  `plane_checksum` runs csrc/checksum.cu for
 CUDA views and the plain int64 sum for CPU views; either way it returns a
-one-element tensor on the views' device, still to be downloaded.
+one-element tensor on the views' device, still to be downloaded.  The
+kernel takes its view table as a launch parameter, MAX_VIEWS views a
+launch: nothing is uploaded.
 """
 import numpy as np
 import torch
 
 from ..kernels.build import I, P, Kernel
-from ..utils import xfer
 
-_K7 = Kernel("plane_checksum", [P, P, I, I])
-_BLOCKS_PER_VIEW = 64
+_K7 = Kernel("plane_checksum", [P, I, P, I])
+MAX_VIEWS = 64                # views one launch takes (csrc/checksum.cu)
 
 
 def plane_checksum_plain(views):
@@ -22,6 +23,29 @@ def plane_checksum_plain(views):
     for v in views:
         total = total + v.sum(dtype=torch.int64)
     return (total & 0xFFFFFFFF).reshape(1)
+
+
+def view_chunks(views):
+    """The launches' view tables: the {pointer, row stride, rows, cols} of
+    every view that holds a sample, in order, as host int64 arrays of at
+    most MAX_VIEWS rows each.  Raises unless every view is a 2-D int32
+    tensor with unit column stride on the first one's device."""
+    dev = views[0].get_device()
+    rows = []
+    for v in views:
+        if v.dtype is not torch.int32 or v.dim() != 2 or \
+                v.get_device() != dev:
+            raise ValueError("plane_checksum: views must be 2-D int32 "
+                             "tensors on one device")
+        h, w = v.shape
+        if h and w:
+            stride = v.stride()
+            if stride[1] != 1:
+                raise ValueError("plane_checksum: views need unit column "
+                                 "stride")
+            rows.append((v.data_ptr(), stride[0], h, w))
+    table = np.array(rows, np.int64).reshape(-1, 4)
+    return [table[i:i + MAX_VIEWS] for i in range(0, len(table), MAX_VIEWS)]
 
 
 def plane_checksum(views):
@@ -34,15 +58,11 @@ def plane_checksum(views):
         raise ValueError("plane_checksum: no views")
     if not views[0].is_cuda:
         return plane_checksum_plain(views)
-    dev = views[0].device
-    table = []
-    for v in views:
-        if not v.is_cuda or v.device != dev or v.dtype != torch.int32 or \
-                v.dim() != 2 or (v.numel() and v.stride(1) != 1):
-            raise ValueError("plane_checksum: views must be 2-D int32 CUDA "
-                             "tensors on one device with unit column stride")
-        table.append([v.data_ptr(), v.stride(0), v.shape[0], v.shape[1]])
-    table = xfer.up(np.asarray(table, np.int64), "checksum", dev)
-    acc = torch.zeros(1, dtype=torch.int32, device=dev)
-    _K7(table.data_ptr(), acc.data_ptr(), len(views), _BLOCKS_PER_VIEW)
+    chunks = view_chunks(views)
+    acc = torch.empty(1, dtype=torch.int32, device=views[0].device)
+    if not chunks:
+        return acc.zero_()
+    # the first launch zeroes the word, every launch adds to it
+    for i, table in enumerate(chunks):
+        _K7(table.ctypes.data, len(table), acc.data_ptr(), int(i == 0))
     return acc

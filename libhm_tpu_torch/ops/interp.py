@@ -12,12 +12,14 @@ phase-plane gather, whose MC_MARGIN apron is what per-tap clamping gives.
     mc_grid      every inter sample of one component of a level, driven by
                  per-4x4 MV / direction / reference maps (K5, csrc/mc.cu)
     mc_weighted  a list of 4x4 blocks with the plain or the weighted
-                 (WP) uni/bi epilogue (K6, csrc/mc.cu)
+                 (WP) uni/bi epilogue (K6, csrc/mc.cu), its luma rows
+                 grouped by 16x16-sample tile (tile_groups)
 
 Both write the predicted-plus-residual samples into the stacked planes in
 place: csrc/mc.cu for CUDA planes, the plain torch versions for CPU planes.
 Integer arithmetic throughout; signed `>>` is arithmetic, as in JAX.
 """
+import numpy as np
 import torch
 
 from ..kernels.build import I, P, Kernel, check, ptr
@@ -237,15 +239,61 @@ def mc_grid(stacked, res, refs, mv, dirm, sel, *, is_luma, sx, sy, bd, W,
 
 # ---------------------------------------------------------------------------
 # K6: MC of a list of 4x4 blocks, plain or weighted epilogue
-_K6 = Kernel("mc_weighted", [P, P, P, P] + [I] * 13)
+_K6 = Kernel("mc_weighted", [P, P, P, P, P] + [I] * 15)
+TILE = 16                     # samples a side of K6's tiles (csrc/mc.cu kTile)
+
+
+def tile_groups(blk, *, B, Hp, Wp):
+    """K6's grouping of a block table by 16x16-sample tile of the
+    component: (rows, groups).
+
+    blk: a tensor, grouped on its device, or a numpy array (the decode's
+    host tables: numpy's sort is cheaper there than torch's CPU one); rows
+    and groups come back as the same kind.  rows: blk's rows ordered by
+    (picture, tile row, tile column, y, x); groups: int32, the first row of
+    each tile's run, then N: [G + 1] for numpy arrays and CPU tensors,
+    [N + 1] padded with N for CUDA ones (counting the runs would wait for
+    the device).  Rows of pictures or tiles beyond the plane (blocks the
+    kernel drops) share border runs.  Index preparation only.
+    """
+    N = blk.shape[0]
+    host = isinstance(blk, np.ndarray)
+    if N == 0:
+        return blk, np.zeros(1, np.int32) if host else \
+            torch.zeros(1, dtype=torch.int32, device=blk.device)
+    b, x, y = (blk[:, i].astype(np.int64) if host else blk[:, i].long()
+               for i in range(3))
+    clip = np.clip if host else torch.clamp
+    nty = (Hp + TILE - 1) // TILE + 2
+    ntx = (Wp + TILE - 1) // TILE + 2
+    tile = ((clip(b, -1, B) + 1) * nty + clip(y // TILE, -1, nty - 2) +
+            1) * ntx + clip(x // TILE, -1, ntx - 2) + 1
+    key = (tile * TILE + y % TILE) * TILE + x % TILE
+    if host:
+        order = np.argsort(key, kind="stable")
+        tile = tile[order]
+        starts = np.flatnonzero(np.r_[True, tile[1:] != tile[:-1]])
+        return blk[order], np.r_[starts, N].astype(np.int32)
+    dev = blk.device
+    key, order = torch.sort(key, stable=True)
+    tile = key // (TILE * TILE)
+    start = torch.ones(N, dtype=torch.bool, device=dev)
+    start[1:] = tile[1:] != tile[:-1]
+    run = torch.cumsum(start, 0) - 1
+    groups = torch.full((N + 1,), N, dtype=torch.int64, device=dev)
+    groups.scatter_reduce_(0, run, torch.arange(N, device=dev), "amin")
+    if not blk.is_cuda:
+        groups = groups[:int(run[-1]) + 2]
+    return blk[order], groups.to(torch.int32)
 
 
 def mc_weighted_plain(stacked, res, refs, blk, *, is_luma, sx, sy, bd, wp,
-                      denom, W, H):
+                      denom, W, H, groups=None):
     """Plain torch version of mc_weighted (any device), in place.
 
     Computes what libhm_tpu/parallel/dag_decode.py _mc_scatter_fn computes
-    (epi "wp" when wp, else "plain").
+    (epi "wp" when wp, else "plain").  Blocks do not overlap, so neither
+    the order of the rows nor their runs (`groups`, not read) matter.
     """
     taps, fbx, fby = _filter_args(is_luma, sx, sy)
     dev = stacked.device
@@ -279,7 +327,7 @@ def mc_weighted_plain(stacked, res, refs, blk, *, is_luma, sx, sy, bd, wp,
 
 
 def mc_weighted(stacked, res, refs, blk, *, is_luma, sx, sy, bd, wp, denom,
-                W, H):
+                W, H, groups=None, _ctas=0):
     """MC + residual add for a list of 4x4 blocks of one component, in
     place.
 
@@ -287,7 +335,14 @@ def mc_weighted(stacked, res, refs, blk, *, is_luma, sx, sy, bd, wp, denom,
     int32 rows of BLK_FIELDS (picture, block position in the component,
     direction, MVs, reference indices, WP weights and offsets, the offsets
     already scaled by 1 << (bd - 8)).  wp: weighted epilogue with log2
-    denominator `denom`, else the default one.
+    denominator `denom`, else the default one.  The component picks the
+    kernel: luma takes its rows in runs (groups: int32 starts of runs of
+    consecutive rows, then N; any partition of the rows is right, and runs
+    of one 16x16 tile each, as tile_groups makes them, are what its
+    shared-memory forms need; None groups the rows by tile here, on their
+    device); chroma takes one thread a sample of the rows in any order and
+    reads no groups.  _ctas > 0 caps the luma kernel's grid (a test of its
+    grid-stride walk).
     """
     if not stacked.is_cuda:
         return mc_weighted_plain(stacked, res, refs, blk, is_luma=is_luma,
@@ -304,7 +359,16 @@ def mc_weighted(stacked, res, refs, blk, *, is_luma, sx, sy, bd, wp, denom,
             R < 1 or blk.shape[1] != len(BLK_FIELDS) or \
             not 8 <= bd <= 12 or not 0 <= denom <= 7:
         raise ValueError("mc_weighted: inconsistent shapes")
+    if not is_luma:
+        groups = None
+    elif groups is None:
+        blk, groups = tile_groups(blk, B=B, Hp=Hp, Wp=Wp)
+    else:
+        check(groups, "groups", torch.int32, 1, dev)
+        if blk.shape[0] and groups.shape[0] < 2:
+            raise ValueError("mc_weighted: groups holds no run")
     taps, fbx, fby = _filter_args(is_luma, sx, sy)
-    _K6(ptr(stacked), ptr(res), ptr(refs), ptr(blk), blk.shape[0], B, Hp,
-        Wp, R, H, W, taps, fbx, fby, bd, int(wp), denom)
+    _K6(ptr(stacked), ptr(res), ptr(refs), ptr(blk), ptr(groups),
+        blk.shape[0], 0 if groups is None else groups.shape[0] - 1, B, Hp,
+        Wp, R, H, W, taps, fbx, fby, bd, int(wp), denom, _ctas)
     return stacked

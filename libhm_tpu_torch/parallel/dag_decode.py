@@ -199,12 +199,29 @@ def _inter_level(items, stacked_all, res_all, device):
     return _inter_level_gathered(items, stacked_all, res_all, device)
 
 
+def _tile_nonzero(mask):
+    """np.nonzero of a per-4x4 map, in the order of K6's luma tiles (16x16
+    samples, then raster inside each), so that IK.tile_groups finds a
+    level's luma rows already sorted (any order is right; this one makes
+    the host's sort a linear pass)."""
+    n = IK.TILE // 4
+    h4, w4 = mask.shape
+    m = np.zeros((-(-h4 // n) * n, -(-w4 // n) * n), bool)
+    m[:h4, :w4] = mask
+    m = m.reshape(m.shape[0] // n, n, m.shape[1] // n, n)
+    ty, tx, y, x = np.nonzero(m.transpose(0, 2, 1, 3))
+    return ty * n + y, tx * n + x
+
+
 def _inter_level_gathered(items, stacked_all, res_all, device):
     """Per-block MC for a level with weighted prediction (K6).
 
     Port of libhm_tpu/parallel/dag_decode.py _inter_level_gathered; the
     host map building is copied from it.  Blocks go in one launch per
-    (component, epilogue, denominator) group, as the JAX dispatch groups.
+    (component, epilogue, denominator) group, as the JAX dispatch groups;
+    the blocks listed tile by tile (_tile_nonzero), luma's rows grouped by
+    16x16 tile with the tile runs appended to the same upload
+    (IK.tile_groups).
     """
     sps0 = items[0]["sps"]
     ncomp = 3 if sps0.chroma_format_idc else 1
@@ -218,7 +235,7 @@ def _inter_level_gathered(items, stacked_all, res_all, device):
             per_pic.append(None)
             continue
         pocs = pocs_of[b]
-        ys4, xs4 = np.nonzero(inter4)
+        ys4, xs4 = _tile_nonzero(inter4)
         dirm = np.asarray(pic.inter_dir)[ys4, xs4].astype(np.int32)
         mv = np.asarray(pic.mv)[ys4, xs4].astype(np.int32)
         refpoc = np.asarray(pic.ref_poc)[ys4, xs4]
@@ -282,10 +299,19 @@ def _inter_level_gathered(items, stacked_all, res_all, device):
                     [per_pic[b]["wpo"][per_pic[b]["ys4"],
                                        per_pic[b]["xs4"]][:, :, c]
                      for b in bs]) * (1 << (bd - 8))
-            IK.mc_weighted(stacked_all[c], res_all[c], refs,
-                           xfer.up(blk, "mc", device), is_luma=c == 0,
-                           sx=sx, sy=sy, bd=bd, wp=epi == "wp", denom=denom,
-                           W=W, H=H)
+            if c == 0:
+                # luma's kernel reads the rows in tile runs; chroma's takes
+                # them in any order
+                Bp, Hp, Wp = stacked_all[c].shape
+                rows, runs = IK.tile_groups(blk, B=Bp, Hp=Hp, Wp=Wp)
+                buf = xfer.up(np.concatenate([rows.ravel(), runs]), "mc",
+                              device)
+                table, runs = buf[:blk.size].view(blk.shape), buf[blk.size:]
+            else:
+                table, runs = xfer.up(blk, "mc", device), None
+            IK.mc_weighted(stacked_all[c], res_all[c], refs, table,
+                           groups=runs, is_luma=c == 0, sx=sx, sy=sy,
+                           bd=bd, wp=epi == "wp", denom=denom, W=W, H=H)
 
 
 def _pcm_level(items, stacked, device):

@@ -126,7 +126,7 @@ def diff_traces(path_a, path_b):
 def main(argv=None):
     argv = argv if argv is not None else sys.argv[1:]
     if len(argv) != 2:
-        print("usage: python -m libhm_tpu.utils.trace <traceA> <traceB>")
+        print("usage: python -m libhm_tpu_torch.utils.trace <traceA> <traceB>")
         return 2
     d = diff_traces(argv[0], argv[1])
     if d is None:

@@ -322,46 +322,68 @@ def test_mc_grid_kernel(gpu, is_luma, bd, sx, sy):
 
 @pytest.mark.parametrize("wp", [True, False])
 @pytest.mark.parametrize("is_luma,bd,sx,sy", [(True, 8, 0, 0),
-                                              (False, 10, 1, 1)])
+                                              (False, 10, 1, 1),
+                                              (False, 8, 1, 0),
+                                              (False, 12, 0, 0)])
 def test_mc_weighted_kernel(gpu, is_luma, bd, sx, sy, wp):
+    """K6 on a PU-shaped level (mc_cases: luma tiles of every form, rows
+    off the cell grid and past the plane, MVs far past every edge): rows
+    in raster order (luma grouped on the device), grouped on the host, a
+    one-CTA grid, a one-tile table and a one-row table, each 20 launches
+    bit-identical to the plain version; luma refuses runs that hold no
+    row."""
+    from mc_cases import block_table, pu_maps
     from libhm_tpu_torch.ops import interp as MK
     rng = np.random.default_rng(4 + bd)
     a = _mc_inputs(rng, bd, sx=sx, sy=sy)
     B, hp, wpad = a["stacked"].shape
-    N = 200
-    blk = np.zeros((N, len(MK.BLK_FIELDS)), np.int32)
-    cell = rng.choice(B * (96 // 4) * (128 // 4), N, replace=False)
-    blk[:, 0] = cell // (24 * 32)
-    blk[:, 1] = ((cell % 32) << 2) >> sx
-    blk[:, 2] = (((cell // 32) % 24) << 2) >> sy
-    blk[:, 3] = rng.integers(1, 4, N)
-    blk[:, 4:8] = rng.integers(-400, 401, (N, 4))
-    blk[:, 8:10] = rng.integers(0, 4, (N, 2))
-    blk[:, 10:12] = rng.integers(-128, 256, (N, 2))
-    blk[:, 12:14] = rng.integers(-128, 128, (N, 2)) << (bd - 8)
-    args = [a[k].to(gpu) for k in ("stacked", "res", "refs")] + \
-        [torch.from_numpy(blk).to(gpu)]
-    for denom in (0, 3, 7):
+    blk = block_table(pu_maps(rng, B, 4, 96, 128), sx, sy, bd)
+    rows, groups = MK.tile_groups(torch.from_numpy(blk), B=B, Hp=hp, Wp=wpad)
+    one_tile = rows[:int(groups[1])]
+    args = [a[k].to(gpu) for k in ("stacked", "res", "refs")]
+    for denom in ((0, 3, 7) if wp else (0,)):
         kw = dict(is_luma=is_luma, sx=sx, sy=sy, bd=bd, wp=wp, denom=denom,
                   W=a["W"], H=a["H"])
-        got, want = args[0].clone(), args[0].clone()
-        MK.mc_weighted_plain(want, *args[1:], **kw)
-        MK.mc_weighted(got, *args[1:], **kw)
-        torch.cuda.synchronize()
-        assert torch.equal(got, want), denom
+        cases = [(torch.from_numpy(blk), None, 0), (rows, groups, 0),
+                 (rows, groups, 1), (torch.from_numpy(blk), None, 1),
+                 (one_tile, None, 0), (rows[5:6], None, 0)]
+        for table, grp, ctas in cases:
+            table = table.to(gpu)
+            want = args[0].clone()
+            MK.mc_weighted_plain(want, args[1], args[2], table, **kw)
+            n0 = MK._K6.launches
+            for _ in range(20):
+                got = args[0].clone()
+                MK.mc_weighted(got, args[1], args[2], table,
+                               groups=None if grp is None else grp.to(gpu),
+                               _ctas=ctas, **kw)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (denom, ctas, len(table))
+            assert MK._K6.launches == n0 + 20
+    if is_luma:
+        with pytest.raises(ValueError, match="no run"):
+            MK.mc_weighted(args[0].clone(), args[1], args[2],
+                           rows.to(gpu), groups=groups[:1].to(gpu), **kw)
 
 
-def test_checksum_kernel(gpu):
+@pytest.mark.parametrize("n", [1, 51, 65, 130])
+def test_checksum_kernel(gpu, n):
+    """K7 over n crops of 1088x1920 planes at every column offset mod 4
+    (misaligned rows), with an empty crop among them, one launch per
+    MAX_VIEWS views; the sum passes 2^32 from 2 views on."""
     from libhm_tpu_torch.ops import checksum as CK
-    rng = np.random.default_rng(6)
+    rng = np.random.default_rng(6 + n)
     planes = torch.from_numpy(rng.integers(0, 4096, (3, 1088, 1920))
                               .astype(np.int32)).to(gpu)
-    views = [planes[b, 4:1084, 8:1912] for b in range(3)] * 300
+    views = [planes[i % 3, i % 5:1084 - i % 7, i % 4:1913 + i % 3]
+             for i in range(n)]
+    views.insert(n // 2, planes[0, 7:7, 3:9])
     want = int(CK.plane_checksum_plain(views).item())
-    n0 = CK._K7.launches
-    got = int(CK.plane_checksum(views).item()) & 0xFFFFFFFF
-    assert CK._K7.launches == n0 + 1
-    assert got == want
+    for _ in range(20):
+        n0 = CK._K7.launches
+        got = int(CK.plane_checksum(views).item()) & 0xFFFFFFFF
+        assert CK._K7.launches == n0 + -(-n // CK.MAX_VIEWS)
+        assert got == want
 
 
 @pytest.mark.parametrize("name,kernel", [

@@ -172,8 +172,10 @@ def _hostdec_copies():
 # the copies that were changed: decoder.py replaces the JAX package's
 # recon="tpu" backend with recon="torch" (and its device argument),
 # native_bridge.py builds only the parser libraries, api.py and dec_app.py
-# default to recon="torch" on the card and take a device
-_EDITED = {"decoder.py", "native_bridge.py", "api.py", "dec_app.py"}
+# default to recon="torch" on the card and take a device, trace.py's usage
+# line names the port's module
+_EDITED = {"decoder.py", "native_bridge.py", "api.py", "dec_app.py",
+           "trace.py"}
 
 
 @pytest.mark.parametrize("rel,src,dst", list(_hostdec_copies()),

@@ -11,7 +11,8 @@ result line is not printed):
  1. card name and power limit (nvidia-smi); CUDA must be available;
  2. build the port's native host parser (libhm_tpu_torch/hostdec/native)
     and every kernel of csrc/ (one nvcc per source), all at once, timed;
- 3. K1-K10 against their plain torch versions on the card, at the shapes
+ 3. K1-K9 and K1's CCP epilogue (row 11, which was K10) against their
+    plain torch versions on the card, at the shapes
     of the 1080p main paths, on seeded inputs: exact equality, with both
     times, the bound (bytes or operations at the card's peak rates) and,
     for K7 and K8, the time of the library call that computes the same
@@ -30,11 +31,17 @@ result line is not printed):
     luma rows grouped by tile beforehand and 20 on the rows as they come,
     with its device time queued behind a sleep; K7 over 51 cropped 1080p views, its
     device time and no upload;
-    K4's multi form with the tool stream's slice/tile maps, K8 and K9 on a
-    seeded mask and block table at 1920x1088, K3 chroma's int16-tc form on
-    a 12-bit 960x544 plane, K10 (cross-component prediction) on two
-    1920x1088 4:4:4 residual planes with a seeded table of TUs over 30% of
-    the area; then K3 chroma, K4 and K5 chroma again at the RExt chroma
+    K4's multi form with the tool stream's slice/tile maps, K8 on a seeded
+    mask at 1920x1088, K9 in one launch on a seeded 1080p 4:2:0 level (luma
+    and both chroma planes, a PCM CU in about a third of the 32x32 cells;
+    tests/pcm_cases.py) and on a 4:2:2 one, with its device time beside
+    the byte bound, K3 chroma's int16-tc form on a 12-bit 960x544 plane,
+    K1's CCP epilogue on a seeded 1080p 4:4:4 chroma level (two pictures,
+    every 32x32 cell tiled with TUs of every mode, an alpha on 30% of them;
+    tests/ccp_cases.py), 20 launches bit-identical, against
+    residual_table_plain and against the table without alphas followed by
+    ccp_apply_plain, timed with and without its alphas; then K3 chroma, K4
+    and K5 chroma again at the RExt chroma
     geometries, 4:2:2 (960x1088, 32x64 chroma CTBs, 2x4 MC blocks) and
     4:4:4 (1920x1088), their errors joining those kernels' results (K3
     and K4 through their single-pass entry points); the loop-filter level
@@ -92,14 +99,18 @@ result line is not printed):
       decode_batch_device on it: the checksum of those pictures;
     - the slice, tile, PCM, lossless and scaling-list goldens and the PCM
       stream of port_streams.json: their MD5s, each with the launches of
-      the modes it needs (K1 scaled / bypass, SAO multi, K8, K9);
+      the modes it needs (K1 scaled / bypass, SAO multi, K8, K9), and on
+      pcm_port_416x240 (here and through HmDecoder) exactly one K9 launch
+      and one `pcm` upload for its one PCM level;
     - testdata/rext422_main10_1080p.bin (Main 4:2:2 10, I then P;
       port_streams.json) through decode_batch(check_sei_hash=True): its
       MD5, K1-K5 launched, and decode_batch_device: the checksum of those
       pictures;
     - the 13 RExt goldens (4:2:2, 4:4:4 with cross-component prediction,
-      4:0:0, 12 bits): their MD5s, with K10 on the CCP streams and the
-      loop filter's int16-tc form on the 12-bit one;
+      4:0:0, 12 bits): their MD5s, with K1's CCP epilogue on the CCP
+      streams (on rext444_randomaccess_416x240 one K1 launch with CCP rows
+      per chroma component of each level that has a CCP TU) and the loop
+      filter's int16-tc form on the 12-bit one;
     - decode_streams over two 4:2:0 streams of one geometry, one of them
       twice: each stream's MD5;
  5. timed runs of the RA stream, of the tool stream and of the 4:2:2
@@ -134,7 +145,7 @@ TOOL_SMALL = {"slices_416x240": ["loop_filter_multi"],
               "tiles_nolfcross_512x128": ["loop_filter_multi"],
               "pcm_intra_416x240": ["restore_unfiltered"],
               "pcm_reduceddepth_160x96": [],
-              "pcm_port_416x240": ["pcm_scatter"],
+              "pcm_port_416x240": ["pcm_level"],
               "lossless_intra_416x240": ["residual_bypass",
                                          "restore_unfiltered"],
               "scaling_intra_416x240": ["residual_scatter_scaled"],
@@ -146,10 +157,11 @@ REXT_SMALL = {"rext422_intra_416x240": ["loop_filter_level"],
               "rext422_lowdelayP_416x240": ["mc_grid"],
               "rext422_noRdoq_160x96": ["mc_grid"],
               "wpp422_ra_160x96": ["mc_grid"],
-              "intra_rext444_416x240": ["ccp_apply"],
-              "rext444_randomaccess_416x240": ["ccp_apply", "mc_grid"],
-              "ccp444_lowdelay_160x96": ["ccp_apply", "mc_grid"],
-              "ht_rext444_intra_160x96": ["ccp_apply"],
+              "intra_rext444_416x240": ["residual_table_ccp"],
+              "rext444_randomaccess_416x240": ["residual_table_ccp",
+                                               "mc_grid"],
+              "ccp444_lowdelay_160x96": ["residual_table_ccp", "mc_grid"],
+              "ht_rext444_intra_160x96": ["residual_table_ccp"],
               "mono_intra_416x240": ["loop_filter_level"],
               "mono_lowdelay_160x96": ["mc_grid"],
               "main12_intra_416x240": ["loop_filter_ctc16"],
@@ -169,9 +181,9 @@ PICTURE_SMALL = {"intra_64x64": [], "lowdelayP_416x240": ["mc_grid"],
                  "tiles_nolfcross_512x128": ["loop_filter_multi"],
                  "lossless_intra_416x240": ["residual_bypass",
                                             "restore_unfiltered"],
-                 "pcm_port_416x240": ["pcm_scatter"],
+                 "pcm_port_416x240": ["pcm_level"],
                  "scaling_intra_416x240": ["residual_scatter_scaled"],
-                 "ccp444_lowdelay_160x96": ["ccp_apply"],
+                 "ccp444_lowdelay_160x96": ["residual_table_ccp"],
                  "mono_lowdelay_160x96": ["mc_grid"],
                  "main12_intra_416x240": ["loop_filter_ctc16"],
                  "rext422_lowdelayP_416x240": ["mc_grid"]}
@@ -200,8 +212,13 @@ ROWS = (("row14", "_scan_fn per picture: intra_wavefront (K2), luma and "
 # that the tool stream does not run
 LAUNCHES_FROM = {"residual_bypass": "lossless_intra_416x240",
                  "restore_unfiltered": "lossless_intra_416x240",
-                 "pcm_scatter": "pcm_port_416x240",
-                 "ccp_apply": "rext444_randomaccess_416x240"}
+                 "pcm_level": "pcm_port_416x240",
+                 "residual_table_ccp": "rext444_randomaccess_416x240"}
+# streams whose PCM levels and K1 launches with CCP rows are counted
+# exactly: each level with a PCM block one K9 launch and one `pcm` upload,
+# each chroma component of a level with a CCP TU one K1 launch with CCP
+# rows
+EXACT = ("pcm_port_416x240", "rext444_randomaccess_416x240")
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and the
 # CUDA-core rate (67 TFLOP/s float32 outside the tensor cores; the table
@@ -615,59 +632,84 @@ def check_k3(card, rng, bd=10, sx=1, sy=1, with_luma=True):
     return out
 
 
-def ccp_table(rng, B, H, W, share=0.3):
-    """Seeded CCP TU table over B H x W 4:4:4 planes: a `share` of the
-    32x32 cells, each tiled by TUs of one size (4, 8, 16 or 32), every TU
-    with its own alpha in {+-1, +-2, +-4, +-8}.  Returns [M, 5] int32 rows
-    (b, y, x, n, alpha)."""
-    import numpy as np
-    cells = [(b, y, x) for b in range(B) for y in range(0, H, 32)
-             for x in range(0, W, 32)]
-    pick = rng.choice(len(cells), int(len(cells) * share), replace=False)
-    alphas = np.array([-8, -4, -2, -1, 1, 2, 4, 8])
-    rows = []
-    for k in pick:
-        b, y0, x0 = cells[k]
-        n = int(rng.choice((4, 8, 16, 32)))
-        for y in range(y0, y0 + 32, n):
-            for x in range(x0, x0 + 32, n):
-                rows.append((b, y, x, n, int(rng.choice(alphas))))
-    return np.asarray(rows, np.int32)
-
-
 def check_k10(card, rng, B=2, H=1088, W=1920):
-    """K10 on a 1080p 4:4:4 level: two 1920x1088 chroma and luma residual
-    planes, a seeded TU table over about 30% of the area (every TU size
-    and alpha), residuals over the whole int16 range so the clip acts."""
+    """Row 11, K1's CCP epilogue, on a 1080p 4:4:4 chroma level
+    (tests/ccp_cases.py): two 1920x1088 pictures, every 32x32 cell tiled
+    with TUs of one size (flat, transform skip, bypass with RDPCM, CCP-only
+    rows with zero coefficients), an alpha on every TU of 30% of the cells
+    (every size and alpha), the luma residual over the whole int16 range so
+    the clip acts.  One launch, 20 times bit-identical, against
+    residual_table_plain and against the table without alphas followed by
+    ccp_apply_plain (what the parent's K1 + K10 computed); timed with and
+    without its alphas."""
     import numpy as np
     import torch
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from ccp_cases import ccp_level
     from libhm_tpu_torch.ops import ccp as CK
-    tus_np = ccp_table(rng, B, H, W)
-    tus = torch.from_numpy(tus_np).to(DEV)
-    res_c = torch.from_numpy(rng.integers(-32768, 32768, (B, H, W))
-                             .astype(np.int32)).to(DEV)
-    res_l = torch.from_numpy(rng.integers(-32768, 32768, (B, H, W))
-                             .astype(np.int32)).to(DEV)
-    got, want = res_c.clone(), res_c.clone()
-    CK.ccp_apply(got, res_l, tus)
-    CK.ccp_apply_plain(want, res_l, tus)
-    torch.cuda.synchronize()
-    e = max_abs_err(got, want)
-    scratch = res_c.clone()
-    bms = cuda_ms(lambda: CK.ccp_apply(scratch, res_l, tus), 20)
-    pms = cuda_ms(lambda: CK.ccp_apply_plain(scratch, res_l, tus), 3)
-    samples = int((tus_np[:, 3].astype(np.int64) ** 2).sum())
-    sizes = {int(n): int((tus_np[:, 3] == n).sum()) for n in (4, 8, 16, 32)}
-    log(f"K10 ccp_apply {(B, H, W)} TUs={len(tus_np)} {sizes} samples="
-        f"{samples} ({samples / (B * H * W):.1%} of the area), alphas "
-        f"{sorted(set(tus_np[:, 4].tolist()))}: mismatches="
-        f"{int((got != want).sum())} (samples changed "
-        f"{int((want != res_c).sum())}) kernel {bms:.4f} ms, plain "
-        f"{pms:.4f} ms ({card})")
+    from libhm_tpu_torch.ops import transform as TK
+    from libhm_tpu_torch.parallel import batch_decode as TB
+    lv = ccp_level(rng, TK.TU_DTYPE, B, H, W, share=0.3)
+    rows = lv["rows"].copy()
+    rows["rdpcm"] |= TK.ccp_bits(lv["alpha"])
+    rows["flags"] |= np.where(lv["alpha"] != 0, TK.F_CCP, 0).astype(np.uint8)
+    table, bare = TB.upload_tables(
+        [(rows, lv["coeffs"], lv["counts"],
+          int(np.bitwise_or.reduce(rows["flags"]))),
+         (lv["rows"], lv["coeffs"], lv["counts"], lv["flags"])], DEV)
+    res_l = torch.from_numpy(lv["res_l"]).to(DEV)
+    tus = torch.from_numpy(lv["tus"]).to(DEV)
+
+    def zeros():
+        return torch.zeros((B, H, W), dtype=torch.int32, device=DEV)
+    want = TK.residual_table_plain(zeros(), table, res_l=res_l)
+    two = CK.ccp_apply_plain(TK.residual_table_plain(zeros(), bare), res_l,
+                             tus)
+    e = max_abs_err(want, two)
+    changed = int((two != TK.residual_table_plain(zeros(), bare)).sum())
+    got = zeros()
+    n0 = TK._K1_CCP.launches
+    for _ in range(20):
+        got.zero_()
+        TK.residual_table(got, table, res_l=res_l)
+        torch.cuda.synchronize()
+        e = max(e, max_abs_err(got, want))
+    if TK._K1_CCP.launches != n0 + 20:
+        raise AssertionError("K1 with CCP rows: launches not counted")
+
+    def with_ccp():
+        TK.residual_table(got, table, res_l=res_l)
+
+    def without():
+        TK.residual_table(got, bare)
+    # each twice, in turns: with, without, without, with
+    bms, b0ms, b0ms2, bms2 = (cuda_ms(f, 20) for f in (with_ccp, without,
+                                                       without, with_ccp))
+    dms, d0ms, d0ms2, dms2 = (device_ms(f, 20) for f in (with_ccp, without,
+                                                         without, with_ccp))
+    pms = cuda_ms(lambda: TK.residual_table_plain(got, table, res_l=res_l),
+                  3)
+    n = 1 << lv["rows"]["log2n"].astype(np.int64)
+    on = lv["alpha"] != 0
+    ccp_samples = int((n[on] ** 2).sum())
+    sizes = {int(k): int((n[on] == k).sum()) for k in (4, 8, 16, 32)}
+    nbytes, ops = _k1_work(rows)
+    nbytes += ccp_samples * 4           # the luma residual at CCP samples
+    ops += ccp_samples * 4              # multiply, shift, add, clip
+    log(f"K1 CCP epilogue {(B, H, W)}: {len(rows)} TUs, {int(on.sum())} with "
+        f"an alpha {sizes} over {ccp_samples} samples "
+        f"({ccp_samples / (B * H * W):.1%} of the area), alphas "
+        f"{sorted(set(lv['tus'][:, 4].tolist()))}: 20 launches, max abs err "
+        f"{e} ({changed} samples changed by CCP); enqueue rate: with "
+        f"alphas {bms:.4f} / {bms2:.4f} ms, "
+        f"without {b0ms:.4f} / {b0ms2:.4f} ms; device time (queued behind a "
+        f"sleep): with {dms:.4f} / {dms2:.4f} ms, without {d0ms:.4f} / "
+        f"{d0ms2:.4f} ms, the epilogue adds "
+        f"{(dms + dms2 - d0ms - d0ms2) / 2:.4f} ms; its extra bytes "
+        f"{ccp_samples * 4} ({ccp_samples * 4 / HBM_BPS * 1e3:.5f} ms at "
+        f"3.35 TB/s); plain {pms:.4f} ms ({card})")
     r = Result()
-    # res_l and res_c read and res_c written at listed samples (int32), the
-    # table once; a multiply, a shift, an add and the clip per sample
-    r.add(e, bms, pms, samples * 12 + tus_np.nbytes, samples * 4)
+    r.add(e, bms, pms, nbytes, ops)
     return r
 
 
@@ -941,44 +983,55 @@ def check_k8(card, rng, B=3):
     return r
 
 
-def check_k9(card, rng, bd=10, bits=8):
-    """K9 on one 1920x1088 luma and 960x544 chroma plane: a seeded table
-    of non-overlapping PCM blocks (8, 16 and 32 luma) covering about a
-    third of the picture, at a PCM bit depth below the bit depth."""
+def check_k9(card, rng, bd=10):
+    """K9 on a seeded 1080p 4:2:0 level (tests/pcm_cases.py): one picture,
+    a PCM CU of 8, 16 or 32 luma samples in about a third of the 32x32
+    cells, luma shift 2 and chroma shift 3, its luma and both chroma
+    planes in ONE launch: against its plain version, at the enqueue rate
+    and as device time queued behind a sleep, beside the byte bound; then
+    a 4:2:2 level (w x 2w chroma blocks), against its plain version."""
     import numpy as np
     import torch
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
     from libhm_tpu_torch.ops import pcm as PK
-    cells = [(y, x) for y in range(0, 1088, 32) for x in range(0, 1920, 32)]
-    pick = rng.choice(len(cells), len(cells) // 3, replace=False)
+    from pcm_cases import pcm_blocks, plane_shapes
     r = Result()
-    for Hp, Wp, sh in ((1088, 1920, 0), (544, 960, 1)):
-        rows, samples, offsets, o = [], [], [], 0
-        for k in pick:
-            y, x = cells[k]
-            n = (8, 16, 32)[k % 3] >> sh
-            rows.append((0, x >> sh, y >> sh, n, n, bd - bits))
-            samples.append(rng.integers(0, 1 << bits, n * n))
-            offsets.append(o)
-            o += n * n
-        blocks = torch.tensor(rows, dtype=torch.int32, device=DEV)
-        samp = torch.from_numpy(np.concatenate(samples).astype(np.int16)) \
-            .to(DEV)
-        offs = torch.tensor(offsets, dtype=torch.int32, device=DEV)
-        got = torch.zeros((1, Hp, Wp), dtype=torch.int32, device=DEV)
-        want = got.clone()
-        PK.pcm_scatter(got, blocks, samp, offs)
-        PK.pcm_scatter_plain(want, blocks, samp, offs)
+    for fmt in (1, 2):
+        blocks = pcm_blocks(rng, fmt, 1, 1088, 1920, share=1 / 3, bd=bd)
+        shapes = plane_shapes(fmt, 1, 1088, 1920)
+        buf, counts = PK.pcm_pack(blocks)
+        table = PK.pcm_table(torch.from_numpy(buf).to(DEV), counts)
+
+        def zeros():
+            return [torch.zeros(sh, dtype=torch.int32, device=DEV)
+                    for sh in shapes]
+        want = PK.pcm_level_plain(zeros(), table)
+        got = zeros()
+        n0 = PK._K9.launches
+        PK.pcm_level(got, table)
         torch.cuda.synchronize()
-        e = max_abs_err(got, want)
-        bms = cuda_ms(lambda: PK.pcm_scatter(got, blocks, samp, offs), 20)
-        pms = cuda_ms(lambda: PK.pcm_scatter_plain(want, blocks, samp, offs),
-                      2)
-        log(f"K9 pcm_scatter {(Hp, Wp)} blocks={len(rows)} samples={o} "
-            f"shift={bd - bits}: mismatches={int((got != want).sum())} "
-            f"kernel {bms:.4f} ms, plain {pms:.4f} ms ({card})")
-        # int16 samples in, int32 samples out, the table and offsets; a
-        # shift and the address arithmetic, ~6 operations per sample
-        r.add(e, bms, pms, o * 6 + len(rows) * 28, o * 6)
+        if PK._K9.launches != n0 + 1:
+            raise AssertionError("K9: not one launch for the level")
+        e = max(max_abs_err(g, w) for g, w in zip(got, want))
+        samples = sum(w * h for _, _, _, _, w, h, _, _ in blocks)
+        label = f"K9 pcm_level {('', '4:2:0', '4:2:2')[fmt]} {shapes}: " \
+            f"{len(blocks)} blocks (area classes {counts}), {samples} " \
+            f"samples: max abs err {e}"
+        if fmt == 2:
+            r.err = max(r.err, e)
+            log(f"{label} ({card})")
+            continue
+        bms = cuda_ms(lambda: PK.pcm_level(got, table), 20)
+        dms = device_ms(lambda: PK.pcm_level(got, table), 20)
+        pms = cuda_ms(lambda: PK.pcm_level_plain(got, table), 3)
+        # int16 samples in, int32 samples out, each row once; a shift and
+        # the addressing, ~6 operations a sample
+        nbytes = samples * 6 + len(blocks) * 16
+        log(f"{label}; one launch {bms:.4f} ms at the enqueue rate, device "
+            f"time (queued behind a sleep) {dms:.4f} ms, byte bound "
+            f"{nbytes / HBM_BPS * 1e3:.6f} ms ({nbytes} bytes at 3.35 TB/s);"
+            f" plain {pms:.4f} ms ({card})")
+        r.add(e, bms, pms, nbytes, samples * 6)
     return r
 
 
@@ -1457,13 +1510,14 @@ class LevelCapture:
         self.best = {"B": 0, "res": [], "mc": []}
         TK.residual_table, MK.mc_grid = self._k1, self._k5
 
-    def _k1(self, planes, table, mats=None):
+    def _k1(self, planes, table, mats=None, res_l=None):
         if self.cur is None or len(self.cur["res"]) == 3:
             self.cur = {"B": planes.shape[0], "res": [], "mc": []}
             if self.cur["B"] > self.best["B"]:
                 self.best = self.cur
+        # (the RA stream is 4:2:0: no CCP rows, res_l is None)
         self.cur["res"].append((planes.shape, table, mats))
-        return self.k1(planes, table, mats)
+        return self.k1(planes, table, mats, res_l)
 
     def _k5(self, stacked, res, refs, mv, dirm, sel, **kw):
         if self.cur is self.best:
@@ -1521,6 +1575,39 @@ def check_real_level(cap, card):
     if err:
         raise AssertionError("real RA level: K1 or K5 differs from its "
                              "plain version")
+
+
+def check_exact(label, data, counts, per_picture=False):
+    """K9 launches and `pcm` uploads (xfer, reset before the run) against
+    the levels with a PCM block, and K1 launches with CCP rows against the
+    (level, chroma component) pairs with a CCP TU, of a stream of EXACT
+    (each picture its own level on the per-picture path); other streams
+    need no PCM and no CCP launch counted beyond their modes."""
+    from libhm_tpu_torch.hostdec.decoder import Decoder
+    from libhm_tpu_torch.parallel.dag_decode import reference_levels
+    from libhm_tpu_torch.utils import xfer
+    if not any(label.startswith(name + " ") for name in EXACT):
+        return
+    dec = Decoder(parse="native", recon="collect")
+    dec.decode_annexb(data)
+    items = dec.collected
+    levels = [[it] for it in items] if per_picture else \
+        reference_levels(items)
+    pcm = sum(any(it["pic"].pcm_list for it in lv) for lv in levels)
+    ccp = sum(any(tu.comp == c and tu.cross_comp_alpha for it in lv
+                  if it["sps"].chroma_format_idc == 3
+                  for tu in it["pic"].tu_list)
+              for lv in levels for c in (1, 2))
+    got = (counts["pcm_level"], xfer.UPLOADS.get("pcm", 0),
+           counts["residual_table_ccp"])
+    if got != (pcm, pcm, ccp):
+        raise AssertionError(f"{label}: K9 launches, pcm uploads, K1 "
+                             f"launches with CCP rows {got}, expected "
+                             f"{(pcm, pcm, ccp)}")
+    log(f"{label}: {len(levels)} levels, {pcm} with PCM: K9 launches "
+        f"{got[0]}, pcm uploads {got[1]}; {ccp} (level, chroma component) "
+        f"pairs with CCP: K1 launches with CCP rows {got[2]}; H2D uploads by "
+        f"tag {dict(xfer.UPLOADS)}")
 
 
 def decode_md5(name, gold, check_sei_hash=False):
@@ -1662,8 +1749,8 @@ def main():
     results["mc_weighted"] = check_k6(card, rng)
     results["plane_checksum"] = check_k7(card, rng)
     results["restore_unfiltered"] = check_k8(card, rng)
-    results["pcm_scatter"] = check_k9(card, rng)
-    results["ccp_apply"] = check_k10(card, rng)
+    results["pcm_level"] = check_k9(card, rng)
+    results["residual_table_ccp"] = check_k10(card, rng)
     # rows 14 and 15 of the kernel table: the per-picture path's shapes
     # (one picture: the intra wavefront of a whole 1080p picture; MC of
     # one picture; deblocking and SAO are per picture already)
@@ -1687,7 +1774,6 @@ def main():
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
 
     # ---- the main paths, counters reset just before each ----
-    from libhm_tpu_torch.ops import ccp as CC
     from libhm_tpu_torch.ops import checksum as CK
     from libhm_tpu_torch.ops import deblock as DK
     from libhm_tpu_torch.ops import interp as MK
@@ -1706,8 +1792,8 @@ def main():
                "sao_apply": SK._K4, "sao_apply_multi": SK._K4_MULTI,
                "mc_grid": MK._K5, "mc_weighted": MK._K6,
                "plane_checksum": CK._K7, "restore_unfiltered": PK._K8,
-               "pcm_scatter": PK._K9, "deblock_chroma16": DK._K3_CHROMA16,
-               "ccp_apply": CC._K10}
+               "pcm_level": PK._K9, "deblock_chroma16": DK._K3_CHROMA16,
+               "residual_table_ccp": TK._K1_CCP}
     # the single-pass K3/K4 entry points: no decode path launches them
     single_pass = ["deblock_luma", "deblock_chroma", "deblock_chroma16",
                    "sao_apply", "sao_apply_multi"]
@@ -1764,9 +1850,11 @@ def main():
         table = ports if name in ports else gold
         stream = open(os.path.join(ROOT, "testdata", table[name]["bitstream"]),
                       "rb").read()
-        (dec, pics, _, secs), _ = run_path(
+        xfer.reset()
+        (dec, pics, _, secs), counts = run_path(
             f"{name} HmDecoder", lambda: push_decode(stream, sei_check=True),
             ["intra_wavefront"] + modes)
+        check_exact(f"{name} HmDecoder", stream, counts, per_picture=True)
         statuses = [p.hash_status for p in pics]
         if len(pics) != table[name]["frames"] or (
                 statuses != ["OK"] * len(pics) if name == FIELD
@@ -1925,9 +2013,12 @@ def main():
     del tool_outs
     for name, modes in TOOL_SMALL.items():
         table = ports if name in ports else gold
+        xfer.reset()
         (n, _), counts = run_path(
             f"{name} decode_batch", lambda: decode_md5(name, table),
             ["intra_wavefront", "loop_filter_level"] + modes)
+        check_exact(f"{name} decode_batch", open(os.path.join(
+            ROOT, "testdata", table[name]["bitstream"]), "rb").read(), counts)
         for k, src in LAUNCHES_FROM.items():
             if src == name:
                 launches[k] = counts[k]
@@ -1957,9 +2048,12 @@ def main():
         f"{comp_s:.3f} s")
     del rext_outs
     for name, modes in REXT_SMALL.items():
+        xfer.reset()
         (n, _), counts = run_path(f"{name} decode_batch",
                                   lambda: decode_md5(name, gold),
                                   ["intra_wavefront"] + modes)
+        check_exact(f"{name} decode_batch", open(os.path.join(
+            ROOT, "testdata", gold[name]["bitstream"]), "rb").read(), counts)
         for k, src in LAUNCHES_FROM.items():
             if src == name:
                 launches[k] = counts[k]
@@ -2021,12 +2115,12 @@ def main():
                                "libhm_tpu/parallel/device_filters.py:169"),
            "restore_unfiltered": ("libhm_tpu_torch/csrc/pcm.cu",
                                   "libhm_tpu/parallel/device_filters.py:191"),
-           "pcm_scatter": ("libhm_tpu_torch/csrc/pcm.cu",
-                           "libhm_tpu/parallel/dag_decode.py:483"),
+           "pcm_level": ("libhm_tpu_torch/csrc/pcm.cu",
+                         "libhm_tpu/parallel/dag_decode.py:483"),
            "deblock_chroma16": ("libhm_tpu_torch/csrc/loopfilter.cu",
                                 "libhm_tpu/ops/deblock.py:136"),
-           "ccp_apply": ("libhm_tpu_torch/csrc/ccp.cu",
-                         "libhm_tpu/parallel/batch_decode.py:164")}
+           "residual_table_ccp": ("libhm_tpu_torch/csrc/residual.cu",
+                                  "libhm_tpu/parallel/batch_decode.py:164")}
     rows = []
     for name in kernels:
         r = results[name]

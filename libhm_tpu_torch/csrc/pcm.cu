@@ -1,4 +1,4 @@
-// K8: restore of unfiltered samples, and K9: PCM sample scatter.
+// K8: restore of unfiltered samples, and K9: PCM samples of a level.
 //
 // K8 restore_unfiltered replaces the restore branch of
 //   libhm_tpu/parallel/device_filters.py _filter_fn (lines 191-201): after
@@ -22,17 +22,32 @@
 //   so the bottom and right tiles cover the plane's padding as well.
 //   In place, touching `pre` and `planes` only at masked samples.
 //
-// K9 pcm_scatter replaces the per-block device scatters of
+// K9 pcm_level replaces the per-block device scatters of
 //   libhm_tpu/parallel/dag_decode.py _recon_levels (lines 482-489): each PCM
 //   block's samples, shifted left by (bit depth - PCM bit depth), written
 //   into the zeroed stacked planes of the level before MC.
 // What bounds it on the card: bytes (an int16 sample in, an int32 sample
-//   out), and for the JAX loop the number of uploads and dispatches: one per
-//   block.  Here the host packs a level's blocks of one component into one
-//   table ([N, 6] int32 b, x, y, w, h, shift), one int16 sample buffer and
-//   [N] int32 offsets, and one launch writes them all: a thread block per
-//   PCM block, its threads striding over the block's samples.
+//   out: under a microsecond for a 1080p level), so the launches, uploads
+//   and their enqueue set its time: the JAX loop makes one upload and one
+//   dispatch per block.
+// What the design does about it: one launch per DAG level for every
+//   component.  The host packs the level's blocks into ONE upload: 16-byte
+//   rows (ops/pcm.py PCM_DTYPE: sample offset, picture, x, y, component,
+//   log2 w, log2 h, shift) sorted by block area, then the int16 samples in
+//   row order (each block's at a multiple of 16 samples, the part on a
+//   16-byte boundary).  The up-to-three planes' pointers, heights and widths
+//   and the rows of each area class travel as a __grid_constant__ kernel
+//   parameter, packed by the host (PcmArgs).  Each 256-thread CTA
+//   takes 1024 samples of one area class (64 4x4 blocks ... one 32x32; the
+//   4:2:2 chroma blocks w x 2w are classes of their own), so every warp is
+//   full; a thread takes 4 consecutive samples of one block row: one 8-byte
+//   int16x4 load, the shift, one 16-byte int32 store where the row and the
+//   plane allow it, else scalar stores.  w and h are powers of two (4-32),
+//   so the addressing is shifts and masks.  Rows whose picture is outside
+//   [0, Bp) or whose component has no plane are skipped, and samples past
+//   the plane are dropped.
 #include <cstdint>
+#include <cstring>
 #include <cuda_runtime.h>
 
 namespace {
@@ -70,20 +85,62 @@ __global__ void __launch_bounds__(kTileX * kTileY) restore_kernel(
   }
 }
 
-__global__ void pcm_kernel(int32_t* __restrict__ planes,
-                           const int32_t* __restrict__ blocks,
-                           const int16_t* __restrict__ samples,
-                           const int32_t* __restrict__ offsets, int Bp, int H,
-                           int W) {
-  const int32_t* blk = blocks + (long long)blockIdx.x * 6;
-  const int b = blk[0], x0 = blk[1], y0 = blk[2], w = blk[3], h = blk[4];
-  const int shift = blk[5];
-  if (b < 0 || b >= Bp) return;
-  const int16_t* src = samples + offsets[blockIdx.x];
-  for (int i = threadIdx.x; i < w * h; i += blockDim.x) {
-    const int y = y0 + i / w, x = x0 + i % w;
-    if (y >= 0 && y < H && x >= 0 && x < W)
-      planes[((long long)b * H + y) * W + x] = (int)src[i] << shift;
+// one row of the PCM block table (ops/pcm.py PCM_DTYPE)
+struct PcmRow {
+  uint32_t off;        // first sample of the block in the sample part
+  int16_t b;           // picture
+  uint16_t x, y;       // sample origin in the component plane
+  uint8_t comp, log2w, log2h, shift;
+  uint16_t pad;
+};
+static_assert(sizeof(PcmRow) == 16, "PCM_DTYPE is 16 bytes");
+
+constexpr int kPcmThreads = 256;
+constexpr int kClasses = 7;              // block areas 16 .. 1024 samples
+
+// packed by the host (ops/pcm.py _ARGS): the planes, their heights and
+// widths (zero past `nplanes`), the rows of each area class
+struct PcmArgs {
+  int32_t* p[3];
+  int H[3], W[3], n[kClasses];
+};
+static_assert(sizeof(PcmArgs) == 80, "ops/pcm.py _ARGS is 80 bytes");
+
+__global__ void __launch_bounds__(kPcmThreads)
+pcm_level_kernel(const PcmRow* __restrict__ rows,
+                 const int16_t* __restrict__ samples,
+                 const __grid_constant__ PcmArgs q, int nplanes, int Bp) {
+  // the area class of this CTA: rows are sorted by log2(w * h) = 4 .. 10,
+  // 64 >> s blocks of 4 << s threads each a CTA
+  int s = 0, cta0 = 0, row0 = 0;
+  for (; s < kClasses - 1; ++s) {
+    const int ctas = (q.n[s] + (64 >> s) - 1) >> (6 - s);
+    if ((int)blockIdx.x < cta0 + ctas) break;
+    cta0 += ctas;
+    row0 += q.n[s];
+  }
+  const int t = threadIdx.x, lt = s + 2;           // log2 threads a block
+  const int j = row0 + (((int)blockIdx.x - cta0) << (6 - s)) + (t >> lt);
+  if (j >= row0 + q.n[s]) return;
+  const PcmRow r = rows[j];
+  if (r.b < 0 || r.b >= Bp || r.comp >= nplanes) return;
+  const int p0 = (t & ((1 << lt) - 1)) << 2;       // first of 4 samples
+  const int y = r.y + (p0 >> r.log2w);
+  const int x = r.x + (p0 & ((1 << r.log2w) - 1));
+  const int H = q.H[r.comp], W = q.W[r.comp];
+  if (y >= H) return;
+  const int2 raw = __ldg(reinterpret_cast<const int2*>(samples + r.off + p0));
+  const int v[4] = {(int)(int16_t)(raw.x & 0xFFFF) << r.shift,
+                    (int)(int16_t)(raw.x >> 16) << r.shift,
+                    (int)(int16_t)(raw.y & 0xFFFF) << r.shift,
+                    (int)(int16_t)(raw.y >> 16) << r.shift};
+  int32_t* dst = q.p[r.comp] + ((size_t)r.b * H + y) * W + x;
+  if (x + 3 < W && ((uintptr_t)dst & 15) == 0) {
+    *reinterpret_cast<int4*>(dst) = make_int4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (x + k < W) dst[k] = v[k];
   }
 }
 
@@ -108,12 +165,23 @@ extern "C" int restore_unfiltered(void* planes, const void* pre,
   return (int)cudaGetLastError();
 }
 
-extern "C" int pcm_scatter(void* planes, const void* blocks,
-                           const void* samples, const void* offsets, int N,
-                           int Bp, int H, int W, void* stream) {
-  if (N == 0) return 0;
-  pcm_kernel<<<N, 256, 0, (cudaStream_t)stream>>>(
-      (int32_t*)planes, (const int32_t*)blocks, (const int16_t*)samples,
-      (const int32_t*)offsets, Bp, H, W);
+// rows: [N] PCM_DTYPE sorted by area (a.n[7] rows of each class,
+// log2(w * h) = 4 .. 10); samples: the int16 samples, 8-byte aligned;
+// args: a PcmArgs, the first `nplanes` planes set.
+extern "C" int pcm_level(const void* rows, const void* samples,
+                         const void* args, int nplanes, int Bp,
+                         void* stream) {
+  if (nplanes < 1 || nplanes > 3) return (int)cudaErrorInvalidValue;
+  PcmArgs a;
+  memcpy(&a, args, sizeof a);             // a Python bytes object
+  long long ctas = 0;
+  for (int s = 0; s < kClasses; ++s) {
+    if (a.n[s] < 0) return (int)cudaErrorInvalidValue;
+    ctas += (a.n[s] + (64 >> s) - 1) >> (6 - s);
+  }
+  if (ctas == 0) return 0;
+  if (ctas > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  pcm_level_kernel<<<(unsigned)ctas, kPcmThreads, 0, (cudaStream_t)stream>>>(
+      (const PcmRow*)rows, (const int16_t*)samples, a, nplanes, Bp);
   return (int)cudaGetLastError();
 }

@@ -36,9 +36,28 @@
 // (the coefficients are the residual), rotation (4x4 tskip/bypass TUs of
 // intra CUs: the block is read back to front), scaled (scaling lists: the
 // level's distinct matrices are one uint8 table [M, n, n] per size and the
-// row holds its one-byte index).  Each row carries its RDPCM direction and
-// bit depth.  Rows whose picture index is outside [0, Bp) are skipped, and
-// samples outside the H x W plane are not written.
+// row holds its one-byte index), CCP (below).  Each row carries its RDPCM
+// direction and bit depth.  Rows whose picture index is outside [0, Bp)
+// are skipped, and samples outside the H x W plane are not written.
+//
+// Cross-component prediction, an epilogue of the chroma launch.
+// Replaces: libhm_tpu/parallel/batch_decode.py _ccp_fn (lines 164-178), run
+//   after every TU of the level is scattered (lines 239-260): for each 4:4:4
+//   chroma TU with an alpha, res_c = clip16(res_c + ((alpha * res_l) >> 3))
+//   with the shift on the signed product.  The luma residual is used as it
+//   is, without the (rY << BitDepthC) >> BitDepthY scale of H.265 8.6.6, as
+//   the JAX and numpy decoders do (they agree with the spec when the two
+//   bit depths are equal; the decode refuses unequal ones).
+// What bounds it: bytes.  A pass of its own reads the chroma residual that
+//   this kernel has just stored, reads the luma residual and stores the
+//   chroma residual again: 12 bytes a CCP sample, one more launch and one
+//   more table upload per component and level.  Here an F_CCP row (alpha in
+//   bits 4-7 of its rdpcm byte: log2|alpha| + 1, and the sign in bit 7)
+//   loads the luma residual at its own (b, y, x), a 16-byte load beside the
+//   16-byte store, and adds the term to the 4 values still in registers:
+//   4 extra bytes a CCP sample, no extra launch.  The luma residual is
+//   final because the luma launch precedes the chroma ones on the stream.
+//   Rows without the flag do not touch res_l, which is NULL for luma.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -92,14 +111,16 @@ struct TuRow {
   uint16_t y, x;       // sample origin in the component plane
   uint8_t log2n;
   int8_t qp;           // incl. the bit-depth offset
-  uint8_t flags;       // kDst | kTskip | kBypass | kRotate | kScaled
-  uint8_t rdpcm;       // 0 off, 1 horizontal, 2 vertical
+  uint8_t flags;       // kDst | kTskip | kBypass | kRotate | kScaled | kCcp
+  uint8_t rdpcm;       // bits 0-1: 0 off, 1 horizontal, 2 vertical;
+                       // kCcp rows: bits 4-6 log2|alpha| + 1, bit 7 sign
   uint8_t midx;        // row of the scaling-matrix table
   uint8_t bd;
 };
 static_assert(sizeof(TuRow) == 16, "TU_DTYPE is 16 bytes");
 
-enum { kDst = 1, kTskip = 2, kBypass = 4, kRotate = 8, kScaled = 16 };
+enum { kDst = 1, kTskip = 2, kBypass = 4, kRotate = 8, kScaled = 16,
+       kCcp = 32 };
 
 constexpr int kThreads = 256;
 constexpr int kBuf = 64 * 4 * 5;              // 64 4x4 TUs, stride n + 1
@@ -193,8 +214,9 @@ __device__ __forceinline__ void transform_line(int log2n, bool dst,
 __global__ void __launch_bounds__(kThreads)
 residual_table_kernel(const TuRow* __restrict__ rows,
                       const int16_t* __restrict__ coeffs, Mats mats,
-                      Counts counts, int32_t* __restrict__ planes, int Bp,
-                      int H, int W) {
+                      Counts counts, int32_t* __restrict__ planes,
+                      const int32_t* __restrict__ res_l, int Bp, int H,
+                      int W) {
   __shared__ int s_a[kBuf];
   __shared__ int s_b[kBuf];
   __shared__ int s_t[32 * 16 + 16];
@@ -301,19 +323,21 @@ residual_table_kernel(const TuRow* __restrict__ rows,
   __syncthreads();
 
   // 4. RDPCM (Rec. 8.6.8: a running sum along rows (1) or columns (2),
-  //    clipped to int16) and 16-byte row stores into the plane
+  //    clipped to int16), CCP (Rec. 8.6.6) and 16-byte row stores into
+  //    the plane
   if (!live) return;
   const int* res = skip ? s_b + base : s_a + base;
   const int p0 = tt * 4, ry = p0 >> log2n, rx = p0 & (n - 1);
+  const int rd = r.rdpcm & 3;
   int v[4];
 #pragma unroll
   for (int k = 0; k < 4; ++k) v[k] = res[ry * ps + rx + k];
-  if (r.rdpcm == 1) {
+  if (rd == 1) {
     int acc = 0;
     for (int i = 0; i < rx; ++i) acc += res[ry * ps + i];
 #pragma unroll
     for (int k = 0; k < 4; ++k) v[k] = clip16(acc += v[k]);
-  } else if (r.rdpcm == 2) {
+  } else if (rd == 2) {
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       int acc = 0;
@@ -323,8 +347,27 @@ residual_table_kernel(const TuRow* __restrict__ rows,
   }
   const int y = r.y + ry, x = r.x + rx;
   if (y >= H) return;
-  int32_t* dst = planes + ((size_t)r.b * H + y) * W + x;
-  if (x + 3 < W && ((uintptr_t)dst & 15) == 0) {
+  const size_t o = ((size_t)r.b * H + y) * W + x;
+  int32_t* dst = planes + o;
+  const bool vec = x + 3 < W && ((uintptr_t)dst & 15) == 0;
+  if (r.flags & kCcp) {
+    const int code = (r.rdpcm >> 4) & 7;
+    const int mag = code ? 1 << (code - 1) : 0;
+    const int alpha = (r.rdpcm & 0x80) ? -mag : mag;
+    const int32_t* src = res_l + o;
+    int rl[4] = {0, 0, 0, 0};
+    if (vec && ((uintptr_t)src & 15) == 0) {
+      const int4 q = __ldg(reinterpret_cast<const int4*>(src));
+      rl[0] = q.x, rl[1] = q.y, rl[2] = q.z, rl[3] = q.w;
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (x + k < W) rl[k] = __ldg(src + k);
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[k] = clip16(v[k] + ((alpha * rl[k]) >> 3));
+  }
+  if (vec) {
     *reinterpret_cast<int4*>(dst) = make_int4(v[0], v[1], v[2], v[3]);
   } else {
 #pragma unroll
@@ -337,12 +380,14 @@ residual_table_kernel(const TuRow* __restrict__ rows,
 
 // rows: [N] TU_DTYPE sorted by size (counts c4 .. c32 rows of each);
 // coeffs: the packed int16 coefficients; m4 .. m32: the scaling-matrix
-// tables per size (NULL where no row of that size is scaled).
+// tables per size (NULL where no row of that size is scaled); res_l: the
+// luma residual planes of the planes' shape that kCcp rows read (NULL when
+// no row has the flag).
 extern "C" int residual_table(const void* rows, const void* coeffs,
                               const void* m4, const void* m8, const void* m16,
                               const void* m32, int c4, int c8, int c16,
-                              int c32, void* planes, int Bp, int H, int W,
-                              void* stream) {
+                              int c32, void* planes, const void* res_l,
+                              int Bp, int H, int W, void* stream) {
   const Counts counts = {{c4, c8, c16, c32}};
   const Mats mats = {{(const uint8_t*)m4, (const uint8_t*)m8,
                       (const uint8_t*)m16, (const uint8_t*)m32}};
@@ -356,6 +401,6 @@ extern "C" int residual_table(const void* rows, const void* coeffs,
   if (ctas > 0x7fffffff) return (int)cudaErrorInvalidValue;
   residual_table_kernel<<<(unsigned)ctas, kThreads, 0, (cudaStream_t)stream>>>(
       (const TuRow*)rows, (const int16_t*)coeffs, mats, counts,
-      (int32_t*)planes, Bp, H, W);
+      (int32_t*)planes, (const int32_t*)res_l, Bp, H, W);
   return (int)cudaGetLastError();
 }

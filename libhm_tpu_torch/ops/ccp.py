@@ -1,24 +1,25 @@
-"""Cross-component prediction on the residual planes (K10).
+"""Cross-component prediction on the residual planes (row 11 of the kernel
+table).
 
 Port of libhm_tpu/parallel/batch_decode.py _ccp_fn: in 4:4:4, a chroma TU
 with a cross-component alpha adds (alpha * luma residual) >> 3 to its
-residual, clipped to int16.  `ccp_apply` is the kernel wrapper: one launch
-of csrc/ccp.cu per (component, level) over a table of that level's CCP
-TUs, of any size, for CUDA planes; the plain version for CPU planes.
+residual, clipped to int16.  On the card this is an epilogue of K1's
+chroma launch (csrc/residual.cu: F_CCP rows of the TU table, through
+ops/transform.py residual_table), which adds it to each TU's residual
+before the one store, so no pass of its own reads the chroma residual
+back.  `ccp_apply_plain` is the plain version, which
+`residual_table_plain` runs after its scatters.
 """
 import torch
-
-from ..kernels.build import I, P, Kernel, check, ptr
 
 # TU table columns of ccp_apply
 CCP_FIELDS = ("b", "y", "x", "n", "alpha")
 
-_K10 = Kernel("ccp_apply", [P, P, P, I, I, I, I])
-
 
 def ccp_apply_plain(res_c, res_l, tus):
-    """Plain torch version of ccp_apply (any device), in place: one
-    gather/scatter per TU size, as the JAX _ccp_fn is keyed by it."""
+    """Plain torch version of cross-component prediction (any device), in
+    place: one gather/scatter per TU size, as the JAX _ccp_fn is keyed by
+    it."""
     Bp, H, W = res_c.shape
     tus = tus.long()
     for n in torch.unique(tus[:, 3]).tolist():
@@ -48,17 +49,10 @@ def ccp_apply(res_c, res_l, tus):
     res_c, res_l: [Bp, H, W] int32 chroma and luma residual planes (4:4:4,
     so of one size); tus: [M, 5] int32 rows of CCP_FIELDS, alpha in
     {+-1, +-2, +-4, +-8}, n in {4, 8, 16, 32}.  TUs must not overlap.
+    CPU tensors only: on the card CCP runs inside K1's chroma launch.
     """
-    if not res_c.is_cuda:
-        return ccp_apply_plain(res_c, res_l, tus)
-    dev = res_c.device
-    check(res_c, "res_c", torch.int32, 3)
-    check(res_l, "res_l", torch.int32, 3, dev)
-    check(tus, "tus", torch.int32, 2, dev)
-    if res_l.shape != res_c.shape or tus.shape[1] != len(CCP_FIELDS):
-        raise ValueError("ccp_apply: inconsistent shapes")
-    Bp, H, W = res_c.shape
-    M = tus.shape[0]
-    if M:
-        _K10(ptr(res_c), ptr(res_l), ptr(tus), M, Bp, H, W)
-    return res_c
+    if res_c.is_cuda:
+        raise ValueError("ccp_apply: on the card, cross-component prediction "
+                         "is the epilogue of K1's chroma launch (F_CCP rows "
+                         "through ops/transform.py residual_table)")
+    return ccp_apply_plain(res_c, res_l, tus)

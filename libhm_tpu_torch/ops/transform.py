@@ -7,10 +7,12 @@ wrapper: every TU of one component of a level, from a flat table of
 TU_DTYPE rows sorted by size and a packed int16 coefficient buffer,
 dequantized (flat, or with scaling matrices) -> inverse DCT/DST or
 transform skip (or, for transquant-bypass TUs, the coefficients as they
-are) -> RDPCM -> written into the stacked residual planes; one CUDA launch
-(csrc/residual.cu) for a CUDA tensor, `residual_table_plain` for a CPU
-tensor.  `residual_scatter` keeps the per-bucket signature: it builds a
-one-size table and goes through `residual_table`.
+are) -> RDPCM -> cross-component prediction (4:4:4 chroma rows with an
+alpha, from the level's finished luma residual) -> written into the
+stacked residual planes; one CUDA launch (csrc/residual.cu) for a CUDA
+tensor, `residual_table_plain` for a CPU tensor.  `residual_scatter` keeps
+the per-bucket signature: it builds a one-size table and goes through
+`residual_table`.
 """
 from typing import NamedTuple
 
@@ -20,6 +22,7 @@ import torch
 from ..hostdec.tables import DCT, DST4, INV_QUANT_SCALES
 
 from ..kernels.build import I, P, Kernel, check, ptr
+from .ccp import ccp_apply_plain
 
 I16MIN, I16MAX = -32768, 32767
 
@@ -145,13 +148,28 @@ def residual_blocks(coeffs, qp, n, use_dst, tskip, bd, max_dyn_range=15,
 # one row of the TU table (csrc/residual.cu TuRow), 16 bytes: the first
 # coefficient of the TU in the packed int16 buffer, picture, sample
 # origin, log2 size, qp (incl. the bit-depth offset), mode flags, RDPCM
-# direction (0 off, 1 horizontal, 2 vertical), scaling-matrix row, bit depth
+# direction (0 off, 1 horizontal, 2 vertical) in bits 0-1 of `rdpcm` and
+# the CCP alpha of F_CCP rows in its bits 4-7 (ccp_bits), scaling-matrix
+# row, bit depth
 TU_DTYPE = np.dtype([("off", "<u4"), ("b", "<i2"), ("y", "<u2"),
                      ("x", "<u2"), ("log2n", "u1"), ("qp", "i1"),
                      ("flags", "u1"), ("rdpcm", "u1"), ("midx", "u1"),
                      ("bd", "u1")])
-F_DST, F_TSKIP, F_BYPASS, F_ROTATE, F_SCALED = 1, 2, 4, 8, 16
+F_DST, F_TSKIP, F_BYPASS, F_ROTATE, F_SCALED, F_CCP = 1, 2, 4, 8, 16, 32
 SIZES = (4, 8, 16, 32)
+
+
+def ccp_bits(alpha):
+    """The high bits of the `rdpcm` byte that carry CCP alphas (numpy
+    array of 0, +-1, +-2, +-4, +-8): log2|alpha| + 1 in bits 4-6, the sign
+    in bit 7, 0 for no alpha."""
+    a = np.asarray(alpha, np.int64)
+    mag = np.abs(a)
+    if not np.isin(mag, (0, 1, 2, 4, 8)).all():
+        raise ValueError("CCP alpha outside 0, +-1, +-2, +-4, +-8")
+    code = np.where(mag > 0, np.log2(np.maximum(mag, 1)).astype(np.int64)
+                    + 1, 0)
+    return ((code << 4) | ((a < 0) << 7)).astype(np.uint8)
 
 
 class TuTable(NamedTuple):
@@ -166,15 +184,28 @@ def _fields(rows):
     """The TU_DTYPE fields of uint8 [N, 16] rows, as int64 tensors."""
     w = rows.view(torch.int32).long() & 0xFFFFFFFF           # [N, 4]
     sext = lambda v, bits: (v ^ (1 << (bits - 1))) - (1 << (bits - 1))  # noqa
+    code = (w[:, 3] >> 12) & 7
+    alpha = torch.where(code > 0, 1 << torch.clamp(code - 1, min=0), 0) * \
+        (1 - 2 * ((w[:, 3] >> 15) & 1))
     return {"off": w[:, 0], "b": sext(w[:, 1] & 0xFFFF, 16),
             "y": w[:, 1] >> 16, "x": w[:, 2] & 0xFFFF,
             "log2n": (w[:, 2] >> 16) & 0xFF, "qp": sext(w[:, 2] >> 24, 8),
-            "flags": w[:, 3] & 0xFF, "rdpcm": (w[:, 3] >> 8) & 0xFF,
-            "midx": (w[:, 3] >> 16) & 0xFF, "bd": w[:, 3] >> 24}
+            "flags": w[:, 3] & 0xFF, "rdpcm": (w[:, 3] >> 8) & 3,
+            "alpha": alpha * ((w[:, 3] & F_CCP) != 0),
+            "midx": (w[:, 3] >> 16) & 0xFF,
+            "bd": w[:, 3] >> 24}
 
 
-def residual_table_plain(planes, table, mats=None):
+def _check_ccp(planes, table, res_l):
+    if table.flags & F_CCP and (res_l is None or
+                                res_l.shape != planes.shape):
+        raise ValueError("residual_table: CCP rows need the luma residual "
+                         "res_l, of the chroma planes' shape (4:4:4)")
+
+
+def residual_table_plain(planes, table, mats=None, res_l=None):
     """Plain torch version of residual_table (any device), in place."""
+    _check_ccp(planes, table, res_l)
     f = _fields(table.rows)
     dev = planes.device
     want = torch.repeat_interleave(
@@ -184,10 +215,10 @@ def residual_table_plain(planes, table, mats=None):
         raise ValueError("residual_table: rows not sorted by size as the "
                          "counts say")
     Bp, H, W = planes.shape
-    key = f["log2n"] | (f["flags"] << 3) | (f["bd"] << 8)
+    key = f["log2n"] | (f["flags"] << 3) | (f["bd"] << 9)
     for k in torch.unique(key).tolist():
         i = torch.nonzero(key == k).squeeze(1)
-        log2n, flags, bd = k & 7, (k >> 3) & 31, k >> 8
+        log2n, flags, bd = k & 7, (k >> 3) & 63, k >> 9
         n = 1 << log2n
         idx = f["off"][i, None] + torch.arange(n * n, device=dev)
         c = table.coeffs[idx].view(-1, n, n)
@@ -212,6 +243,13 @@ def residual_table_plain(planes, table, mats=None):
         ix = (x[:, None, None] + ar[None, None, :]).expand(res.shape)
         m = (iy < H) & (ix < W)
         planes[b[:, None, None].expand(res.shape)[m], iy[m], ix[m]] = res[m]
+    # cross-component prediction once every row's residual is in place, as
+    # the JAX package runs _ccp_fn after its scatters (TUs never overlap)
+    i = torch.nonzero(f["flags"] & F_CCP).squeeze(1)
+    if len(i):
+        ccp_apply_plain(planes, res_l, torch.stack(
+            [f["b"][i], f["y"][i], f["x"][i], 1 << f["log2n"][i],
+             f["alpha"][i]], 1))
     return planes
 
 
@@ -224,12 +262,13 @@ class _ModeCount:
         self.launches = 0
 
 
-_K1 = Kernel("residual_table", [P] * 6 + [I] * 4 + [P] + [I] * 3)
+_K1 = Kernel("residual_table", [P] * 6 + [I] * 4 + [P, P] + [I] * 3)
 _K1_SCAL = _ModeCount("residual_table with scaled rows")
 _K1_BYPASS = _ModeCount("residual_table with bypass rows")
+_K1_CCP = _ModeCount("residual_table with CCP rows")
 
 
-def residual_table(planes, table, mats=None):
+def residual_table(planes, table, mats=None, res_l=None):
     """Residuals of every TU of `table` written into the stacked planes,
     in place: one K1 launch.
 
@@ -237,13 +276,21 @@ def residual_table(planes, table, mats=None):
     table: a TuTable (rows sorted by size; rows of pictures outside
     [0, Bp) are skipped, samples outside the plane not written).  mats:
     {n: uint8 [M, n, n]} the level's scaling matrices per size, which the
-    scaled rows index by their `midx`.  Non-extended precision only
-    (max_dyn_range 15), bit depths 8-12 outside bypass rows.
+    scaled rows index by their `midx`.  res_l: the level's finished luma
+    residual planes, of the shape of `planes` (4:4:4), which F_CCP rows
+    (cross-component prediction) read: res += (alpha * res_l) >> 3,
+    clipped to int16; needed when the table has such rows.
+    Non-extended precision only (max_dyn_range 15), bit depths 8-12
+    outside bypass rows.
     """
     if not planes.is_cuda:
-        return residual_table_plain(planes, table, mats)
+        return residual_table_plain(planes, table, mats, res_l)
     dev = planes.device
     check(planes, "planes", torch.int32, 3)
+    _check_ccp(planes, table, res_l)
+    ccp = bool(table.flags & F_CCP)
+    if ccp:
+        check(res_l, "res_l", torch.int32, 3, dev)
     check(table.rows, "rows", torch.uint8, 2, dev)
     check(table.coeffs, "coeffs", torch.int16, 1, dev)
     counts = tuple(int(c) for c in table.counts)
@@ -268,12 +315,14 @@ def residual_table(planes, table, mats=None):
         raise ValueError("residual_table: more pictures than an int16 holds")
     if N == 0:
         return planes
-    _K1(ptr(table.rows), ptr(table.coeffs), *mp, *counts, ptr(planes), Bp,
-        H, W)
+    _K1(ptr(table.rows), ptr(table.coeffs), *mp, *counts, ptr(planes),
+        ptr(res_l) if ccp else None, Bp, H, W)
     if table.flags & F_SCALED:
         _K1_SCAL.launches += 1
     if table.flags & F_BYPASS:
         _K1_BYPASS.launches += 1
+    if ccp:
+        _K1_CCP.launches += 1
     return planes
 
 

@@ -7,9 +7,10 @@ Port of the device-resident half of libhm_tpu/parallel/batch_decode.py:
    launch per component (ops/transform.py residual_table) that dequantizes
    (with the level's scaling matrices where a TU has them), inverse
    transforms and writes straight into the stacked [Bp, Hc, Wc] planes, or
-   writes the coefficients of transquant-bypass TUs as they are; then, in
-   4:4:4, cross-component prediction on the finished luma residual, one
-   K10 launch per chroma component (ops/ccp.py ccp_apply);
+   writes the coefficients of transquant-bypass TUs as they are; in
+   4:4:4, the chroma launches add cross-component prediction from the
+   finished luma residual to the TUs that carry an alpha, before their
+   one store (K1's epilogue);
  - intra wavefront: each picture's levelized blocks (intra_wavefront.
    prepare_component) go into one flat table sorted by dependency level,
    every picture and block size mixed, and one K2 launch per component
@@ -20,7 +21,6 @@ import torch
 
 from ..hostdec.picture import MODE_INTRA
 
-from ..ops import ccp as CK
 from ..ops import intra as IK
 from ..ops import transform as TK
 from ..utils import xfer
@@ -28,7 +28,8 @@ from .intra_wavefront import prepare_component
 
 
 # ---------------------------------------------------------------------------
-_ROW_FIELDS = ("b", "y", "x", "log2n", "qp", "flags", "rdpcm", "midx", "bd")
+_ROW_FIELDS = ("b", "y", "x", "log2n", "qp", "flags", "rdpcm", "midx", "bd",
+               "alpha")
 
 
 def residual_tables(items):
@@ -45,7 +46,10 @@ def residual_tables(items):
     size of TK.SIZES and flags the OR of the rows' flags; lists the
     level's distinct scaling lists in the order of their matrix-table rows
     (a scaled row's midx is 6 * list + matrixId), keyed by object as the
-    JAX package caches them (a PPS list overrides the SPS one).
+    JAX package caches them (a PPS list overrides the SPS one).  A 4:4:4
+    chroma TU with a cross-component alpha (coded residual or not: the
+    parser lists CCP-only TUs with zero coefficients) gets F_CCP and the
+    alpha in its rdpcm byte (TK.ccp_bits).
     """
     from ..hostdec.tables import build_scaling_matrices
     if len(items) > 32767:
@@ -66,6 +70,7 @@ def residual_tables(items):
             scal_mats = built[id(data)]
         pred_mode = np.asarray(pic.pred_mode)
         rotation = bool(sps.transform_skip_rotation)
+        ccp = sps.chroma_format_idc == 3
         for tu in pic.tu_list:
             c = tu.comp
             bd = sps.bit_depth_luma if c == 0 else sps.bit_depth_chroma
@@ -98,9 +103,12 @@ def residual_tables(items):
                                      "one-byte row index holds")
                 flags |= TK.F_SCALED
                 midx = j * 6 + (0 if intra else 3) + c
+            alpha = tu.cross_comp_alpha if ccp and c else 0
+            if alpha:
+                flags |= TK.F_CCP
             rows, blocks = parts[c][TK.SIZES.index(tu.w)]
             rows.append((b, tu.y, tu.x, tu.w.bit_length() - 1, tu.qp,
-                         flags, tu.rdpcm_mode, midx, bd))
+                         flags, tu.rdpcm_mode, midx, bd, alpha))
             blocks.append(tu.coeffs)
     tables = []
     for c in range(ncomp):
@@ -109,8 +117,9 @@ def residual_tables(items):
         coeffs = np.zeros(0, np.int16)
         if row_list:
             a = np.asarray(row_list, np.int64)
-            for j, name in enumerate(_ROW_FIELDS):
+            for j, name in enumerate(_ROW_FIELDS[:-1]):
                 rows[name] = a[:, j]
+            rows["rdpcm"] |= TK.ccp_bits(a[:, -1])
             sizes = np.left_shift(1, 2 * a[:, 3])
             rows["off"] = np.cumsum(sizes) - sizes
             c32 = np.concatenate([blk.reshape(-1) for _, blocks in parts[c]
@@ -176,7 +185,8 @@ def _residual_planes_batch_device(items, Bp, device):
     component over the level's flat TU table (residual_tables): flat
     dequant, scaling lists (one matrix table per level, a one-byte row per
     TU) or transquant bypass, each TU with its rotation and RDPCM
-    direction.  One upload holds every component's table and
+    direction, and in 4:4:4 the chroma launches with the luma residual for
+    their CCP rows.  One upload holds every component's table and
     coefficients, one more the scaling matrices where the level has any.
     """
     sps0 = items[0]["sps"]
@@ -191,22 +201,10 @@ def _residual_planes_batch_device(items, Bp, device):
                                        dtype=torch.int32, device=device))
     tables, lists = residual_tables(items)
     mats = _MatrixTable(lists, device).tables
+    # luma first: the chroma launches' CCP rows read its finished residual
     for c, table in enumerate(upload_tables(tables, device)):
-        TK.residual_table(res_stacked[c], table, mats)
-    # cross-component prediction (4:4:4), once every luma residual of the
-    # level is final: one K10 launch per chroma component over its TUs of
-    # every size
-    ccp = {}
-    for b, it in enumerate(items):
-        if it["sps"].chroma_format_idc != 3:
-            continue
-        for tu in it["pic"].tu_list:
-            if tu.comp and tu.cross_comp_alpha:
-                ccp.setdefault(tu.comp, []).append(
-                    (b, tu.y, tu.x, tu.w, tu.cross_comp_alpha))
-    for c, rows in sorted(ccp.items()):
-        CK.ccp_apply(res_stacked[c], res_stacked[0],
-                     xfer.up(np.asarray(rows, np.int32), "idx", device))
+        TK.residual_table(res_stacked[c], table, mats,
+                          res_stacked[0] if table.flags & TK.F_CCP else None)
     return res_stacked
 
 

@@ -315,25 +315,18 @@ def _inter_level_gathered(items, stacked_all, res_all, device):
 
 
 def _pcm_level(items, stacked, device):
-    """PCM samples of a level into its zeroed planes, before MC (K9, one
-    launch per component that has PCM blocks)."""
-    per_comp = {}
+    """PCM samples of a level into its zeroed planes, before MC: one packed
+    upload and one K9 launch for every component's blocks."""
+    blocks = []
     for b, it in enumerate(items):
         sps = it["sps"]
         for (c, x, y, w, h, samples, bits) in it["pic"].pcm_list:
             bd = sps.bit_depth_luma if c == 0 else sps.bit_depth_chroma
-            per_comp.setdefault(c, []).append(
-                ((b, x, y, w, h, bd - bits),
-                 np.asarray(samples, np.int16).reshape(-1)))
-    for c, blks in sorted(per_comp.items()):
-        sizes = [len(s) for _, s in blks]
-        offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]])
-        PK.pcm_scatter(
-            stacked[c],
-            xfer.up(np.asarray([row for row, _ in blks], np.int32), "pcm",
-                    device),
-            xfer.up(np.concatenate([s for _, s in blks]), "pcm", device),
-            xfer.up(offsets.astype(np.int32), "pcm", device))
+            blocks.append((c, b, x, y, w, h, bd - bits, samples))
+    if blocks:
+        buf, counts = PK.pcm_pack(blocks)
+        PK.pcm_level(stacked, PK.pcm_table(xfer.up(buf, "pcm", device),
+                                           counts))
 
 
 # ---------------------------------------------------------------------------

@@ -5,13 +5,14 @@ device->host picture download are the communication layer of the decoder,
 so their byte counts are a first-class metric.
 
 Counters are process-global plain ints; reset() before a run, then read
-H2D/D2H.
+H2D/D2H (bytes), BY_TAG (bytes by tag) and UPLOADS (copies by tag).
 """
 import torch
 
 H2D = 0
 D2H = 0
 BY_TAG = {}
+UPLOADS = {}
 
 
 def reset():
@@ -19,6 +20,7 @@ def reset():
     H2D = 0
     D2H = 0
     BY_TAG.clear()
+    UPLOADS.clear()
 
 
 def up(a, tag, device):
@@ -26,6 +28,7 @@ def up(a, tag, device):
     global H2D
     H2D += a.nbytes
     BY_TAG[tag] = BY_TAG.get(tag, 0) + a.nbytes
+    UPLOADS[tag] = UPLOADS.get(tag, 0) + 1
     return torch.from_numpy(a).to(device)
 
 

@@ -483,8 +483,12 @@ def test_sao_multi_kernel(gpu, sh, lft):
 
 
 def test_restore_and_pcm_kernels(gpu):
-    """K8 and K9 == their plain versions (luma and 4:2:0 chroma grids)."""
+    """K8 == its plain version (luma and 4:2:0 chroma grids); K9 writes a
+    4:2:0 level's luma and both chroma planes in ONE launch, and a 4:2:2
+    level's (w x 2w chroma blocks) in one more, each equal to its plain
+    version, 20 times bit-identical."""
     from libhm_tpu_torch.ops import pcm as PK
+    from pcm_cases import pcm_blocks, plane_shapes
     rng = np.random.default_rng(9)
     B, h4, w4 = 2, 34, 60
     rmask = torch.from_numpy((rng.random((B, h4, w4)) < 0.2)
@@ -499,22 +503,26 @@ def test_restore_and_pcm_kernels(gpu):
         PK.restore_unfiltered(got, pre, rmask, sx=sh, sy=sh)
         PK.restore_unfiltered_plain(want, pre, rmask, sx=sh, sy=sh)
         assert torch.equal(got, want) and not torch.equal(got, planes)
-        rows, samples, offs, o = [], [], [], 0
-        for k in range(28):                   # distinct 32x32 luma cells
-            n = (8, 16, 32)[k % 3] >> sh
-            rows.append((k % B, (k % 7) * (32 >> sh), (k // 7) * (32 >> sh),
-                         n, n, k % 3))
-            samples.append(rng.integers(0, 256, n * n))
-            offs.append(o)
-            o += n * n
-        args = (torch.tensor(rows, dtype=torch.int32, device=gpu),
-                torch.from_numpy(np.concatenate(samples).astype(np.int16))
-                .to(gpu), torch.tensor(offs, dtype=torch.int32, device=gpu))
-        got = torch.zeros((B, Hp, Wp), dtype=torch.int32, device=gpu)
-        want = got.clone()
-        PK.pcm_scatter(got, *args)
-        PK.pcm_scatter_plain(want, *args)
-        assert torch.equal(got, want) and got.any()
+    for fmt in (1, 2):
+        # blocks over a 136 x 240 grid, planes of 128 x 232: the edge
+        # blocks reach past them (4:2:0 chroma rows of 116 samples end
+        # inside a 16-byte store)
+        shapes = plane_shapes(fmt, 3, 128, 232)
+        blocks = pcm_blocks(rng, fmt, 3, 136, 240, share=0.4)
+        blocks.append((0, 3, 0, 0, 8, 8, 0, np.ones((8, 8))))  # padding
+        buf, counts = PK.pcm_pack(blocks)
+        table = PK.pcm_table(torch.from_numpy(buf).to(gpu), counts)
+        want = PK.pcm_level_plain(
+            [torch.zeros(s, dtype=torch.int32, device=gpu) for s in shapes],
+            table)
+        assert all(w.any() for w in want)
+        n0 = PK._K9.launches
+        for _ in range(20):
+            got = PK.pcm_level([torch.zeros(s, dtype=torch.int32, device=gpu)
+                                for s in shapes], table)
+            torch.cuda.synchronize()
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), fmt
+        assert PK._K9.launches == n0 + 20
 
 
 @pytest.mark.parametrize("aligned", [True, False])
@@ -583,30 +591,50 @@ def test_tool_decode_on_gpu(gpu, name, kernel):
 
 
 def test_ccp_kernel(gpu):
-    """K10 == its plain version: every TU size and alpha, TUs on the
-    plane's edges, values at the int16 clip."""
+    """K1's CCP epilogue == its plain version and == the table without
+    alphas then ccp_apply_plain: every TU size, alpha and mode, CCP-only
+    rows, TUs past the plane's edges, values at the int16 clip, with the
+    luma residual aligned (16-byte loads) and 4 bytes off (scalar loads),
+    20 launches bit-identical each."""
+    from ccp_cases import ccp_level
     from libhm_tpu_torch.ops import ccp as CK
-    rng = np.random.default_rng(10)
-    B, H, W = 2, 128, 256
-    res_c = torch.from_numpy(rng.integers(-32768, 32768, (B, H, W))
-                             .astype(np.int32)).to(gpu)
-    res_l = torch.from_numpy(rng.integers(-32768, 32768, (B, H, W))
-                             .astype(np.int32)).to(gpu)
-    cells = [(b, y, x) for b in range(B) for y in range(0, H, 32)
-             for x in range(0, W, 32)]
-    pick = rng.permutation(len(cells))
-    rows = [(cells[pick[k]][0], cells[pick[k]][1] + 32 - n,
-             cells[pick[k]][2] + 32 - n, n, a)
-            for k, (n, a) in enumerate((n, a) for n in (4, 8, 16, 32)
-                                       for a in (-8, -4, -2, -1, 1, 2, 4, 8))]
-    tus = torch.tensor(rows, dtype=torch.int32, device=gpu)
-    got, want = res_c.clone(), res_c.clone()
-    n0 = CK._K10.launches
-    CK.ccp_apply(got, res_l, tus)
-    CK.ccp_apply_plain(want, res_l, tus)
-    torch.cuda.synchronize()
-    assert CK._K10.launches == n0 + 1
-    assert torch.equal(got, want) and not torch.equal(got, res_c)
+    from libhm_tpu_torch.ops import transform as TK
+    B, H, W = 2, 136, 248
+    lv = ccp_level(np.random.default_rng(10), TK.TU_DTYPE, B, H, W,
+                   share=0.5)
+    rows = lv["rows"].copy()
+    rows["rdpcm"] |= TK.ccp_bits(lv["alpha"])
+    rows["flags"] |= np.where(lv["alpha"] != 0, TK.F_CCP, 0).astype(np.uint8)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(gpu)  # noqa
+    table = TK.TuTable(t(rows.view(np.uint8).reshape(-1, 16)),
+                       t(lv["coeffs"]), lv["counts"],
+                       int(np.bitwise_or.reduce(rows["flags"])))
+    bare = TK.TuTable(t(lv["rows"].view(np.uint8).reshape(-1, 16)),
+                      t(lv["coeffs"]), lv["counts"], lv["flags"])
+
+    def zeros():
+        return torch.zeros((B, H, W), dtype=torch.int32, device=gpu)
+    for aligned in (True, False):
+        res_l = t(lv["res_l"])
+        if not aligned:
+            flat = torch.empty(res_l.numel() + 1, dtype=torch.int32,
+                               device=gpu)
+            res_l = flat[1:].view(B, H, W)
+            res_l.copy_(t(lv["res_l"]))
+        want = TK.residual_table_plain(zeros(), table, res_l=res_l)
+        two = CK.ccp_apply_plain(TK.residual_table_plain(zeros(), bare),
+                                 res_l, t(lv["tus"]))
+        assert torch.equal(want, two)
+        assert not torch.equal(want, TK.residual_table_plain(zeros(), bare))
+        n0 = (TK._K1.launches, TK._K1_CCP.launches)
+        for _ in range(20):
+            got = TK.residual_table(zeros(), table, res_l=res_l)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), int((got != want).sum())
+        assert (TK._K1.launches, TK._K1_CCP.launches) == \
+            (n0[0] + 20, n0[1] + 20)
+    with pytest.raises(ValueError, match="epilogue of K1"):
+        CK.ccp_apply(zeros(), res_l, t(lv["tus"]))
 
 
 @pytest.mark.parametrize("bd,ssx,ssy", [(12, 1, 1), (12, 1, 0), (12, 0, 0),
@@ -668,7 +696,7 @@ def test_sao_kernel_rext(gpu, sx, sy):
 
 
 @pytest.mark.parametrize("name,kernel", [
-    ("ccp444_lowdelay_160x96", "_K10"),
+    ("ccp444_lowdelay_160x96", "_K1_CCP"),
     ("main12_intra_416x240", "ctc16"),
     ("rext422_lowdelayP_416x240", "_K5"),
     ("mono_lowdelay_160x96", "_K5")])
@@ -676,11 +704,11 @@ def test_rext_decode_on_gpu(gpu, name, kernel):
     """The RExt goldens match their MD5 through the kernels of their
     chroma format and bit depth (the loop-filter kernel's int16-tc form
     for "ctc16")."""
-    from libhm_tpu_torch.ops import ccp as CK
     from libhm_tpu_torch.ops import interp as MK
     from libhm_tpu_torch.ops import loopfilter as LF
+    from libhm_tpu_torch.ops import transform as TK
     from libhm_tpu_torch.parallel import dag_decode as DD
-    k = LF.FORMS.get(kernel) or next(getattr(m, kernel) for m in (CK, MK)
+    k = LF.FORMS.get(kernel) or next(getattr(m, kernel) for m in (TK, MK)
                                      if hasattr(m, kernel))
     k.launches = 0
     data = open(os.path.join(ROOT, "testdata", GOLD[name]["bitstream"]),

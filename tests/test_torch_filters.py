@@ -3,7 +3,7 @@
 The luma and chroma deblocking passes, the port's map-driven wrappers in
 both edge directions (against the JAX _filter_fn layout), sao_component
 for band offset and the four edge-offset classes and in its multi-slice/
-tile form, and the plain versions of the restore (K8) and PCM scatter (K9)
+tile form, and the plain versions of the restore (K8) and PCM level (K9)
 kernels against their JAX formulations.  Integer arithmetic throughout:
 exact equality (tolerance 0).
 """
@@ -274,28 +274,28 @@ def test_restore_unfiltered_plain(sx, sy):
 
 
 def test_pcm_scatter_plain():
-    """K9's plain version (one block table per component) == the JAX
-    per-block scatters of dag_decode._recon_levels, including a reduced
-    PCM bit depth (a nonzero shift)."""
+    """K9's plain version, through the one-launch level entry point
+    (pcm_pack, pcm_level) == the JAX per-block scatters of
+    dag_decode._recon_levels, including a reduced PCM bit depth (a nonzero
+    shift).  The blocks sit in distinct 32x32 cells: PCM blocks of a
+    picture never overlap, and the kernel writes them in no order."""
     rng = np.random.RandomState(60)
     B, Hp, Wp = 2, 64, 96
-    blocks, samples, offsets, o = [], [], [], 0
+    cells = rng.permutation(B * (Hp // 32) * (Wp // 32))
+    blocks = []
     for k in range(9):
         n = (8, 16, 32)[k % 3] >> (k % 2)     # 4..32
-        b, y, x = k % B, rng.randint(0, Hp // n) * n, rng.randint(0, Wp // n) * n
+        cell = cells[k]
+        b, y, x = cell // 6, cell % 6 // 3 * 32, cell % 3 * 32
         bits = (8, 5)[k % 2]
-        blocks.append((b, x, y, n, n, 8 - bits))
-        samples.append(rng.randint(0, 1 << bits, size=n * n))
-        offsets.append(o)
-        o += n * n
+        blocks.append((0, b, x, y, n, n, 8 - bits,
+                       rng.randint(0, 1 << bits, size=n * n)))
     stacked = jnp.zeros((B, Hp, Wp), jnp.int32)
-    for (b, x, y, w, h, shift), s in zip(blocks, samples):
+    for _, b, x, y, w, h, shift, s in blocks:
         blk = np.asarray(s, np.int32).reshape(h, w) << shift
         stacked = stacked.at[b, y:y + h, x:x + w].set(jnp.asarray(blk))
-    got = PS.pcm_scatter(torch.zeros((B, Hp, Wp), dtype=torch.int32),
-                         torch.tensor(blocks, dtype=torch.int32),
-                         torch.from_numpy(np.concatenate(samples)
-                                          .astype(np.int16)),
-                         torch.tensor(offsets, dtype=torch.int32))
+    buf, counts = PS.pcm_pack(blocks)
+    got, = PS.pcm_level([torch.zeros((B, Hp, Wp), dtype=torch.int32)],
+                        PS.pcm_table(torch.from_numpy(buf), counts))
     assert np.asarray(stacked).any()
     _eq(stacked, got)

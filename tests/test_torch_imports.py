@@ -149,7 +149,7 @@ def test_wrappers_refuse_cpu_tensors():
 def test_build_rule_sees_every_source():
     from libhm_tpu_torch.kernels import build
     names = sorted(os.path.basename(s) for s in build._sources())
-    assert names == ["ccp.cu", "checksum.cu", "errors.cu", "intra.cu",
+    assert names == ["checksum.cu", "errors.cu", "intra.cu",
                      "loopfilter.cu", "mc.cu", "pcm.cu", "probe.cu",
                      "residual.cu"]
     assert build.LIB_PATH.startswith(os.path.join(PKG, "_build"))

@@ -138,8 +138,8 @@ def test_mixed_level_builds_one_table_per_component(monkeypatch):
                         lambda a, tag, dev: ups.append(tag) or
                         real_up(a, tag, dev))
     monkeypatch.setattr(TK, "residual_table",
-                        lambda p, t, m=None: calls.append(t.counts) or
-                        real_k1(p, t, m))
+                        lambda p, t, m=None, r=None: calls.append(t.counts)
+                        or real_k1(p, t, m, r))
     level = _items("customsl_lowdelay_160x96")[:3]
     TB._residual_planes_batch_device(level, len(level), CPU)
     assert ups == ["coeff", "coeff"] and len(calls) == 3

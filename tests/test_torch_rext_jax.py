@@ -1,6 +1,7 @@
 """The port's RExt pieces equal the JAX package's, exactly, on the CPU.
 
-- ccp_apply's plain version (K10) against JAX _ccp_fn on seeded planes:
+- ccp_apply's plain version (CCP, K1's epilogue on the card) against JAX
+  _ccp_fn on seeded planes:
   every TU size and alpha, TUs touching the plane's right and bottom
   edges, values driven into the int16 clip;
 - the residual planes of ccp444_lowdelay_160x96 (cross-component
@@ -75,7 +76,7 @@ def test_ccp_residual_planes_equal_jax():
     from libhm_tpu.hostdec.decoder import Decoder as JaxDecoder
     from libhm_tpu.parallel import batch_decode as JB
     from libhm_tpu_torch.hostdec.decoder import Decoder
-    from libhm_tpu_torch.ops import ccp as CK
+    from libhm_tpu_torch.ops import transform as TK
     from libhm_tpu_torch.parallel import batch_decode as TB
     data = _data("ccp444_lowdelay_160x96")
     dec_t = Decoder(parse="native", recon="collect")
@@ -86,9 +87,9 @@ def test_ccp_residual_planes_equal_jax():
     assert any(tu.comp and tu.cross_comp_alpha
                for it in items_t for tu in it["pic"].tu_list)
     B = len(items_t)
-    n0 = CK._K10.launches
+    n0 = TK._K1_CCP.launches
     got = TB._residual_planes_batch_device(items_t, B, CPU)
-    assert CK._K10.launches == n0          # the plain version on the CPU
+    assert TK._K1_CCP.launches == n0       # the plain version on the CPU
     want = JB._residual_planes_batch_device(items_j, B)
     assert len(got) == len(want) == 3
     for g, w in zip(got, want):

@@ -113,6 +113,18 @@ result line is not printed):
       filter's int16-tc form on the 12-bit one;
     - decode_streams over two 4:2:0 streams of one geometry, one of them
       twice: each stream's MD5;
+    - the multi-device decode (multidevice_phase): the RA 1080p stream
+      through decode_batch and decode_batch_device with
+      devices=["cuda:0", "cuda:0"] (each level's pictures split into
+      contiguous shards of ceil(B / 2)): golden MD5, K1, K2, K5 and
+      loop-filter launches equal to predicted_launches, the checksum from
+      one K7 launch per entry; intra_main10_1080p through
+      decode_intra_batch on the same list; decode_streams of four 416x240
+      streams over cuda:{i % count}; tids4_ra_160x96 and
+      randomaccess_416x240 over ["cuda:0", "cpu"], with the references
+      crossing devices as counted peer copies; on a host with several
+      cards the same over one entry per card and dryrun_multidevice;
+      decode_batch fps with one entry and with each list, in turn;
  5. timed runs of the RA stream, of the tool stream and of the 4:2:2
     stream (every picture's hash SEI checked OK for the last two), and a
     breakdown (cProfile, torch.profiler) of the RA stream, with the intra
@@ -1441,7 +1453,7 @@ def breakdown(data, card):
     t0 = time.monotonic()
     prof.enable()
     try:
-        DD._recon_levels(its, cuda)
+        DD._recon_levels(its, [cuda])
         torch.cuda.synchronize()
     finally:
         prof.disable()
@@ -1473,7 +1485,7 @@ def breakdown(data, card):
     TK._K1.launches = MK._K5.launches = LF._LF.launches = 0
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    _, dev = device_events(lambda: DD._recon_levels(its, cuda))
+    _, dev = device_events(lambda: DD._recon_levels(its, [cuda]))
     wall = time.monotonic() - t0
     k1_k5 = (TK._K1.launches, MK._K5.launches, LF._LF.launches)
     total = sum(us for us, _ in dev.values())
@@ -1577,6 +1589,247 @@ def check_real_level(cap, card):
                              "plain version")
 
 
+# the single-pass K3/K4 entry points: no decode path launches them
+SINGLE_PASS = ["deblock_luma", "deblock_chroma", "deblock_chroma16",
+               "sao_apply", "sao_apply_multi"]
+K1_K4 = ["residual_scatter", "intra_wavefront", "loop_filter_level"]
+
+
+def kernel_counters():
+    """(kernels, counters): each kernel entry point's launch counter by
+    name, and the same with the level kernel's forms (counted with its
+    launches)."""
+    from libhm_tpu_torch.ops import checksum as CK
+    from libhm_tpu_torch.ops import deblock as DK
+    from libhm_tpu_torch.ops import interp as MK
+    from libhm_tpu_torch.ops import intra as IK
+    from libhm_tpu_torch.ops import loopfilter as LF
+    from libhm_tpu_torch.ops import pcm as PK
+    from libhm_tpu_torch.ops import sao as SK
+    from libhm_tpu_torch.ops import transform as TK
+    kernels = {"residual_scatter": TK._K1,
+               "residual_scatter_scaled": TK._K1_SCAL,
+               "residual_bypass": TK._K1_BYPASS, "intra_wavefront": IK._K2,
+               "loop_filter_level": LF._LF,
+               "deblock_luma": DK._K3_LUMA, "deblock_chroma": DK._K3_CHROMA,
+               "sao_apply": SK._K4, "sao_apply_multi": SK._K4_MULTI,
+               "mc_grid": MK._K5, "mc_weighted": MK._K6,
+               "plane_checksum": CK._K7, "restore_unfiltered": PK._K8,
+               "pcm_level": PK._K9, "deblock_chroma16": DK._K3_CHROMA16,
+               "residual_table_ccp": TK._K1_CCP}
+    return kernels, dict(kernels, loop_filter_multi=LF.FORMS["multi"],
+                         loop_filter_ctc16=LF.FORMS["ctc16"])
+
+
+def run_path(label, fn, needed):
+    """Run one main path with the launch counters from 0 and the
+    reference-DAG levels it reconstructs counted, and the shards of them
+    that run on the card (one per level on one device): every kernel of
+    `needed` launched, K1 and K2 at most once per component and shard,
+    the loop-filter kernel exactly once per shard and no single-pass
+    K3/K4 entry point."""
+    import torch
+    from libhm_tpu_torch.parallel import dag_decode as DD
+    counters = kernel_counters()[1]
+    levels_of, shard_of = DD.reference_levels, DD._recon_shard
+    seen, on_card = [], []
+
+    def counted(items):
+        out = levels_of(items)
+        seen.append(len(out))
+        return out
+
+    def shard(items, sps0, device, download):
+        on_card.append(device.type == "cuda")
+        return shard_of(items, sps0, device, download)
+    for k in counters.values():
+        k.launches = 0
+    DD.reference_levels, DD._recon_shard = counted, shard
+    try:
+        out = fn()
+    finally:
+        DD.reference_levels, DD._recon_shard = levels_of, shard_of
+    torch.cuda.synchronize()
+    counts = {nm: k.launches for nm, k in counters.items()}
+    idle = [nm for nm in needed if counts[nm] == 0]
+    if idle:
+        raise AssertionError(f"{label}: kernels never launched: {idle}")
+    n = sum(on_card)
+    for k in ("intra_wavefront", "residual_scatter"):
+        if counts[k] > 3 * n and n:
+            raise AssertionError(f"{label}: {counts[k]} {k} launches over "
+                                 f"{n} shards on the card")
+    if n and (counts["loop_filter_level"] != n or
+              any(counts[k] for k in SINGLE_PASS)):
+        raise AssertionError(f"{label}: loop-filter launches {counts} over "
+                             f"{n} shards on the card")
+    log(f"{label}: {sum(seen)} DAG levels, {len(on_card)} shards ({n} on "
+        f"the card), launches {counts}")
+    return out, counts
+
+
+def predicted_launches(items, m):
+    """What a decode of collect `items` with m device entries launches,
+    from the parse: each level splits into contiguous shards of
+    ceil(B / m) pictures (sliced here, not by dag_decode._shards, so the
+    count does not lean on the code under test), each making one K1
+    launch per component with a TU, one K2 launch per component with an
+    intra block, one K5 launch per component where a picture has an inter
+    PU (streams without WP) and one loop-filter launch.  Returns
+    (launches by kernel name, shards, entries that get a picture)."""
+    from libhm_tpu_torch.parallel import dag_decode as DD
+    ncomp = 3 if items[0]["sps"].chroma_format_idc else 1
+    want = dict.fromkeys(K1_K4 + ["mc_grid"], 0)
+    shards, holders = 0, set()
+    for lv in DD.reference_levels(items):
+        per = -(-len(lv) // m)
+        for k in range(-(-len(lv) // per)):
+            pics = [it["pic"] for it in lv[k * per:(k + 1) * per]]
+            shards += 1
+            holders.add(k)
+            want["residual_scatter"] += len({tu.comp for p in pics
+                                             for tu in p.tu_list})
+            want["intra_wavefront"] += len({b.comp for p in pics
+                                            for b in p.intra_list})
+            want["mc_grid"] += ncomp * any(p.inter_list for p in pics)
+            want["loop_filter_level"] += 1
+    return want, shards, len(holders)
+
+
+def outs_md5(outs):
+    return hashlib.md5(b"".join(p.tobytes() for pic in outs
+                                for p in pic)).hexdigest()
+
+
+def multidevice_phase(gold, card):
+    """The multi-device decode: devices= lists on the four whole-stream
+    entry points, each level's pictures split into contiguous shards of
+    ceil(B / m) over the m entries.  Two entries on one card, a mixed
+    card + CPU list (references cross devices as counted peer copies),
+    and, on a host with several cards, one entry per card; the launches
+    of each split against predicted_launches, fps beside one device."""
+    import torch
+    from libhm_tpu_torch import entry
+    from libhm_tpu_torch.hostdec.decoder import Decoder
+    from libhm_tpu_torch.parallel import dag_decode as DD
+    from libhm_tpu_torch.parallel.batch_decode import decode_intra_batch
+    from libhm_tpu_torch.utils import xfer
+
+    def read(name):
+        return open(os.path.join(ROOT, "testdata", gold[name]["bitstream"]),
+                    "rb").read()
+    count = torch.cuda.device_count()
+    data = read(STREAM)
+    md5 = gold[STREAM]["decoded_yuv_md5"]
+    dec = Decoder(parse="native", recon="collect")
+    dec.decode_annexb(data)
+    items = dec.collected
+    del dec
+    two = ["cuda:0", "cuda:0"]
+    cards = [f"cuda:{i}" for i in range(count)]
+    lists = [two] + ([cards] if count > 1 else [])
+
+    for devs in lists:
+        want, shards, holders = predicted_launches(items, len(devs))
+        xfer.reset()
+        outs, counts = run_path(
+            f"{STREAM} decode_batch devices={devs}",
+            lambda: DD.decode_batch(data, devices=devs),
+            K1_K4 + ["mc_grid"])
+        got = {k: counts[k] for k in want}
+        if outs_md5(outs) != md5 or got != want:
+            raise AssertionError(f"decode_batch devices={devs}: MD5 "
+                                 f"{outs_md5(outs)}, launches {got}, "
+                                 f"predicted {want}")
+        peer = (xfer.UPLOADS.get("peer", 0), xfer.BY_TAG.get("peer", 0))
+        if (peer[0] > 0) != (len(set(devs)) > 1):
+            raise AssertionError(f"decode_batch devices={devs}: peer copies "
+                                 f"{peer}")
+        log(f"decode_batch {STREAM} devices={devs}: MD5 matches golden; "
+            f"{shards} shards, launches {got} as predicted; peer copies "
+            f"{peer[0]} ({peer[1] / 1e6:.3f} MB); H2D uploads "
+            f"{sum(v for k, v in xfer.UPLOADS.items() if k != 'peer')}")
+        xfer.reset()
+        (_, _, csum, n), counts = run_path(
+            f"{STREAM} decode_batch_device devices={devs}",
+            lambda: DD.decode_batch_device(data, devices=devs),
+            K1_K4 + ["mc_grid", "plane_checksum"])
+        if csum != DD.cropped_checksum(outs) or n != len(items) or \
+                xfer.D2H != 4 * holders or \
+                counts["plane_checksum"] != holders:
+            raise AssertionError(f"decode_batch_device devices={devs}: "
+                                 f"checksum {csum}, {n} pictures, D2H "
+                                 f"{xfer.D2H}, K7 {counts['plane_checksum']}")
+        log(f"decode_batch_device {STREAM} devices={devs}: checksum {csum} "
+            f"equals cropped_checksum; K7 {holders} launches, D2H "
+            f"{xfer.D2H} bytes")
+        del outs
+    del items
+
+    dps, _ = run_path(
+        f"{INTRA} decode_intra_batch devices={two}",
+        lambda: decode_intra_batch(read(INTRA), devices=two,
+                                   check_sei_hash=True), K1_K4)
+    got = hashlib.md5(b"".join(p.tobytes() for dp in dps
+                               for p in dp.cropped())).hexdigest()
+    statuses = [dp.hash_status for dp in dps]
+    if got != gold[INTRA]["decoded_yuv_md5"] or \
+            statuses != ["OK"] * gold[INTRA]["frames"]:
+        raise AssertionError(f"decode_intra_batch devices={two}: MD5 {got}, "
+                             f"hash SEIs {statuses}")
+    log(f"decode_intra_batch {INTRA} devices={two}: MD5 matches golden, "
+        "every hash SEI OK")
+    del dps
+
+    four = [f"cuda:{i % count}" for i in range(4)]
+    names = MULTI + (DEC_APP,)
+    outs, _ = run_path(
+        f"decode_streams {' + '.join(names)} devices={four}",
+        lambda: DD.decode_streams([read(nm) for nm in names], devices=four,
+                                  check_sei_hash=True, threads=2),
+        K1_K4 + ["mc_grid"])
+    for nm, o in zip(names, outs):
+        if len(o) != gold[nm]["frames"] or \
+                outs_md5(o) != gold[nm]["decoded_yuv_md5"]:
+            raise AssertionError(f"decode_streams devices={four}: {nm} MD5 "
+                                 f"{outs_md5(o)}")
+    log(f"decode_streams devices={four}: {len(names)} streams, each MD5 "
+        "matches golden")
+    del outs
+
+    # references that cross devices for real: every level of two or more
+    # pictures splits over the card and the host
+    mixed = ["cuda:0", "cpu"]
+    for name in ("tids4_ra_160x96", "randomaccess_416x240"):
+        xfer.reset()
+        outs, _ = run_path(f"{name} decode_batch devices={mixed}",
+                           lambda: DD.decode_batch(read(name), devices=mixed),
+                           ["residual_scatter", "loop_filter_level"])
+        peer = (xfer.UPLOADS.get("peer", 0), xfer.BY_TAG.get("peer", 0))
+        if outs_md5(outs) != gold[name]["decoded_yuv_md5"] or not peer[0]:
+            raise AssertionError(f"decode_batch {name} devices={mixed}: MD5 "
+                                 f"{outs_md5(outs)}, peer copies {peer}")
+        log(f"decode_batch {name} devices={mixed}: MD5 matches golden; peer "
+            f"copies {peer[0]} ({peer[1]} bytes)")
+    if count > 1:
+        log(f"dryrun_multidevice({count}): "
+            f"{entry.dryrun_multidevice(count)} MD5s match golden")
+
+    # fps with one device and with each list, in one call (host phases
+    # vary between calls), one list after another and back
+    order = [["cuda:0"]] + lists
+    for devs in order + order[::-1]:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        outs = DD.decode_batch(data, devices=devs)
+        secs = time.monotonic() - t0
+        if outs_md5(outs) != md5:
+            raise AssertionError(f"timed decode_batch devices={devs}: MD5")
+        log(f"timed decode_batch {STREAM} devices={devs} ({card}): "
+            f"{secs:.3f} s with the parse, {len(outs) / secs:.3f} fps")
+        del outs
+
+
 def check_exact(label, data, counts, per_picture=False):
     """K9 launches and `pcm` uploads (xfer, reset before the run) against
     the levels with a PCM block, and K1 launches with CCP rows against the
@@ -1647,7 +1900,7 @@ def timed_run(name, data, md5, card, check_sei_hash=False):
                   check_sei_hash=check_sei_hash)
     dec.decode_annexb(data)
     t1 = time.monotonic()
-    pending = DD._recon_levels(dec.collected, torch.device("cuda"))
+    pending = DD._recon_levels(dec.collected, [torch.device("cuda")])
     torch.cuda.synchronize()
     t2 = time.monotonic()
     outs = DD._materialize(dec, pending, check_sei_hash)
@@ -1774,76 +2027,16 @@ def main():
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
 
     # ---- the main paths, counters reset just before each ----
-    from libhm_tpu_torch.ops import checksum as CK
-    from libhm_tpu_torch.ops import deblock as DK
-    from libhm_tpu_torch.ops import interp as MK
-    from libhm_tpu_torch.ops import intra as IK
-    from libhm_tpu_torch.ops import loopfilter as LF
-    from libhm_tpu_torch.ops import pcm as PK
-    from libhm_tpu_torch.ops import sao as SK
-    from libhm_tpu_torch.ops import transform as TK
     from libhm_tpu_torch.parallel import dag_decode as DD
     from libhm_tpu_torch.utils import xfer
-    kernels = {"residual_scatter": TK._K1,
-               "residual_scatter_scaled": TK._K1_SCAL,
-               "residual_bypass": TK._K1_BYPASS, "intra_wavefront": IK._K2,
-               "loop_filter_level": LF._LF,
-               "deblock_luma": DK._K3_LUMA, "deblock_chroma": DK._K3_CHROMA,
-               "sao_apply": SK._K4, "sao_apply_multi": SK._K4_MULTI,
-               "mc_grid": MK._K5, "mc_weighted": MK._K6,
-               "plane_checksum": CK._K7, "restore_unfiltered": PK._K8,
-               "pcm_level": PK._K9, "deblock_chroma16": DK._K3_CHROMA16,
-               "residual_table_ccp": TK._K1_CCP}
-    # the single-pass K3/K4 entry points: no decode path launches them
-    single_pass = ["deblock_luma", "deblock_chroma", "deblock_chroma16",
-                   "sao_apply", "sao_apply_multi"]
-    # the level kernel's forms, counted with its launches
-    counters = dict(kernels, loop_filter_multi=LF.FORMS["multi"],
-                    loop_filter_ctc16=LF.FORMS["ctc16"])
-    k1_k4 = ["residual_scatter", "intra_wavefront", "loop_filter_level"]
-
-    levels_of = DD.reference_levels
-
-    def run_path(label, fn, needed):
-        """Run one main path with the launch counters from 0 and the
-        reference-DAG levels it reconstructs counted: every kernel of
-        `needed` launched, K2 at most once per component and level."""
-        seen = []
-
-        def counted(items):
-            out = levels_of(items)
-            seen.append(len(out))
-            return out
-        for k in counters.values():
-            k.launches = 0
-        DD.reference_levels = counted
-        try:
-            out = fn()
-        finally:
-            DD.reference_levels = levels_of
-        torch.cuda.synchronize()
-        counts = {nm: k.launches for nm, k in counters.items()}
-        idle = [nm for nm in needed if counts[nm] == 0]
-        if idle:
-            raise AssertionError(f"{label}: kernels never launched: {idle}")
-        for k in ("intra_wavefront", "residual_scatter"):
-            if counts[k] > 3 * sum(seen) and sum(seen):
-                raise AssertionError(f"{label}: {counts[k]} {k} launches "
-                                     f"over {sum(seen)} DAG levels")
-        # one loop-filter launch per level, no single-pass one
-        if sum(seen) and (counts["loop_filter_level"] != sum(seen) or
-                          any(counts[k] for k in single_pass)):
-            raise AssertionError(f"{label}: loop-filter launches "
-                                 f"{counts} over {sum(seen)} DAG levels")
-        log(f"{label}: {sum(seen)} DAG levels, launches {counts}")
-        return out, counts
+    kernels = kernel_counters()[0]
 
     launches = {}
     # the per-picture path: HmDecoder (push a NAL, pull pictures), each
     # picture reconstructed on the card as soon as it is parsed
     _, counts = run_path(f"{STREAM} HmDecoder",
                          lambda: picture_main_path(data, gold, card),
-                         k1_k4 + ["mc_grid"])
+                         K1_K4 + ["mc_grid"])
     launches["row14"] = counts["intra_wavefront"]
     launches["row15"] = counts["mc_grid"] + counts["loop_filter_level"]
     for name, modes in PICTURE_SMALL.items():
@@ -1880,7 +2073,7 @@ def main():
     t0 = time.monotonic()
     (n, outs), counts = run_path(f"{UHD} decode_batch",
                                  lambda: decode_md5(UHD, gold),
-                                 k1_k4 + ["mc_grid"])
+                                 K1_K4 + ["mc_grid"])
     secs = time.monotonic() - t0
     peak = torch.cuda.max_memory_allocated() - base
     # what decode_batch holds by design: every picture's int32 planes and
@@ -1922,7 +2115,7 @@ def main():
     dps, _ = run_path(f"{INTRA} decode_intra_batch",
                       lambda: decode_intra_batch(intra_data,
                                                  check_sei_hash=True),
-                      k1_k4)
+                      K1_K4)
     md5 = hashlib.md5(b"".join(p.tobytes() for dp in dps
                                for p in dp.cropped())).hexdigest()
     statuses = [dp.hash_status for dp in dps]
@@ -1944,14 +2137,14 @@ def main():
     try:
         (npics, ra_outs), counts = run_path(
             f"{STREAM} decode_batch", lambda: decode_md5(STREAM, gold),
-            k1_k4 + ["mc_grid"])
+            K1_K4 + ["mc_grid"])
     finally:
         capture.remove()
     check_real_level(capture, card)
     del capture
     log(f"{STREAM}: {npics} pictures, MD5 matches golden")
-    launches.update({k: counts[k] for k in k1_k4 + ["mc_grid"] +
-                     single_pass})
+    launches.update({k: counts[k] for k in K1_K4 + ["mc_grid"] +
+                     SINGLE_PASS})
     (n, _), counts = run_path(f"{WP} decode_batch",
                               lambda: decode_md5(WP, gold), ["mc_weighted"])
     launches["mc_weighted"] = counts["mc_weighted"]
@@ -1965,7 +2158,7 @@ def main():
     (parse_s, comp_s, csum, n), counts = run_path(
         f"{STREAM} decode_batch_device",
         lambda: DD.decode_batch_device(data, device="cuda"),
-        k1_k4 + ["mc_grid", "plane_checksum"])
+        K1_K4 + ["mc_grid", "plane_checksum"])
     want = DD.cropped_checksum(ra_outs)
     if csum != want or n != npics or xfer.D2H != 4 or \
             "checksum" in xfer.BY_TAG or counts["plane_checksum"] != 1:
@@ -1986,7 +2179,7 @@ def main():
 
     for name in (INTRA,) + SMALL:
         (n, _), _ = run_path(f"{name} decode_batch",
-                             lambda: decode_md5(name, gold), k1_k4)
+                             lambda: decode_md5(name, gold), K1_K4)
         log(f"{name}: {n} pictures, MD5 matches golden")
 
     # the tools path: several slices and tiles, scaling lists (1080p), then
@@ -2032,13 +2225,13 @@ def main():
     (n, rext_outs), counts = run_path(
         f"{REXT} decode_batch",
         lambda: decode_md5(REXT, ports, check_sei_hash=True),
-        k1_k4 + ["mc_grid"])
+        K1_K4 + ["mc_grid"])
     log(f"{REXT}: {n} pictures, MD5 matches port_streams.json")
     xfer.reset()
     (parse_s, comp_s, csum, n), _ = run_path(
         f"{REXT} decode_batch_device",
         lambda: DD.decode_batch_device(rext_data, device="cuda"),
-        k1_k4 + ["mc_grid", "plane_checksum"])
+        K1_K4 + ["mc_grid", "plane_checksum"])
     want = DD.cropped_checksum(rext_outs)
     if csum != want or n != len(rext_outs) or xfer.D2H != 4:
         raise AssertionError(f"{REXT} decode_batch_device: checksum {csum} "
@@ -2064,7 +2257,7 @@ def main():
         lambda: DD.decode_streams(
             [open(os.path.join(ROOT, "testdata", b), "rb").read()
              for b in multi], device="cuda", threads=2),
-        k1_k4 + ["mc_grid"])
+        K1_K4 + ["mc_grid"])
     for nm, o in zip(MULTI, outs):
         md5 = hashlib.md5(b"".join(p.tobytes() for pic in o
                                    for p in pic)).hexdigest()
@@ -2073,6 +2266,7 @@ def main():
     log(f"decode_streams: {len(MULTI)} streams in one reconstruction, each "
         "MD5 matches golden")
     del outs
+    multidevice_phase(gold, card)
 
     # ---- timed runs: parse and device phases ----
     timed_run(STREAM, data, gold[STREAM]["decoded_yuv_md5"], card)

@@ -17,9 +17,15 @@ versions for CPU tensors (the wrappers choose); `fused_recon_step_plain`
 runs the plain versions on any device.  The arguments are the JAX step's,
 as int32 tensors; the step converts them to the kernels' types and
 layouts (index glue, no sample arithmetic) and leaves them unchanged.
-The multi-device dry run of __graft_entry__.py is not ported: one card
-cannot check it.
+`dryrun_multidevice` ports the multi-device dry run of __graft_entry__.py
+(_dryrun_impl / dryrun_multichip): a golden random-access stream decoded
+with each DAG level's pictures split over a list of devices, asserted
+against its HM MD5.
 """
+import hashlib
+import json
+import os
+
 import numpy as np
 import torch
 
@@ -164,3 +170,46 @@ def _step(k, coeffs16, qp16, coeffs4, qp4, frame, refs, sel, bx, by, mv, bs,
         log2_ctb=LOG2_CTB, hc=hc, wc=wc, W=W, H=H)
     total = k["checksum"]([out[0], res4[0]])
     return _wrap_int32(total), out[0]
+
+
+DRYRUN_STREAM = "tids4_ra_160x96"   # random access, 4 temporal layers
+
+
+def dryrun_multidevice(n_devices, device="cuda"):
+    """Decode DRYRUN_STREAM through decode_batch, and two copies of it
+    through decode_streams, with the picture axis split over `n_devices`
+    list entries, asserting each output's MD5 against testdata/golden.json.
+
+    device="cpu": n_devices entries of "cpu"; "cuda": cuda:{i % count} for
+    i < n_devices over the host's `count` cards (a missing card raises
+    RuntimeError).  Prints the mapping; returns the device list.
+    """
+    from .parallel.dag_decode import (_check_device, decode_batch,
+                                      decode_streams)
+    kind = _check_device(device, "dryrun_multidevice").type
+    if n_devices < 1:
+        raise ValueError("dryrun_multidevice: n_devices must be positive")
+    if kind == "cuda":
+        count = torch.cuda.device_count()
+        devices = [f"cuda:{i % count}" for i in range(n_devices)]
+    else:
+        devices = [kind] * n_devices
+    print(f"dryrun_multidevice: {n_devices} entries -> {devices}")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "testdata", "golden.json")) as f:
+        gold = json.load(f)[DRYRUN_STREAM]
+    with open(os.path.join(root, "testdata", gold["bitstream"]), "rb") as f:
+        data = f.read()
+
+    def md5(outs):
+        return hashlib.md5(b"".join(p.tobytes() for pic in outs
+                                    for p in pic)).hexdigest()
+    got = md5(decode_batch(data, devices=devices))
+    if got != gold["decoded_yuv_md5"]:
+        raise AssertionError(f"multi-device decode of {DRYRUN_STREAM} not "
+                             f"bit-exact: {got} != {gold['decoded_yuv_md5']}")
+    for outs in decode_streams([data, data], devices=devices):
+        if md5(outs) != gold["decoded_yuv_md5"]:
+            raise AssertionError("multi-stream multi-device decode of "
+                                 f"{DRYRUN_STREAM} not bit-exact")
+    return devices

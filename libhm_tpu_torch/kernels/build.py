@@ -11,6 +11,13 @@ Each C entry point takes raw device pointers and the CUDA stream (both as
 `c_void_p`), launches on that stream, and returns `cudaGetLastError()`;
 `Kernel.__call__` raises when that is not 0.  Each `Kernel` counts its
 successful launches in `launches`.
+
+`Kernel.__call__` launches on the current CUDA device's current stream,
+so every wrapper passes its tensors through `check` (or `on_current`),
+which raises for a CUDA tensor on another device: a caller with tensors
+on a second card enters `torch.cuda.device(...)` first.  The kernels keep
+no state of their own on a device (their `__constant__` tables are loaded
+on each device by the CUDA runtime), so one library serves every card.
 """
 import ctypes
 import glob
@@ -131,10 +138,22 @@ def ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def on_current(t, name):
+    """Raise unless the CUDA tensor `t` lies on the current CUDA device,
+    the one whose stream Kernel.__call__ launches on."""
+    cur = torch._C._cuda_getDevice()
+    if t.device.index != cur:
+        raise ValueError(f"{name}: on {t.device}, but the current device is "
+                         f"cuda:{cur}; launch inside "
+                         f"torch.cuda.device({t.device})")
+
+
 def check(t, name, dtype, ndim=None, device=None):
-    """Raise unless `t` is a contiguous CUDA tensor of `dtype`."""
+    """Raise unless `t` is a contiguous CUDA tensor of `dtype` on the
+    current CUDA device."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    on_current(t, name)
     if device is not None and t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if t.dtype != dtype:

@@ -11,7 +11,7 @@ launch: nothing is uploaded.
 import numpy as np
 import torch
 
-from ..kernels.build import I, P, Kernel
+from ..kernels.build import I, P, Kernel, on_current
 
 _K7 = Kernel("plane_checksum", [P, I, P, I])
 MAX_VIEWS = 64                # views one launch takes (csrc/checksum.cu)
@@ -58,6 +58,7 @@ def plane_checksum(views):
         raise ValueError("plane_checksum: no views")
     if not views[0].is_cuda:
         return plane_checksum_plain(views)
+    on_current(views[0], "plane_checksum: views[0]")
     chunks = view_chunks(views)
     acc = torch.empty(1, dtype=torch.int32, device=views[0].device)
     if not chunks:

@@ -22,7 +22,7 @@ import array
 
 import torch
 
-from ..kernels.build import I, P, Kernel
+from ..kernels.build import I, P, Kernel, on_current
 
 PASS_V, PASS_H, PASS_SAO = 1, 2, 4   # mask bits: V edges, H edges, SAO
 
@@ -121,6 +121,7 @@ def loop_filter_level(planes, maps, *, mask, bd_l, bd_c, sx, sy, log2_ctb,
             log2_ctb=log2_ctb, hc=hc, wc=wc, W=W, H=H, multi=multi)
     ncomp = len(planes)
     dev = planes[0].device
+    on_current(planes[0], "loop_filter_level: planes[0]")
     B = planes[0].shape[0]
     edges = mask & (PASS_V | PASS_H)
     sao = mask & PASS_SAO

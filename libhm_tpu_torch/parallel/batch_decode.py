@@ -281,10 +281,12 @@ def intra_meta(items, comp, device):
 
 
 # ---------------------------------------------------------------------------
-def decode_intra_batch(data, *, device="cuda", check_sei_hash=False):
+def decode_intra_batch(data, *, device=None, devices=None,
+                       check_sei_hash=False):
     """Decode an all-intra Annex-B stream with every picture in one set of
     launches on `device` (the card by default; the CPU runs the plain torch
-    versions of the kernels).
+    versions of the kernels), or with the pictures split into contiguous
+    shards of ceil(B / m) over the m devices of the list `devices`.
 
     Port of libhm_tpu/parallel/batch_decode.py decode_intra_batch.  An
     all-intra stream is one reference-DAG level, so this is
@@ -297,10 +299,10 @@ def decode_intra_batch(data, *, device="cuda", check_sei_hash=False):
     with inter pictures or with mixed picture geometry.
     """
     from ..hostdec.decoder import Decoder
-    from .dag_decode import (_check_device, _check_geometry, _materialize,
+    from .dag_decode import (_check_devices, _check_geometry, _materialize,
                              _recon_levels)
 
-    device = _check_device(device, "decode_intra_batch")
+    devices = _check_devices(device, devices, "decode_intra_batch")
     # the hash SEIs are kept only when the control plane checks them
     dec = Decoder(parse="native", recon="collect",
                   check_sei_hash=check_sei_hash)
@@ -313,7 +315,7 @@ def decode_intra_batch(data, *, device="cuda", check_sei_hash=False):
             raise ValueError("decode_intra_batch: stream has inter "
                              "pictures; batching needs an all-intra stream")
     _check_geometry(items, "decode_intra_batch")
-    _materialize(dec, _recon_levels(items, device), check_sei_hash)
+    _materialize(dec, _recon_levels(items, devices), check_sei_hash)
     dps = [it["dp"] for it in items]
     for dp in dps:
         # the caller gets host pictures; nothing else reads these planes

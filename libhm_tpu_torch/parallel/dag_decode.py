@@ -22,10 +22,16 @@ stay on the device:
 
 Chroma formats 4:0:0 (one plane), 4:2:0, 4:2:2 and 4:4:4 and bit depths
 up to 12 decode; `decode_streams` merges the levels of several streams of
-one geometry into the same launches.  Streams outside the slice (extended
+one geometry into the same launches.  With a `devices=` list, each level's
+pictures split into contiguous shards over the listed devices (the picture
+axis of the JAX `mesh=`), and each device runs the whole pipeline above on
+its shard; a reference made on another device comes over as a counted
+peer copy (xfer.peer).  Streams outside the slice (extended
 precision, bit depths above 12) raise NotImplementedError naming the
 missing piece; nothing falls back to another backend.
 """
+import contextlib
+
 import numpy as np
 import torch
 
@@ -122,9 +128,11 @@ def _level_refs(items):
 
 
 def _ref_stack(ref_objs, c, H, W, device):
-    """[R, H, W] int32 reference planes of component c (no pow2 padding
-    of R: nothing here is keyed by shape)."""
-    return torch.stack([_device_plane(rp, c, H, W, device)
+    """[R, H, W] int32 reference planes of component c on `device` (no
+    pow2 padding of R: nothing here is keyed by shape).  A plane that
+    another device holds comes over as a peer copy, which lives only as
+    long as this stack: nothing caches it on the picture."""
+    return torch.stack([xfer.peer(_device_plane(rp, c, H, W, device), device)
                         for rp in ref_objs])
 
 
@@ -330,50 +338,89 @@ def _pcm_level(items, stacked, device):
 
 
 # ---------------------------------------------------------------------------
-def _recon_levels(items, device, download=True):
+def _shards(lv_items, n):
+    """Contiguous shards of ceil(B / n) pictures of one level's B pictures,
+    as (k, items) for the k-th of n devices; devices past the last shard
+    get none.  This is how the JAX mesh lays a level's picture axis out
+    over its devices (NamedSharding over axis 0), without the padding."""
+    per = -(-len(lv_items) // n)
+    return [(k, lv_items[k * per:(k + 1) * per]) for k in range(n)
+            if k * per < len(lv_items)]
+
+
+def _on(device):
+    """The context that makes a CUDA `device` current (kernels launch on
+    the current device's stream); nothing for the CPU."""
+    return torch.cuda.device(device) if device.type == "cuda" else \
+        contextlib.nullcontext()
+
+
+def _recon_levels(items, devices, download=True):
     """Device-resident reconstruction of collect items grouped into
     reference-DAG levels.  Returns [(dp, item, small_planes)] where
     small_planes are the padded output planes narrowed to int16 on the
     device (downloaded by _materialize).
 
-    Each picture's filtered planes stay on the device as
-    dp._device_planes[(c, H, W)] (views of the level's planes): later
-    levels predict from them with no host round trip.  download=False
-    makes no narrow copies (small_planes empty): decode_batch_device reads
-    the pixels through dp._device_planes.
+    devices: a list of devices: each level's pictures split into
+    contiguous shards (_shards), shard k reconstructed on devices[k] (with
+    that device current), every shard of a level enqueued before the next
+    level starts; item["device_index"] records k.  The pictures of a level
+    are independent, so the outputs do not depend on the split.
+
+    Each picture's filtered planes stay on its device as
+    dp._device_planes[(c, H, W)] (views of the shard's planes): later
+    levels predict from them with no host round trip, through a peer copy
+    when they run on another device.  download=False makes no narrow
+    copies (small_planes empty): decode_batch_device reads the pixels
+    through dp._device_planes.
     """
+    devices = [_as_device(d) for d in devices]
+    _check_slice(items)
+    sps0 = items[0]["sps"]
+    pending = []
+    for lv_items in reference_levels(items):
+        for k, shard in _shards(lv_items, len(devices)):
+            with _on(devices[k]):
+                pending += _recon_shard(shard, sps0, devices[k], download)
+            for it in shard:
+                it["device_index"] = k
+    return pending
+
+
+def _recon_shard(items, sps0, device, download):
+    """One level's pictures `items` through the whole pipeline on `device`:
+    residuals (K1, CCP), PCM (K9), MC (K5 / K6), intra (K2), the loop
+    filter and restore (K8).  sps0: the decode's first SPS, which sets the
+    filters' level-wide parameters."""
     from .batch_decode import _intra_batch, _residual_planes_batch_device
     from .device_filters import filter_level
 
-    _check_slice(items)
-    sps0 = items[0]["sps"]
     ncomp = 3 if sps0.chroma_format_idc else 1
+    B = len(items)
+    res_stacked = _residual_planes_batch_device(items, B, device)
+    stacked = [torch.zeros_like(r) for r in res_stacked]
+    _pcm_level(items, stacked, device)
+    # MC first: intra blocks of inter pictures predict from MC-reconstructed
+    # neighbours
+    _inter_level(items, stacked, res_stacked, device)
+    for c in range(ncomp):
+        stacked[c] = _intra_batch(items, c, stacked[c], res_stacked[c],
+                                  device)
+    stacked = filter_level(items, stacked, sps0, device)
     pending = []
-    for lv_items in reference_levels(items):
-        B = len(lv_items)
-        res_stacked = _residual_planes_batch_device(lv_items, B, device)
-        stacked = [torch.zeros_like(r) for r in res_stacked]
-        _pcm_level(lv_items, stacked, device)
-        # MC first: intra blocks of inter pictures predict from
-        # MC-reconstructed neighbours
-        _inter_level(lv_items, stacked, res_stacked, device)
+    for b, it in enumerate(items):
+        sps = it["sps"]
+        cache = {}
+        small = []
         for c in range(ncomp):
-            stacked[c] = _intra_batch(lv_items, c, stacked[c],
-                                      res_stacked[c], device)
-        stacked = filter_level(lv_items, stacked, sps0, device)
-        for b, it in enumerate(lv_items):
-            sps = it["sps"]
-            cache = {}
-            small = []
-            for c in range(ncomp):
-                sx, sy, _, Wc, Hc = _comp_geometry(sps, c)
-                cache[(c, Hc, Wc)] = stacked[c][b, :Hc, :Wc]
-                if download:
-                    # samples are < 2^12, so int16 holds them (torch's
-                    # uint16 support is thin); _materialize widens back
-                    small.append(stacked[c][b].to(torch.int16))
-            it["dp"]._device_planes = cache
-            pending.append((it["dp"], it, small))
+            sx, sy, _, Wc, Hc = _comp_geometry(sps, c)
+            cache[(c, Hc, Wc)] = stacked[c][b, :Hc, :Wc]
+            if download:
+                # samples are < 2^12, so int16 holds them (torch's uint16
+                # support is thin); _materialize widens back
+                small.append(stacked[c][b].to(torch.int16))
+        it["dp"]._device_planes = cache
+        pending.append((it["dp"], it, small))
     return pending
 
 
@@ -401,26 +448,61 @@ def _materialize(dec, pending, check_sei_hash):
     return dec.outputs
 
 
-def _check_device(device, what):
+def _as_device(device):
+    """torch.device(device) as tensors report it: no index on the CPU, the
+    current device's index for a bare "cuda" where CUDA runs."""
     device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"{what}: CUDA device requested but "
-                           "torch.cuda.is_available() is false")
+    if device.type == "cpu":
+        return torch.device("cpu")
+    if device.type == "cuda" and device.index is None and \
+            torch.cuda.is_available():
+        return torch.device("cuda", torch.cuda.current_device())
     return device
 
 
-def decode_batch(data, *, device="cuda", parse="native",
+def _check_device(device, what):
+    """_as_device(device); RuntimeError for a CUDA device that the host
+    does not have."""
+    device = _as_device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"{what}: CUDA device requested but "
+                               "torch.cuda.is_available() is false")
+        if device.index >= torch.cuda.device_count():
+            raise RuntimeError(f"{what}: {device} requested, the host has "
+                               f"{torch.cuda.device_count()} CUDA devices")
+    return device
+
+
+def _check_devices(device, devices, what):
+    """The device list of an entry point: `devices` when given, else
+    [device], with `device` None read as "cuda"; each entry through
+    _check_device.  ValueError for an empty list or a `device` other than
+    devices[0]."""
+    if devices is None:
+        devices = ["cuda" if device is None else device]
+    devices = [_as_device(d) for d in devices]
+    if not devices:
+        raise ValueError(f"{what}: devices is an empty list")
+    if device is not None and _as_device(device) != devices[0]:
+        raise ValueError(f"{what}: device={device} is not devices[0] = "
+                         f"{devices[0]}")
+    return [_check_device(d, what) for d in devices]
+
+
+def decode_batch(data, *, device=None, devices=None, parse="native",
                  check_sei_hash=False):
     """Decode an Annex-B stream with reference-DAG cross-picture batching
     and a device-resident pixel path on `device` (the card by default; the
-    CPU runs the plain torch versions of the kernels).
+    CPU runs the plain torch versions of the kernels), or with each level's
+    pictures split over the list `devices` (_recon_levels).
 
     Bit-exact vs the JAX decode_batch / the HM hash oracle.  Returns the
     cropped pictures in output order (Decoder.outputs shape).
     """
     from ..hostdec.decoder import Decoder
 
-    device = _check_device(device, "decode_batch")
+    devices = _check_devices(device, devices, "decode_batch")
     dec = Decoder(parse=parse, recon="collect",
                   check_sei_hash=check_sei_hash)
     dec.decode_annexb(data)
@@ -428,20 +510,22 @@ def decode_batch(data, *, device="cuda", parse="native",
     if not items:
         return []
     _check_geometry(items, "decode_batch")
-    pending = _recon_levels(items, device)
+    pending = _recon_levels(items, devices)
     return _materialize(dec, pending, check_sei_hash)
 
 
-def decode_batch_device(data, *, device="cuda", parse="native"):
+def decode_batch_device(data, *, device=None, devices=None, parse="native"):
     """Device-compute decode: host parse + device-resident reconstruction,
-    downloading nothing but one uint32 checksum (K7).
+    downloading nothing but one uint32 checksum (K7) per device.
 
     Port of libhm_tpu/parallel/dag_decode.py decode_batch_device.  The
     decoded pictures stay on the device, as a device-resident consumer
     would use them; the checksum (every conformance-cropped output sample,
     mod 2^32, in DecodedPicture.cropped() geometry, over the bumped output
     list) lets the caller check the run against cropped_checksum of a
-    decode of the same stream.
+    decode of the same stream.  With a `devices` list, K7 runs once on
+    each device over the pictures it reconstructed, and the host adds the
+    partial sums mod 2^32 (4 bytes down per device that holds a picture).
 
     Returns (parse_seconds, compute_seconds, checksum_int, n_pictures).
     """
@@ -449,7 +533,7 @@ def decode_batch_device(data, *, device="cuda", parse="native"):
 
     from ..hostdec.decoder import Decoder
 
-    device = _check_device(device, "decode_batch_device")
+    devices = _check_devices(device, devices, "decode_batch_device")
     dec = Decoder(parse=parse, recon="collect")
     t0 = time.monotonic()
     dec.decode_annexb(data)
@@ -458,8 +542,9 @@ def decode_batch_device(data, *, device="cuda", parse="native"):
     if not items:
         return t1 - t0, 0.0, 0, 0
     _check_geometry(items, "decode_batch_device")
-    pending = _recon_levels(items, device, download=False)
-    views = []
+    pending = _recon_levels(items, devices, download=False)
+    owner = {id(dp): it["device_index"] for dp, it, _ in pending}
+    views = [[] for _ in devices]
     # sum over the bumped output list so the checksum covers exactly the
     # pictures (and geometry) that cropped_checksum(Decoder.outputs) sees
     for dp in dec.output_records:
@@ -474,31 +559,41 @@ def decode_batch_device(data, *, device="cuda", parse="native"):
             mulx = 1 if c else (1 << sps.chroma_shift_x())
             muly = 1 if c else (1 << sps.chroma_shift_y())
             view = dp._device_planes[(c, h, w)]
-            views.append(view[ct * muly:h - cb * muly,
-                              cl * mulx:w - cr * mulx])
+            views[owner[id(dp)]].append(view[ct * muly:h - cb * muly,
+                                             cl * mulx:w - cr * mulx])
+    # every device's launch first, then the reads
+    accs = []
+    for dev, vs in zip(devices, views):
+        if vs:
+            with _on(dev):
+                accs.append(CK.plane_checksum(vs))
     csum = 0
-    if views:
-        acc = CK.plane_checksum(views)
-        csum = int(acc.cpu().item()) & 0xFFFFFFFF
+    for acc in accs:
+        csum = (csum + int(acc.cpu().item())) & 0xFFFFFFFF
         xfer.count_d2h(4)
     t2 = time.monotonic()
     return t1 - t0, t2 - t1, csum, len(pending)
 
 
-def decode_streams(datas, *, device="cuda", threads=0):
+def decode_streams(datas, *, device=None, devices=None, parse="native",
+                   check_sei_hash=False, threads=0):
     """Decode several independent Annex-B streams of one picture geometry
-    with their pictures batched into shared launches on `device`.
+    with their pictures batched into shared launches on `device`, or split
+    over the list `devices` as decode_batch splits them.
 
-    Port of libhm_tpu/parallel/dag_decode.py decode_streams (no mesh: one
-    device).  The control planes parse independently with the native
-    parser (in `threads` host threads when > 0); reconstruction merges every stream's reference-DAG
-    levels, so level i of all streams reconstructs in one set of launches.
-    Returns a list of per-stream output lists (each = decode_batch(data)).
+    Port of libhm_tpu/parallel/dag_decode.py decode_streams.  The control
+    planes parse independently (in `threads` host threads when > 0), each
+    checking its pictures' hash SEIs when `check_sei_hash` (the statuses
+    in each DecodedPicture's hash_status); reconstruction merges every
+    stream's reference-DAG levels, so level i of all streams reconstructs
+    in one set of launches per device.  Returns a list of per-stream
+    output lists (each = decode_batch(data)).
     """
     from ..hostdec.decoder import Decoder
 
-    device = _check_device(device, "decode_streams")
-    decs = [Decoder(parse="native", recon="collect") for _ in datas]
+    devices = _check_devices(device, devices, "decode_streams")
+    decs = [Decoder(parse=parse, recon="collect",
+                    check_sei_hash=check_sei_hash) for _ in datas]
     if threads and len(datas) > 1:
         from concurrent.futures import ThreadPoolExecutor
         with ThreadPoolExecutor(max_workers=threads) as ex:
@@ -511,14 +606,14 @@ def decode_streams(datas, *, device="cuda", threads=0):
     if not items_all:
         return [[] for _ in datas]
     _check_geometry(items_all, "decode_streams")
-    pending = _recon_levels(items_all, device)
+    pending = _recon_levels(items_all, devices)
     # split the pending downloads back to their owning stream
     own = {id(it["dp"]): si for si, dec in enumerate(decs)
            for it in getattr(dec, "collected", [])}
     per_stream = [[] for _ in decs]
     for entry in pending:
         per_stream[own[id(entry[0])]].append(entry)
-    return [_materialize(dec, pend, False)
+    return [_materialize(dec, pend, check_sei_hash)
             for dec, pend in zip(decs, per_stream)]
 
 

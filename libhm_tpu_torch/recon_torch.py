@@ -47,7 +47,7 @@ def reconstruct_picture(item, device):
     the DAG path's host preparation builds for the kernels.
     """
     from .parallel.dag_decode import _download, _recon_levels
-    (_, _, small), = _recon_levels([item], device)
+    (_, _, small), = _recon_levels([item], [device])
     return _download(small)
 
 

@@ -6,6 +6,9 @@ so their byte counts are a first-class metric.
 
 Counters are process-global plain ints; reset() before a run, then read
 H2D/D2H (bytes), BY_TAG (bytes by tag) and UPLOADS (copies by tag).
+Copies between two devices (a reference plane that a multi-device decode
+reads on another device than the one that made it) count under tag
+"peer" in BY_TAG and UPLOADS, and not in H2D.
 """
 import torch
 
@@ -35,3 +38,14 @@ def up(a, tag, device):
 def count_d2h(n):
     global D2H
     D2H += n
+
+
+def peer(t, device):
+    """t.to(device), counting a copy and its bytes under tag "peer" when
+    the tensor lies on another device."""
+    device = torch.device(device)
+    if t.device == device:
+        return t
+    BY_TAG["peer"] = BY_TAG.get("peer", 0) + t.nbytes
+    UPLOADS["peer"] = UPLOADS.get("peer", 0) + 1
+    return t.to(device)

@@ -795,6 +795,76 @@ def test_decode_intra_batch_on_gpu(gpu):
     assert LF._LF.launches == _dag_levels(name) == 1
 
 
+def test_multidevice_mixed_decode_on_gpu(gpu):
+    """decode_batch(devices=["cuda:0", "cpu"]): every level of two or more
+    pictures splits over the card and the host, so references cross
+    devices as counted peer copies; the golden MD5, kernels on the card's
+    shards."""
+    from libhm_tpu_torch.ops import loopfilter as LF
+    from libhm_tpu_torch.parallel import dag_decode as DD
+    from libhm_tpu_torch.utils import xfer
+    name = "tids4_ra_160x96"
+    data = open(os.path.join(ROOT, "testdata", GOLD[name]["bitstream"]),
+                "rb").read()
+    LF._LF.launches = 0
+    xfer.reset()
+    outs = DD.decode_batch(data, devices=["cuda:0", "cpu"])
+    buf = b"".join(p.tobytes() for pic in outs for p in pic)
+    assert hashlib.md5(buf).hexdigest() == GOLD[name]["decoded_yuv_md5"]
+    assert xfer.UPLOADS.get("peer", 0) > 0 and "peer" in xfer.BY_TAG
+    # one launch per level on the card: the card holds the first shard
+    assert LF._LF.launches == _dag_levels(name)
+
+
+def _second_card():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices (this host has "
+                    f"{torch.cuda.device_count()})")
+    return torch.device("cuda", 1)
+
+
+def test_wrapper_refuses_tensor_off_current_device(gpu):
+    """A kernel wrapper given tensors on a card other than the current
+    one raises (its launch would go to the current card's stream), and
+    runs with that card made current."""
+    from libhm_tpu_torch.ops import checksum as CK
+    from libhm_tpu_torch.ops import pcm as PK
+    other = _second_card()
+    rng = np.random.default_rng(11)
+    planes = torch.from_numpy(rng.integers(0, 1024, (1, 64, 64))
+                              .astype(np.int32)).to(other)
+    pre = planes.clone()
+    rmask = torch.zeros((1, 16, 16), dtype=torch.uint8, device=other)
+    with torch.cuda.device(0):
+        with pytest.raises(ValueError, match="current device"):
+            CK.plane_checksum([planes[0]])
+        with pytest.raises(ValueError, match="current device"):
+            PK.restore_unfiltered(planes, pre, rmask, sx=0, sy=0)
+    with torch.cuda.device(other):
+        got = CK.plane_checksum([planes[0]])
+        assert int(got.item()) & 0xFFFFFFFF == \
+            int(CK.plane_checksum_plain([planes[0]]).item())
+
+
+def test_multidevice_decode_across_cards(gpu):
+    """One list entry per card: the golden MD5 with peer copies between
+    the cards, and the dry run over every card."""
+    from libhm_tpu_torch import entry
+    from libhm_tpu_torch.parallel import dag_decode as DD
+    from libhm_tpu_torch.utils import xfer
+    _second_card()
+    cards = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    name = "randomaccess_416x240"
+    data = open(os.path.join(ROOT, "testdata", GOLD[name]["bitstream"]),
+                "rb").read()
+    xfer.reset()
+    outs = DD.decode_batch(data, devices=cards)
+    buf = b"".join(p.tobytes() for pic in outs for p in pic)
+    assert hashlib.md5(buf).hexdigest() == GOLD[name]["decoded_yuv_md5"]
+    assert xfer.UPLOADS.get("peer", 0) > 0
+    assert entry.dryrun_multidevice(len(cards)) == cards
+
+
 # the loop-filter kernel's level cases: (lf_cases.level_case arguments)
 LF_CASES = {
     "level_1080p": dict(B=3, Hp=1088, Wp=1920, H=1080, W=1920, bd_l=10,

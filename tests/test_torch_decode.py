@@ -61,7 +61,7 @@ def test_sei_hash_check():
     from libhm_tpu_torch.hostdec.decoder import Decoder
     dec = Decoder(parse="native", recon="collect", check_sei_hash=True)
     dec.decode_annexb(_data("intra_main10_416x240"))
-    pending = DD._recon_levels(dec.collected, CPU)
+    pending = DD._recon_levels(dec.collected, [CPU])
     DD._materialize(dec, pending, True)
     statuses = [dp.hash_status for dp, _, _ in pending]
     assert statuses and all(s == "OK" for s in statuses), statuses
@@ -81,7 +81,7 @@ def test_inter_stream_raises():
     items = _collected("rext422_noRdoq_160x96")
     items[-1]["sps"].extended_precision = 1
     with pytest.raises(NotImplementedError, match="extended precision"):
-        DD._recon_levels(items, CPU)
+        DD._recon_levels(items, [CPU])
 
 
 def test_tiles_stream_raises():
@@ -90,7 +90,7 @@ def test_tiles_stream_raises():
     items = _collected("ccp444_lowdelay_160x96")
     items[0]["sps"].bit_depth_chroma = 14
     with pytest.raises(NotImplementedError, match="bit depths above 12"):
-        DD._recon_levels(items, CPU)
+        DD._recon_levels(items, [CPU])
 
 
 def test_cuda_without_gpu_raises():

@@ -87,7 +87,7 @@ def test_reference_planes_stay_on_device():
     dec = Decoder(parse="native", recon="collect")
     dec.decode_annexb(_data("cip_ra_160x96"))
     xfer.reset()
-    pending = DD._recon_levels(dec.collected, CPU, download=False)
+    pending = DD._recon_levels(dec.collected, [CPU], download=False)
     assert "ref" not in xfer.BY_TAG and xfer.BY_TAG["mc"] > 0
     for dp, _, small in pending:
         assert small == []

@@ -105,7 +105,7 @@ def test_row15_mc_picture_equals_mc_fn(name):
             for l in range(2) if pu.ref_poc[l] is not None} <= \
         {id(b["dp"]) for b in before}
     index = {id(b["dp"]): i for i, b in enumerate(before)}
-    for dp, _, small in DD._recon_levels(before, CPU):
+    for dp, _, small in DD._recon_levels(before, [CPU]):
         dec_j.collected[index[id(dp)]]["dp"].planes = DD._download(small)
     it, ij = dec_t.collected[k], dec_j.collected[k]
     wp = any(getattr(pu, "wp", None) is not None

@@ -94,7 +94,7 @@ def test_ccp_unequal_bit_depths_raises():
     with pytest.raises(NotImplementedError,
                        match="cross-component prediction with unequal bit "
                              "depths"):
-        DD._recon_levels(items, CPU)
+        DD._recon_levels(items, [CPU])
 
 
 def test_decode_streams_cuda_without_gpu_raises():
@@ -123,7 +123,7 @@ def test_rext422_stream_1080p():
     assert _md5(jax_decode(data)) == want
     dec = Decoder(parse="native", recon="collect", check_sei_hash=True)
     dec.decode_annexb(data)
-    pending = DD._recon_levels(dec.collected, CPU)
+    pending = DD._recon_levels(dec.collected, [CPU])
     outs = DD._materialize(dec, pending, True)
     assert [dp.hash_status for dp, _, _ in pending] == ["OK"] * frames
     assert _md5(outs) == want

@@ -63,7 +63,7 @@ def test_pcm_stream_hash_and_md5():
     name = "pcm_port_416x240"
     dec = Decoder(parse="native", recon="collect", check_sei_hash=True)
     dec.decode_annexb(_data(name, PORT))
-    pending = DD._recon_levels(dec.collected, CPU)
+    pending = DD._recon_levels(dec.collected, [CPU])
     outs = DD._materialize(dec, pending, True)
     assert [dp.hash_status for dp, _, _ in pending] == ["OK"]
     assert _md5(outs) == PORT[name]["decoded_yuv_md5"]
@@ -111,7 +111,7 @@ def test_tool_stream_1080p():
     assert _md5(jax_decode(data)) == want
     dec = Decoder(parse="native", recon="collect", check_sei_hash=True)
     dec.decode_annexb(data)
-    pending = DD._recon_levels(dec.collected, CPU)
+    pending = DD._recon_levels(dec.collected, [CPU])
     outs = DD._materialize(dec, pending, True)
     assert [dp.hash_status for dp, _, _ in pending] == ["OK"] * 3
     assert _md5(outs) == want

@@ -52,7 +52,15 @@ result line is not printed):
     device time), on the tool stream's multi-slice/tile maps and on
     seeded 12-bit, 4:2:2, 4:4:4, SAO-off and one-CTA levels
     (tests/lf_cases.py); row 15 of the kernel table: K5 and the level
-    kernel on one picture;
+    kernel on one picture; and at 16 bits (the hbd phase's kernels,
+    check_hbd; errors join the kernels' lines): K1 on the same RA and tool
+    tables (flat with DST and 4x4 transform skip, scaled), K2 on the intra
+    picture's luma wavefront and the loop-filter level kernel on a seeded
+    1080p 4:2:0 level, each timed beside the same shapes at 10 bits; the
+    level kernel on the 16-bit stream's own level (int16 chroma tc, band
+    shift 11, SAO offset scale 6); K3 chroma's int16-tc form, K4, K5 and
+    K6 (weighted and plain epilogues; K5 and K6 also at 14 bits), K7, K8,
+    and K9 with 16-bit PCM samples of 2^15 and more;
  4. the main paths, each with the launch counters reset just before it and
     read just after, and the reference-DAG levels it reconstructs counted:
     K1 and K2 launch at most once per component and level on every path,
@@ -113,6 +121,12 @@ result line is not printed):
       filter's int16-tc form on the 12-bit one;
     - decode_streams over two 4:2:0 streams of one geometry, one of them
       twice: each stream's MD5;
+    - the hbd phase (bit depths 13-16): testdata/rext444_16b_intra_1080p
+      (Main 4:4:4 16 Intra, the repo's encoder; port_streams.json) and its
+      proxies rext444_16b_intra_160x96 and main14_intra_160x96 through
+      decode_intra_batch, decode_batch and HmDecoder (MD5 and every hash
+      SEI OK) and decode_batch_device (checksum equal to cropped_checksum),
+      with the 1080p stream's fps through each;
     - the multi-device decode (multidevice_phase): the RA 1080p stream
       through decode_batch and decode_batch_device with
       devices=["cuda:0", "cuda:0"] (each level's pictures split into
@@ -381,13 +395,16 @@ def _bucket_args(table_np, coeffs, mats):
     return calls
 
 
-def check_k1(levels, card, rng, label="residual_scatter", bypass=False):
+def check_k1(levels, card, rng, label="residual_scatter", bypass=False,
+             bd=None):
     """K1 on the TUs of every level of a stream: one table launch per
     (level, component) at the real TU positions, sizes and modes, with
     seeded coefficients and qp, against its plain version, and beside it
     the per-bucket wrapper (residual_scatter, one launch per size, mode
     and bit depth) on the same TUs.  bypass: every row as a transquant
-    bypass TU instead (rotated at 4x4, a seeded RDPCM direction each)."""
+    bypass TU instead (rotated at 4x4, a seeded RDPCM direction each).
+    bd: every row at this bit depth instead of the stream's (its qp range
+    with it)."""
     import numpy as np
     import torch
     from libhm_tpu_torch.ops import transform as TK
@@ -404,6 +421,8 @@ def check_k1(levels, card, rng, label="residual_scatter", bypass=False):
             if not len(rows):
                 continue
             rows = rows.copy()
+            if bd is not None:
+                rows["bd"] = bd
             if bypass:
                 rows["flags"] = TK.F_BYPASS | np.where(
                     rows["log2n"] == 2, TK.F_ROTATE, 0)
@@ -440,7 +459,7 @@ def check_k1(levels, card, rng, label="residual_scatter", bypass=False):
             launches += 1
             buckets += len(calls)
     log(f"K1 {label} ({'bypass rows' if bypass else 'seeded coefficients'}"
-        f", {len(levels)} levels): {launches} table launches (one per level "
+        f"{'' if bd is None else f' at {bd} bits'}, {len(levels)} levels): {launches} table launches (one per level "
         f"and component) {r.ms:.4f} ms (device, queued behind a sleep: "
         f"{dev_ms:.4f} ms), the per-bucket wrapper on the same TUs {buckets} "
         f"launches {wrap_ms:.4f} ms, plain {r.plain_ms:.4f} ms; max abs err "
@@ -472,12 +491,16 @@ def l2_round_trip_us(card):
     return us
 
 
-def check_k2(items, card, rng, rt_us):
+def check_k2(items, card, rng, rt_us, bd=None, comps=(0, 1, 2), res_bits=6,
+             warm=True):
     """K2 over the whole wavefront of each component of picture 0 (row 14,
     the per-picture path; luma alone is K2's own line): one launch per
     component, five kernel runs each equal to one plain run, the kernel
-    timed; luma also with a grid of one CTA.  Returns (luma Result, row 14
-    Result over the three components)."""
+    timed; luma also with a grid of one CTA.  bd: the components at this
+    bit depth instead of the stream's; residuals are seeded in
+    +-2^res_bits; warm=False leaves out the plain version's warm-up run
+    (its ops are warm from an earlier call).  Returns (luma Result, row 14
+    Result over `comps`)."""
     import numpy as np
     import torch
     from libhm_tpu_torch.ops import intra as IK
@@ -486,23 +509,26 @@ def check_k2(items, card, rng, rt_us):
     sps = it["sps"]
     luma, row14 = Result(), Result()
     depth = {}
-    for comp in range(3):
-        sh = 1 if comp else 0
-        Hp = (sps.pic_height_ctbs << sps.log2_ctb) >> sh
-        Wp = (sps.pic_width_ctbs << sps.log2_ctb) >> sh
-        bd = sps.bit_depth_chroma if comp else sps.bit_depth_luma
-        kw = dict(is_luma=comp == 0, bd=bd, W=sps.width >> sh,
-                  H=sps.height >> sh)
+    for comp in comps:
+        sx = sps.chroma_shift_x() if comp else 0
+        sy = sps.chroma_shift_y() if comp else 0
+        Hp = (sps.pic_height_ctbs << sps.log2_ctb) >> sy
+        Wp = (sps.pic_width_ctbs << sps.log2_ctb) >> sx
+        cbd = bd or (sps.bit_depth_chroma if comp else sps.bit_depth_luma)
+        kw = dict(is_luma=comp == 0, bd=cbd, W=sps.width >> sx,
+                  H=sps.height >> sy)
         table = intra_meta([it], comp, DEV)
         rows = IK.block_rows(table)
         per_level = table["count"].cpu().numpy()
         depth[comp] = len(per_level)
-        res = torch.from_numpy(rng.integers(-64, 65, (1, Hp, Wp))
-                               .astype(np.int32)).to(DEV)
+        res = torch.from_numpy(rng.integers(
+            -(1 << res_bits), (1 << res_bits) + 1, (1, Hp, Wp))
+            .astype(np.int32)).to(DEV)
         zero = torch.zeros((1, Hp, Wp), dtype=torch.int32, device=DEV)
         # the plain version takes seconds a run on the card: its one run
         # is both the comparison and its time (its ops are warm by now)
-        IK.intra_wavefront_plain(zero.clone(), res, table, **kw)
+        if warm:
+            IK.intra_wavefront_plain(zero.clone(), res, table, **kw)
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -541,7 +567,8 @@ def check_k2(items, card, rng, rt_us):
             r1 = f", one CTA {one:.4f} ms"
             luma.add(e, bms, pms, nbytes, ops)
         row14.add(e, bms, pms, nbytes, ops)
-        log(f"K2 intra_wavefront picture 0 comp {comp}: {len(rows)} blocks "
+        log(f"K2 intra_wavefront picture 0 comp {comp} bd={cbd}: "
+            f"{len(rows)} blocks "
             f"{sizes}, {depth[comp]} levels (blocks per level median "
             f"{int(np.median(per_level))}, max {int(per_level.max())}), "
             f"{launches} launches for 5 runs: "
@@ -551,8 +578,8 @@ def check_k2(items, card, rng, rt_us):
             f"{rt_us:.4f} us = {depth[comp] * rt_us / 1e3:.4f} ms ({card})")
     chain = sum(depth.values()) * rt_us / 1e3
     sets = "chain" if chain > row14.bound()[0] else row14.bound()[1]
-    log(f"row 14 (_scan_fn per picture) K2 over picture 0's three "
-        f"wavefronts, one launch each: kernel {row14.ms:.4f} ms, plain "
+    log(f"row 14 (_scan_fn per picture) K2 over picture 0's "
+        f"{len(comps)} wavefronts, one launch each: kernel {row14.ms:.4f} ms, plain "
         f"{row14.plain_ms:.4f} ms; bound: {row14.bound()[1]} "
         f"{row14.bound()[0]:.6f} ms, chain {sum(depth.values())} levels x "
         f"{rt_us:.4f} us = {chain:.4f} ms (the {sets} sets it) ({card})")
@@ -858,6 +885,25 @@ def _lf_case(label, planes, maps, kw, card, r, reps=20, time_it=True):
     return ms, dms, nbytes
 
 
+def _lf_real(items, rng):
+    """(planes, maps, kw) of one level of a stream for the loop-filter
+    level kernel: the decode's own maps, seeded smooth planes."""
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from lf_cases import smooth_planes
+    from libhm_tpu_torch.parallel import device_filters as DF
+    sps = items[0]["sps"]
+    maps, kw, _ = DF.level_maps(items, sps, len(items), DEV)
+    Hp = sps.pic_height_ctbs << sps.log2_ctb
+    Wp = sps.pic_width_ctbs << sps.log2_ctb
+    planes = [torch.from_numpy(smooth_planes(
+        rng, (len(items), Hp >> (kw["sy"] if c else 0),
+              Wp >> (kw["sx"] if c else 0)),
+        kw["bd_c"] if c else kw["bd_l"])).to(DEV)
+        for c in range(3 if sps.chroma_format_idc else 1)]
+    return planes, maps, kw
+
+
 def check_lf(ra_levels, tool_levels, card, rng):
     """The loop-filter level kernel (K3 + K4, one launch per level) against
     loop_filter_level_plain: the RA stream's largest level (3 pictures at
@@ -867,31 +913,18 @@ def check_lf(ra_levels, tool_levels, card, rng):
     stream's multi-slice/tile maps; and seeded levels (tests/lf_cases.py):
     12-bit chroma (int16 tc), 4:2:2, 4:4:4, SAO off, a one-CTA grid.
     Returns (level Result, one-picture Result)."""
-    import torch
     sys.path.insert(0, os.path.join(ROOT, "tests"))
-    from lf_cases import level_case, smooth_planes
+    from lf_cases import level_case
     from libhm_tpu_torch.ops import deblock as DK
     from libhm_tpu_torch.ops import sao as SK
-    from libhm_tpu_torch.parallel import device_filters as DF
     r, pic = Result(), Result()
-
-    def real(items):
-        sps = items[0]["sps"]
-        maps, kw, _ = DF.level_maps(items, sps, len(items), DEV)
-        Hp = sps.pic_height_ctbs << sps.log2_ctb
-        Wp = sps.pic_width_ctbs << sps.log2_ctb
-        planes = [torch.from_numpy(smooth_planes(
-            rng, (len(items), Hp >> (kw["sy"] if c else 0),
-                  Wp >> (kw["sx"] if c else 0)),
-            kw["bd_c"] if c else kw["bd_l"])).to(DEV)
-            for c in range(3 if sps.chroma_format_idc else 1)]
-        return planes, maps, kw
     level = max(ra_levels, key=len)
-    _lf_case(f"RA level ({len(level)} pictures)", *real(level), card, r)
+    _lf_case(f"RA level ({len(level)} pictures)", *_lf_real(level, rng),
+             card, r)
     # one picture, V + H + SAO of its three components: one launch, and
     # the nine single-pass launches (V and H per component, SAO per
     # component) on the same inputs
-    planes, maps, kw = real(ra_levels[0][:1])
+    planes, maps, kw = _lf_real(ra_levels[0][:1], rng)
     ms, dms, nbytes = _lf_case("RA picture 0 (one launch)", planes, maps,
                                kw, card, pic)
     hc, wc = kw["hc"], kw["wc"]
@@ -928,7 +961,7 @@ def check_lf(ra_levels, tool_levels, card, rng):
         f"{nbytes / HBM_BPS * 1e3:.6f} ms ({card})")
     tool = max(tool_levels, key=len)
     _lf_case(f"tools level ({len(tool)} pictures, multi-slice/tile SAO)",
-             *real(tool), card, r, time_it=False)
+             *_lf_real(tool, rng), card, r, time_it=False)
     for label, args in (
             ("12-bit chroma (int16 tc)",
              dict(Hp=1088, Wp=1920, H=1080, W=1920, bd_l=12, log2_ctb=6)),
@@ -945,10 +978,11 @@ def check_lf(ra_levels, tool_levels, card, rng):
     return r, pic
 
 
-def check_k8(card, rng, B=3):
-    """K8 on a level of three 1920x1088 luma and 960x544 chroma planes with
-    a seeded restore mask (one 4x4 in ten), against its plain version and
-    torch.where (the mask expanded to samples beforehand, not timed)."""
+def check_k8(card, rng, B=3, bd=10):
+    """K8 on a level of three 1920x1088 luma and 960x544 chroma planes of
+    `bd`-bit samples with a seeded restore mask (one 4x4 in ten), against
+    its plain version and torch.where (the mask expanded to samples
+    beforehand, not timed)."""
     import numpy as np
     import torch
     from libhm_tpu_torch.ops import pcm as PK
@@ -958,9 +992,9 @@ def check_k8(card, rng, B=3):
     r = Result()
     lib = 0.0
     for Hp, Wp, sh in ((1088, 1920, 0), (544, 960, 1)):
-        planes = torch.from_numpy(rng.integers(0, 1024, (B, Hp, Wp))
+        planes = torch.from_numpy(rng.integers(0, 1 << bd, (B, Hp, Wp))
                                   .astype(np.int32)).to(DEV)
-        pre = torch.from_numpy(rng.integers(0, 1024, (B, Hp, Wp))
+        pre = torch.from_numpy(rng.integers(0, 1 << bd, (B, Hp, Wp))
                                .astype(np.int32)).to(DEV)
         got, want = planes.clone(), planes.clone()
         PK.restore_unfiltered(got, pre, rmask, sx=sh, sy=sh)
@@ -982,7 +1016,7 @@ def check_k8(card, rng, B=3):
             scratch, pre, rmask, sx=sh, sy=sh), 20)
         dev_l = device_ms(lambda: torch.where(mask, pre, planes), 20)
         masked = int(mask.sum())
-        log(f"K8 restore_unfiltered {(Hp, Wp)} B={B} masked samples "
+        log(f"K8 restore_unfiltered {(Hp, Wp)} B={B} bd={bd} masked samples "
             f"{masked}: mismatches={int((got != want).sum())} kernel "
             f"{bms:.4f} ms, plain {pms:.4f} ms, torch.where on the expanded "
             f"mask (expansion not timed) {lms:.4f} ms; queued behind a "
@@ -995,13 +1029,14 @@ def check_k8(card, rng, B=3):
     return r
 
 
-def check_k9(card, rng, bd=10):
+def check_k9(card, rng, bd=10, shifts=(2, 3)):
     """K9 on a seeded 1080p 4:2:0 level (tests/pcm_cases.py): one picture,
     a PCM CU of 8, 16 or 32 luma samples in about a third of the 32x32
-    cells, luma shift 2 and chroma shift 3, its luma and both chroma
-    planes in ONE launch: against its plain version, at the enqueue rate
-    and as device time queued behind a sleep, beside the byte bound; then
-    a 4:2:2 level (w x 2w chroma blocks), against its plain version."""
+    cells, luma and chroma shifted by `shifts` (bit depth - PCM bit
+    depth), its luma and both chroma planes in ONE launch: against its
+    plain version, at the enqueue rate and as device time queued behind a
+    sleep, beside the byte bound; then a 4:2:2 level (w x 2w chroma
+    blocks), against its plain version."""
     import numpy as np
     import torch
     sys.path.insert(0, os.path.join(ROOT, "tests"))
@@ -1009,7 +1044,8 @@ def check_k9(card, rng, bd=10):
     from pcm_cases import pcm_blocks, plane_shapes
     r = Result()
     for fmt in (1, 2):
-        blocks = pcm_blocks(rng, fmt, 1, 1088, 1920, share=1 / 3, bd=bd)
+        blocks = pcm_blocks(rng, fmt, 1, 1088, 1920, share=1 / 3,
+                            shifts=shifts, bd=bd)
         shapes = plane_shapes(fmt, 1, 1088, 1920)
         buf, counts = PK.pcm_pack(blocks)
         table = PK.pcm_table(torch.from_numpy(buf).to(DEV), counts)
@@ -1026,8 +1062,9 @@ def check_k9(card, rng, bd=10):
             raise AssertionError("K9: not one launch for the level")
         e = max(max_abs_err(g, w) for g, w in zip(got, want))
         samples = sum(w * h for _, _, _, _, w, h, _, _ in blocks)
-        label = f"K9 pcm_level {('', '4:2:0', '4:2:2')[fmt]} {shapes}: " \
-            f"{len(blocks)} blocks (area classes {counts}), {samples} " \
+        top = max(int(s.max()) << sh for *_, sh, s in blocks)
+        label = f"K9 pcm_level {('', '4:2:0', '4:2:2')[fmt]} {shapes} " \
+            f"bd={bd} (largest sample {top}): {len(blocks)} blocks (area classes {counts}), {samples} " \
             f"samples: max abs err {e}"
         if fmt == 2:
             r.err = max(r.err, e)
@@ -1122,7 +1159,7 @@ def check_k5(card, rng, bd=10, comps=COMPS, B=LEVEL_B):
                   for l in range(2)) + torch.where(d > 0, 8, 0)
         nbytes = refs.numel() * 4 + inter * 8 + dirm.numel() * 13
         log(f"K5 mc_grid {'luma' if is_luma else 'chroma'} {(Hp, Wp)} "
-            f"sx={sx} sy={sy} "
+            f"sx={sx} sy={sy} bd={bd} "
             f"B={B} R={LEVEL_R} inter samples={inter}: mismatches="
             f"{int((got != want).sum())} kernel {bms:.4f} ms (device "
             f"{dms:.4f} ms), plain {pms:.4f} ms ({card})")
@@ -1181,18 +1218,20 @@ def _k6_case(label, blk, planes, kw, card):
     # (run starts past the last row are padding)
     runs = "in any order" if groups is None else \
         f"in {int((groups < len(blk)).sum())} tile runs"
-    log(f"K6 mc_weighted {label}: {len(blk)} blocks {runs}, denom "
-        f"{kw['denom']}: max error {err} over 20 launches a table; kernel "
+    epi = f"WP denom {kw['denom']}" if kw["wp"] else "plain epilogue"
+    log(f"K6 mc_weighted {label} bd={kw['bd']}: {len(blk)} blocks {runs}, "
+        f"{epi}: max error {err} over 20 launches a table; kernel "
         f"{bms:.4f} ms (device {dms:.4f} ms), rows as they come (luma "
         f"grouped on the device) {ams:.4f} ms, plain {pms:.4f} ms; bound "
         f"{max(nbytes / HBM_BPS, ops / CORE_OPS) * 1e3:.5f} ms ({card})")
     return err, bms, pms, nbytes, ops
 
 
-def check_k6(card, rng, bd=10, denom=6):
-    """K6 (weighted epilogue) on every inter 4x4 of a 1080p level of random
-    per-4x4 MVs (row 8), then on a PU-shaped 1080p level of 8x8 to 64x64
-    PUs (tests/mc_cases.py pu_maps), whose error joins the row's."""
+def check_k6(card, rng, bd=10, denom=6, wp=True):
+    """K6 (weighted epilogue, or with wp=False the plain uni / bi one) on
+    every inter 4x4 of a 1080p level of random per-4x4 MVs (row 8), then
+    on a PU-shaped 1080p level of 8x8 to 64x64 PUs (tests/mc_cases.py
+    pu_maps), whose error joins the row's."""
     import numpy as np
     import torch
     from libhm_tpu_torch.ops import interp as MK
@@ -1213,7 +1252,7 @@ def check_k6(card, rng, bd=10, denom=6):
         blk[:, 8:10] = sel.cpu().numpy()[b, ys4, xs4]
         blk[:, 10:12] = rng.integers(-128, 256, (N, 2))
         blk[:, 12:14] = rng.integers(-128, 128, (N, 2)) << (bd - 8)
-        kw = dict(is_luma=is_luma, sx=sx, sy=sy, bd=bd, wp=True, denom=denom,
+        kw = dict(is_luma=is_luma, sx=sx, sy=sy, bd=bd, wp=wp, denom=denom,
                   W=W, H=H)
         comp = f"{'luma' if is_luma else 'chroma'} {(Hp, Wp)}"
         r.add(*_k6_case(f"{comp} per-4x4 MVs",
@@ -1256,7 +1295,8 @@ def check_k7(card, rng, npics=17, bd=10):
     r.library_ms = cuda_ms(
         lambda: [v.sum(dtype=torch.int64) for v in views], 5)
     n = sum(v.numel() for v in views)
-    log(f"K7 plane_checksum {len(views)} views, {n} samples: kernel {got}, "
+    log(f"K7 plane_checksum {len(views)} views, {n} samples of {bd} bits: "
+        f"kernel {got}, "
         f"plain {want}, library {lib}; {launches} launch, no upload; kernel "
         f"{bms:.4f} ms (device {dms:.4f} ms), plain {pms:.4f} ms, "
         f"view.sum(dtype=torch.int64) per view {r.library_ms:.4f} ms "
@@ -1919,7 +1959,173 @@ def timed_run(name, data, md5, card, check_sei_hash=False):
     return [dp.hash_status for dp, _, _ in pending]
 
 
+# bit depths 13-16 (the hbd phase): the Main 4:4:4 16 Intra 1080p stream
+# made by the repo's encoder, and its two 160x96 proxies (16-bit 4:4:4,
+# 14-bit 4:2:0), all in testdata/port_streams.json
+HBD = "rext444_16b_intra_1080p"
+HBD_SMALL = ("rext444_16b_intra_160x96", "main14_intra_160x96")
+
+
+def check_hbd(results, ra_levels, tool_levels, intra_items, hbd_items, card,
+              rng, rt_us):
+    """The hbd phase's kernel checks: every kernel of the decode against
+    its plain version at 16 bits (K5 and K6 also at 14), exact, each
+    error joining its kernel's line in `results`.  K1 (the RA stream's
+    flat rows, DST and 4x4 transform skip among them, whose shift
+    15 - bd - 2 is -3 here; the tool stream's scaled rows), K2 (the intra
+    1080p picture's luma wavefront, samples around 2^15) and the
+    loop-filter level kernel (a seeded 1080p 4:2:0 level) run on the same
+    shapes as at 10 bits, timed beside them: the planes are int32 either
+    way.  The 16-bit stream's own level goes through the loop filter with
+    its maps (int16 chroma tc, band shift 11) at an SAO offset scale of 6;
+    K9 writes 16-bit PCM samples (2^15 and more)."""
+    import numpy as np
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from lf_cases import level_case
+    errs = {}
+
+    def join(name, r):
+        errs[name] = max(errs.get(name, 0), r.err)
+        return r
+    k1 = join("residual_scatter",
+              check_k1(ra_levels, card, rng, "residual_scatter", bd=16))
+    k1s = join("residual_scatter_scaled",
+               check_k1(tool_levels, card, rng, "residual_scatter_scaled",
+                        bd=16))
+    k2, _ = check_k2(intra_items, card, rng, rt_us, bd=16, comps=(0,),
+                     res_bits=12, warm=False)
+    join("intra_wavefront", k2)
+    # the same seeded level at 10 and 16 bits, timed in turns
+    lf = {10: Result(), 16: Result()}
+    for bd in (10, 16, 16, 10):
+        planes, maps, kw = level_case(np.random.default_rng(16), device=DEV,
+                                      Hp=1088, Wp=1920, H=1080, W=1920,
+                                      bd_l=bd, log2_ctb=6)
+        if bd == 16:
+            maps["sao_scale_l"].fill_(6)
+            maps["sao_scale_c"].fill_(6)
+        _lf_case(f"seeded 1080p 4:2:0 level, {bd} bits", planes, maps, kw,
+                 card, lf[bd])
+    join("loop_filter_level", lf[16])
+    for it in hbd_items:
+        it["pps"].sao_offset_scale_luma = 6
+        it["pps"].sao_offset_scale_chroma = 6
+    own = Result()
+    _lf_case(f"{HBD} level ({len(hbd_items)} pictures, SAO offset scale 6)",
+             *_lf_real(hbd_items, rng), card, own, time_it=False)
+    join("loop_filter_level", own)
+    for name, r in check_k3(card, rng, bd=16).items():
+        join(name, r)
+    join("sao_apply", check_k4(card, rng, bd=16))
+    for bd in (14, 16):
+        join("mc_grid", check_k5(card, rng, bd=bd))
+        join("mc_weighted", check_k6(card, rng, bd=bd))
+    join("mc_weighted", check_k6(card, rng, bd=16, wp=False))
+    join("plane_checksum", check_k7(card, rng, bd=16))
+    join("restore_unfiltered", check_k8(card, rng, bd=16))
+    join("pcm_level", check_k9(card, rng, bd=16, shifts=(0, 2)))
+    log(f"hbd: the same work at 16 and at 10 bits ({card}): K1 flat "
+        f"{k1.ms:.4f} ms vs {results['residual_scatter'].ms:.4f} ms, K1 "
+        f"scaled {k1s.ms:.4f} ms vs "
+        f"{results['residual_scatter_scaled'].ms:.4f} ms (one table launch "
+        f"per level and component, summed), K2 luma {k2.ms:.4f} ms vs "
+        f"{results['intra_wavefront'].ms:.4f} ms, loop-filter level "
+        f"{lf[16].ms / 2:.4f} ms vs {lf[10].ms / 2:.4f} ms (two runs each, in "
+        f"turns; device times in the lines above)")
+    log(f"hbd: max abs err at 14-16 bits {errs}")
+    for name, e in errs.items():
+        results[name].err = max(results[name].err, e)
+
+
+def _with_statuses(fn):
+    """(fn()'s result, the hash SEI statuses of the pictures its decode
+    downloaded): dag_decode._materialize is watched for the run."""
+    from libhm_tpu_torch.parallel import dag_decode as DD
+    seen, orig = [], DD._materialize
+
+    def spy(dec, pending, check_sei_hash):
+        out = orig(dec, pending, check_sei_hash)
+        seen.extend(dp.hash_status for dp, _, _ in pending)
+        return out
+    DD._materialize = spy
+    try:
+        return fn(), seen
+    finally:
+        DD._materialize = orig
+
+
+def hbd_phase(ports, card):
+    """Bit depths 13-16 end to end: the 16-bit 1080p stream and both
+    proxies through decode_intra_batch, decode_batch and HmDecoder (MD5
+    of port_streams.json, every hash SEI OK: the native C++ recon is no
+    oracle above 15 bits) and decode_batch_device (its checksum against
+    cropped_checksum of the decoded pictures), each path with the launch
+    counters from 0; fps of each path on the 1080p stream."""
+    import torch
+    from libhm_tpu_torch.parallel import dag_decode as DD
+    from libhm_tpu_torch.parallel.batch_decode import decode_intra_batch
+    for name in (HBD,) + HBD_SMALL:
+        data = open(os.path.join(ROOT, "testdata", ports[name]["bitstream"]),
+                    "rb").read()
+        want, frames = ports[name]["decoded_yuv_md5"], ports[name]["frames"]
+        ok = ["OK"] * frames
+        fps = {}
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, time.monotonic() - t0
+        (dps, secs), _ = run_path(
+            f"{name} decode_intra_batch",
+            lambda: timed(lambda: decode_intra_batch(data,
+                                                     check_sei_hash=True)),
+            K1_K4)
+        md5 = hashlib.md5(b"".join(p.tobytes() for dp in dps
+                                   for p in dp.cropped())).hexdigest()
+        statuses = [dp.hash_status for dp in dps]
+        if md5 != want or statuses != ok:
+            raise AssertionError(f"{name} decode_intra_batch: MD5 {md5}, "
+                                 f"hash SEIs {statuses}")
+        fps["decode_intra_batch"] = frames / secs
+        del dps
+        ((outs, statuses), secs), _ = run_path(
+            f"{name} decode_batch",
+            lambda: timed(lambda: _with_statuses(lambda: DD.decode_batch(
+                data, device="cuda", check_sei_hash=True))), K1_K4)
+        if outs_md5(outs) != want or statuses != ok:
+            raise AssertionError(f"{name} decode_batch: MD5 "
+                                 f"{outs_md5(outs)}, hash SEIs {statuses}")
+        fps["decode_batch"] = frames / secs
+        (_, pics, first, secs), _ = run_path(
+            f"{name} HmDecoder", lambda: push_decode(data, sei_check=True),
+            K1_K4)
+        statuses = [p.hash_status for p in pics]
+        if pics_md5(pics) != want or statuses != ok:
+            raise AssertionError(f"{name} HmDecoder: {len(pics)} pictures, "
+                                 f"hash SEIs {statuses}")
+        fps["HmDecoder"] = frames / secs
+        ((_, _, csum, n), secs), _ = run_path(
+            f"{name} decode_batch_device",
+            lambda: timed(lambda: DD.decode_batch_device(data,
+                                                         device="cuda")),
+            K1_K4 + ["plane_checksum"])
+        if csum != DD.cropped_checksum(outs) or n != frames:
+            raise AssertionError(f"{name} decode_batch_device: checksum "
+                                 f"{csum}, {n} pictures")
+        fps["decode_batch_device"] = frames / secs
+        log(f"hbd {name}: MD5 matches port_streams.json and every hash SEI "
+            f"OK through decode_intra_batch, decode_batch and HmDecoder; "
+            f"decode_batch_device's checksum {csum} equals cropped_checksum;"
+            f" fps with the parse ({card}): "
+            f"{ {k: round(v, 3) for k, v in fps.items()} }, HmDecoder's "
+            f"first picture after {first:.3f} s")
+        del outs, pics
+
+
 def main():
+    start = time.monotonic()
     if not os.path.isdir(os.path.join(ROOT, "libhm_tpu_torch")) or \
             not os.path.isdir(os.path.join(ROOT, "testdata")):
         sys.exit("chip_smoke: run from the root of a checkout of the repo")
@@ -1990,7 +2196,6 @@ def main():
                                           "residual_bypass", bypass=True)
     results["loop_filter_level"], results["lf_picture"] = check_lf(
         ra_levels, tool_levels, card, rng)
-    del ra_levels, tool_levels
     rt_us = l2_round_trip_us(card)
     results["intra_wavefront"], results["row14"] = check_k2(items, card, rng,
                                                             rt_us)
@@ -2021,7 +2226,13 @@ def main():
     for extra in rext:
         for k, v in extra.items():
             results[k].err = max(results[k].err, v.err)
-    del tool_items
+    # the hbd phase's kernels: 16 bits (K5 and K6 also 14), errors joined
+    dec = Decoder(parse="native", recon="collect")
+    dec.decode_annexb(open(os.path.join(ROOT, "testdata",
+                                        ports[HBD]["bitstream"]), "rb").read())
+    check_hbd(results, ra_levels, tool_levels, items, dec.collected, card,
+              rng, rt_us)
+    del tool_items, ra_levels, tool_levels, dec
     bad = {k: v.err for k, v in results.items() if v.err != 0}
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
@@ -2266,6 +2477,7 @@ def main():
     log(f"decode_streams: {len(MULTI)} streams in one reconstruction, each "
         "MD5 matches golden")
     del outs
+    hbd_phase(ports, card)
     multidevice_phase(gold, card)
 
     # ---- timed runs: parse and device phases ----
@@ -2336,6 +2548,8 @@ def main():
                      "plain_ms": round(r.plain_ms, 4),
                      "bound_ms": float(f"{bound_ms:.4g}"),
                      "bound_by": bound_by, "library_ms": None})
+    log(f"chip_smoke: {time.monotonic() - start:.1f} s from the start to "
+        f"the result ({card})")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

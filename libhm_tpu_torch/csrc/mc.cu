@@ -135,8 +135,11 @@ __device__ __forceinline__ int uni_round(int p, int headroom, int maxs) {
   return clampi((p + kIfOffs + (1 << (headroom - 1))) >> headroom, 0, maxs);
 }
 
-__device__ __forceinline__ int bi_average(int p0, int p1, int bd, int maxs) {
-  const int shift = kIfPrec + 1 - bd;
+// shift2 = Max(3, 15 - bitDepth) (Rec. 8.5.3.3.4.2): 15 - bd up to 12
+// bits, one more than the headroom above
+__device__ __forceinline__ int bi_average(int p0, int p1, int headroom,
+                                          int maxs) {
+  const int shift = headroom + 1;
   return clampi((p0 + p1 + (1 << (shift - 1)) + 2 * kIfOffs) >> shift, 0,
                 maxs);
 }
@@ -302,7 +305,7 @@ mc_grid_kernel(int32_t* __restrict__ stacked, const int32_t* __restrict__ res,
                          headroom);
   };
   auto finish = [&]() {
-    const int pred = d == 3 ? bi_average(p[0], p[1], bd, maxs)
+    const int pred = d == 3 ? bi_average(p[0], p[1], headroom, maxs)
                             : uni_round(d == 1 ? p[0] : p[1], headroom, maxs);
     stacked[o] = clampi(pred + res[o], 0, maxs);
   };
@@ -412,7 +415,7 @@ mc_grid_kernel(int32_t* __restrict__ stacked, const int32_t* __restrict__ res,
       else
         p[l] = direct(l);
     }
-    const int pred = d == 3 ? bi_average(p[0], p[1], bd, maxs)
+    const int pred = d == 3 ? bi_average(p[0], p[1], headroom, maxs)
                             : uni_round(d == 1 ? p[0] : p[1], headroom, maxs);
     stacked[o] = clampi(pred + rv, 0, maxs);
   }
@@ -441,12 +444,12 @@ __device__ __forceinline__ bool uses(int d, int l) {
 
 // the plain (uni_round / bi_average) or weighted (ops/interp.py
 // weighted_uni / weighted_bi) epilogue of one sample of row q
-__device__ __forceinline__ int epilogue(const int* q, const int p[2], int bd,
+__device__ __forceinline__ int epilogue(const int* q, const int p[2],
                                         int headroom, int maxs, int wp,
                                         int denom) {
   const int d = q[kDir];
   if (!wp)
-    return d == 3 ? bi_average(p[0], p[1], bd, maxs)
+    return d == 3 ? bi_average(p[0], p[1], headroom, maxs)
                   : uni_round(d == 1 ? p[0] : p[1], headroom, maxs);
   if (d == 3) {
     const int shift = denom + 1 + headroom;
@@ -674,7 +677,7 @@ mc_weighted_luma_kernel(int32_t* __restrict__ stacked,
         else
           p[l] = direct(q, l, y, x);
       }
-      stacked[o] = clampi(epilogue(q, p, bd, headroom, maxs, wp, denom) + rv,
+      stacked[o] = clampi(epilogue(q, p, headroom, maxs, wp, denom) + rv,
                           0, maxs);
     }
     if (nc0 >= N) break;
@@ -713,7 +716,7 @@ mc_weighted_chroma_kernel(int32_t* __restrict__ stacked,
                         y, x, q[kMv0x + 2 * l], q[kMv0y + 2 * l], fbx, fby,
                         headroom);
   const long long o = ((long long)b * Hp + y) * Wp + x;
-  stacked[o] = clampi(epilogue(q, p, bd, headroom, maxs, wp, denom) + res[o],
+  stacked[o] = clampi(epilogue(q, p, headroom, maxs, wp, denom) + res[o],
                       0, maxs);
 }
 

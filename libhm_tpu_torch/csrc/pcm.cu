@@ -26,14 +26,14 @@
 //   libhm_tpu/parallel/dag_decode.py _recon_levels (lines 482-489): each PCM
 //   block's samples, shifted left by (bit depth - PCM bit depth), written
 //   into the zeroed stacked planes of the level before MC.
-// What bounds it on the card: bytes (an int16 sample in, an int32 sample
+// What bounds it on the card: bytes (a uint16 sample in, an int32 sample
 //   out: under a microsecond for a 1080p level), so the launches, uploads
 //   and their enqueue set its time: the JAX loop makes one upload and one
 //   dispatch per block.
 // What the design does about it: one launch per DAG level for every
 //   component.  The host packs the level's blocks into ONE upload: 16-byte
 //   rows (ops/pcm.py PCM_DTYPE: sample offset, picture, x, y, component,
-//   log2 w, log2 h, shift) sorted by block area, then the int16 samples in
+//   log2 w, log2 h, shift) sorted by block area, then the uint16 samples in
 //   row order (each block's at a multiple of 16 samples, the part on a
 //   16-byte boundary).  The up-to-three planes' pointers, heights and widths
 //   and the rows of each area class travel as a __grid_constant__ kernel
@@ -41,11 +41,11 @@
 //   takes 1024 samples of one area class (64 4x4 blocks ... one 32x32; the
 //   4:2:2 chroma blocks w x 2w are classes of their own), so every warp is
 //   full; a thread takes 4 consecutive samples of one block row: one 8-byte
-//   int16x4 load, the shift, one 16-byte int32 store where the row and the
-//   plane allow it, else scalar stores.  w and h are powers of two (4-32),
-//   so the addressing is shifts and masks.  Rows whose picture is outside
-//   [0, Bp) or whose component has no plane are skipped, and samples past
-//   the plane are dropped.
+//   uint16x4 load (zero-extended), the shift, one 16-byte int32 store
+//   where the row and the plane allow it, else scalar stores.  w and h are
+//   powers of two (4-32), so the addressing is shifts and masks.  Rows
+//   whose picture is outside [0, Bp) or whose component has no plane are
+//   skipped, and samples past the plane are dropped.
 #include <cstdint>
 #include <cstring>
 #include <cuda_runtime.h>
@@ -108,7 +108,7 @@ static_assert(sizeof(PcmArgs) == 80, "ops/pcm.py _ARGS is 80 bytes");
 
 __global__ void __launch_bounds__(kPcmThreads)
 pcm_level_kernel(const PcmRow* __restrict__ rows,
-                 const int16_t* __restrict__ samples,
+                 const uint16_t* __restrict__ samples,
                  const __grid_constant__ PcmArgs q, int nplanes, int Bp) {
   // the area class of this CTA: rows are sorted by log2(w * h) = 4 .. 10,
   // 64 >> s blocks of 4 << s threads each a CTA
@@ -129,11 +129,13 @@ pcm_level_kernel(const PcmRow* __restrict__ rows,
   const int x = r.x + (p0 & ((1 << r.log2w) - 1));
   const int H = q.H[r.comp], W = q.W[r.comp];
   if (y >= H) return;
-  const int2 raw = __ldg(reinterpret_cast<const int2*>(samples + r.off + p0));
-  const int v[4] = {(int)(int16_t)(raw.x & 0xFFFF) << r.shift,
-                    (int)(int16_t)(raw.x >> 16) << r.shift,
-                    (int)(int16_t)(raw.y & 0xFFFF) << r.shift,
-                    (int)(int16_t)(raw.y >> 16) << r.shift};
+  // samples are unsigned (up to 16 bits): zero-extended
+  const uint2 raw =
+      __ldg(reinterpret_cast<const uint2*>(samples + r.off + p0));
+  const int v[4] = {(int)(raw.x & 0xFFFF) << r.shift,
+                    (int)(raw.x >> 16) << r.shift,
+                    (int)(raw.y & 0xFFFF) << r.shift,
+                    (int)(raw.y >> 16) << r.shift};
   int32_t* dst = q.p[r.comp] + ((size_t)r.b * H + y) * W + x;
   if (x + 3 < W && ((uintptr_t)dst & 15) == 0) {
     *reinterpret_cast<int4*>(dst) = make_int4(v[0], v[1], v[2], v[3]);
@@ -166,7 +168,7 @@ extern "C" int restore_unfiltered(void* planes, const void* pre,
 }
 
 // rows: [N] PCM_DTYPE sorted by area (a.n[7] rows of each class,
-// log2(w * h) = 4 .. 10); samples: the int16 samples, 8-byte aligned;
+// log2(w * h) = 4 .. 10); samples: the uint16 samples, 8-byte aligned;
 // args: a PcmArgs, the first `nplanes` planes set.
 extern "C" int pcm_level(const void* rows, const void* samples,
                          const void* args, int nplanes, int Bp,
@@ -182,6 +184,6 @@ extern "C" int pcm_level(const void* rows, const void* samples,
   if (ctas == 0) return 0;
   if (ctas > 0x7fffffff) return (int)cudaErrorInvalidValue;
   pcm_level_kernel<<<(unsigned)ctas, kPcmThreads, 0, (cudaStream_t)stream>>>(
-      (const PcmRow*)rows, (const int16_t*)samples, a, nplanes, Bp);
+      (const PcmRow*)rows, (const uint16_t*)samples, a, nplanes, Bp);
   return (int)cudaGetLastError();
 }

@@ -124,7 +124,10 @@ def uni_round(p, bd):
 
 
 def bi_average(p0, p1, bd):
-    shift = IF_PREC + 1 - bd
+    """Default bi-prediction: shift2 = Max(3, 15 - bitDepth) (Rec.
+    8.5.3.3.4.2), the headroom plus one.  The JAX package's 15 - bd is
+    the same up to 12 bits and wrong above."""
+    shift = _headroom(bd) + 1
     off = (1 << (shift - 1)) + 2 * IF_OFFS
     return torch.clamp((p0 + p1 + off) >> shift, 0, (1 << bd) - 1)
 
@@ -227,7 +230,7 @@ def mc_grid(stacked, res, refs, mv, dirm, sel, *, is_luma, sx, sy, bd, W,
     if res.shape != stacked.shape or tuple(refs.shape[1:]) != (H, W) or \
             R < 1 or mv.shape != (B, h4, w4, 2, 2) or \
             sel.shape != (B, h4, w4, 2) or dirm.shape[0] != B or \
-            H > Hp or W > Wp or not 8 <= bd <= 12:
+            H > Hp or W > Wp or not 8 <= bd <= 16:
         raise ValueError("mc_grid: inconsistent plane/map shapes")
     if mv.data_ptr() % 8 or sel.data_ptr() % 4:
         raise ValueError("mc_grid: mv must be 8-byte and sel 4-byte aligned")
@@ -357,7 +360,7 @@ def mc_weighted(stacked, res, refs, blk, *, is_luma, sx, sy, bd, wp, denom,
     R = refs.shape[0]
     if res.shape != stacked.shape or tuple(refs.shape[1:]) != (H, W) or \
             R < 1 or blk.shape[1] != len(BLK_FIELDS) or \
-            not 8 <= bd <= 12 or not 0 <= denom <= 7:
+            not 8 <= bd <= 16 or not 0 <= denom <= 7:
         raise ValueError("mc_weighted: inconsistent shapes")
     if not is_luma:
         groups = None

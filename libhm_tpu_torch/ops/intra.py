@@ -341,7 +341,7 @@ def intra_wavefront(plane, res_plane, table, *, is_luma, bd, W, H,
         raise ValueError("intra_wavefront: table rows are not "
                          f"{BLOCK_DTYPE.itemsize} bytes")
     _, Hc, Wc = plane.shape
-    if not 8 <= bd <= 12 or W > Wc or H > Hc or max(Wc, Hc) > 32767:
+    if not 8 <= bd <= 16 or W > Wc or H > Hc or max(Wc, Hc) > 32767:
         raise ValueError(f"intra_wavefront: unsupported bd={bd} W={W} H={H} "
                          f"planes {Hc}x{Wc}")
     N, L = blocks.shape[0], count.shape[0]

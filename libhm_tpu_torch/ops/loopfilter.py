@@ -128,9 +128,9 @@ def loop_filter_level(planes, maps, *, mask, bd_l, bd_c, sx, sy, log2_ctb,
     bsn = maps.get("bsn_v" if mask & PASS_V else "bsn_h")
     h4, w4 = (bsn.shape[1:] if edges and bsn is not None else
               maps["s4"].shape[1:] if sao and multi else (0, 0))
-    if not 1 <= ncomp <= 3 or not (8 <= bd_l <= 12 and 8 <= bd_c <= 12) or \
+    if not 1 <= ncomp <= 3 or not (8 <= bd_l <= 16 and 8 <= bd_c <= 16) or \
             (sao and log2_ctb - max(sx, sy) < 3):
-        raise ValueError("loop_filter_level: 1 to 3 planes of 8 to 12 bits, "
+        raise ValueError("loop_filter_level: 1 to 3 planes of 8 to 16 bits, "
                          "CTBs of at least 8 samples")
     spec = []
     geo = []

@@ -40,7 +40,8 @@ _ARGS = struct.Struct("<3Q13i4x")
 class PcmTable(NamedTuple):
     """The PCM blocks of one level, as K9 takes them."""
     rows: torch.Tensor      # uint8 [N, 16]: PCM_DTYPE rows sorted by area
-    samples: torch.Tensor   # int16 [K]: each row's w * h samples, in order
+    samples: torch.Tensor   # int16 [K]: each row's w * h samples, in order,
+                            # the bits of uint16 values (read zero-extended)
     counts: tuple           # rows of each area class of LOG2_AREAS
 
 
@@ -87,7 +88,7 @@ def pcm_pack(blocks):
     blocks: (comp, b, x, y, w, h, shift, samples) each, w and h powers of
     two in 4..32, samples w * h values in row order.  Returns (buf, counts):
     buf a uint8 numpy array, the PCM_DTYPE rows sorted stably by area and
-    then the int16 samples in row order (the part starts at byte 16 * N, a
+    then the uint16 samples in row order (the part starts at byte 16 * N, a
     16-byte boundary; each block's offset is a multiple of 16 samples);
     counts the rows of each area class.  `pcm_table` makes the views.
     """
@@ -116,7 +117,7 @@ def pcm_pack(blocks):
     rows["off"] = np.cumsum(sizes) - sizes
     samples = np.concatenate(
         [np.asarray(blocks[k][7]).reshape(-1) for k in order]
-        or [np.zeros(0)]).astype(np.int16)
+        or [np.zeros(0)]).astype(np.uint16)
     counts = tuple(int(c) for c in np.bincount(
         area - LOG2_AREAS[0], minlength=len(LOG2_AREAS)))
     return np.concatenate([rows.view(np.uint8).reshape(-1),
@@ -174,8 +175,8 @@ def pcm_level_plain(planes, table):
             continue
         w, h = 1 << lw, 1 << lh
         idx = f["off"][i, None] + torch.arange(w * h, device=dev)
-        blk = table.samples[idx].view(-1, h, w).to(torch.int32) << \
-            f["shift"][i, None, None].to(torch.int32)
+        blk = (table.samples[idx].view(-1, h, w).to(torch.int32) & 0xFFFF) \
+            << f["shift"][i, None, None].to(torch.int32)
         _, H, W = planes[c].shape
         iy = (f["y"][i, None, None] + torch.arange(h, device=dev)[:, None]) \
             .expand(blk.shape)

@@ -166,7 +166,7 @@ def sao(planes, sao_t, sao_b, sao_o, scale, *, log2cx, log2cy, bd, W, H):
     if sao_t.shape[0] != B or sao_b.shape != sao_t.shape or \
             sao_o.shape != (B, hc, wc, 4) or scale.shape[0] != B or \
             (hc << log2cy) < Hp or (wc << log2cx) < Wp or \
-            W > Wp or H > Hp or not 8 <= bd <= 12 or \
+            W > Wp or H > Hp or not 8 <= bd <= 16 or \
             min(log2cx, log2cy) < 3:
         raise ValueError("sao: inconsistent plane/map shapes")
     return _launch_sao(_K4, planes, sao_t, sao_b, sao_o, scale,
@@ -242,7 +242,7 @@ def sao_multi(planes, sao_t, sao_b, sao_o, scale, s4, lf4, tm, lft, *,
     if sao_t.shape[0] != B or sao_b.shape != sao_t.shape or \
             sao_o.shape != (B, hc, wc, 4) or scale.shape[0] != B or \
             (hc << log2cy) < Hp or (wc << log2cx) < Wp or \
-            W > Wp or H > Hp or not 8 <= bd <= 12 or \
+            W > Wp or H > Hp or not 8 <= bd <= 16 or \
             min(log2cx, log2cy) < 3 or \
             s4.shape[0] != B or lf4.shape != s4.shape or \
             tm.shape != (B, hc, wc) or lft.shape[0] != B:

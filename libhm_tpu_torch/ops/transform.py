@@ -280,7 +280,7 @@ def residual_table(planes, table, mats=None, res_l=None):
     residual planes, of the shape of `planes` (4:4:4), which F_CCP rows
     (cross-component prediction) read: res += (alpha * res_l) >> 3,
     clipped to int16; needed when the table has such rows.
-    Non-extended precision only (max_dyn_range 15), bit depths 8-12
+    Non-extended precision only (max_dyn_range 15), bit depths 8-16
     outside bypass rows.
     """
     if not planes.is_cuda:
@@ -345,7 +345,7 @@ def _bucket_table(planes, coeffs, qp, bsel, ysel, xsel, n, use_dst, tskip,
     if bypass:
         if mats is not None:
             raise ValueError("residual_scatter: bypass TUs take no matrix")
-    elif qp is None or (use_dst and n != 4) or not 8 <= bd <= 12:
+    elif qp is None or (use_dst and n != 4) or not 8 <= bd <= 16:
         raise ValueError(f"residual_scatter: unsupported n={n} "
                          f"use_dst={use_dst} tskip={tskip} bd={bd}")
     if mats is not None and (midx is None or mats.shape[1:] != (n, n)):

@@ -81,7 +81,7 @@ def residual_tables(items):
             bypass, tskip = bool(tu.tq_bypass), bool(tu.transform_skip)
             if bypass:
                 flags = TK.F_BYPASS
-            elif not 8 <= bd <= 12 or (tu.use_dst and tu.w != 4 and
+            elif not 8 <= bd <= 16 or (tu.use_dst and tu.w != 4 and
                                        not tskip):
                 raise ValueError(f"residual_tables: unsupported n={tu.w} "
                                  f"use_dst={tu.use_dst} bd={bd}")

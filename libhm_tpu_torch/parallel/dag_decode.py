@@ -17,18 +17,20 @@ stay on the device:
     PCM / lossless samples back to their pre-deblock    (K8)
     values
     filtered planes --(stay on device)--> next level's reference planes
-    final planes --int16 download--> output pictures    (decode_batch)
+    final planes --16-bit download--> output pictures   (decode_batch)
     or a uint32 checksum of them --4 bytes-->           (K7, decode_batch_device)
 
 Chroma formats 4:0:0 (one plane), 4:2:0, 4:2:2 and 4:4:4 and bit depths
-up to 12 decode; `decode_streams` merges the levels of several streams of
+8 to 16 decode; `decode_streams` merges the levels of several streams of
 one geometry into the same launches.  With a `devices=` list, each level's
 pictures split into contiguous shards over the listed devices (the picture
 axis of the JAX `mesh=`), and each device runs the whole pipeline above on
 its shard; a reference made on another device comes over as a counted
 peer copy (xfer.peer).  Streams outside the slice (extended
-precision, bit depths above 12) raise NotImplementedError naming the
-missing piece; nothing falls back to another backend.
+precision; and, where the reference itself is wrong, cross-component
+prediction with unequal bit depths and weighted prediction with
+high-precision offsets) raise NotImplementedError naming the missing
+piece; nothing falls back to another backend.
 """
 import contextlib
 
@@ -78,14 +80,20 @@ def _check_slice(items):
         missing = []
         if sps.extended_precision:
             missing.append("extended precision")
-        if max(sps.bit_depth_luma, sps.bit_depth_chroma) > 12:
-            missing.append("bit depths above 12")
         # the reference's CCP omits the luma bit-depth scale of H.265
         # 8.6.6, so it is right only when luma and chroma depths agree
         if it["pps"].cross_component_prediction and \
                 sps.bit_depth_luma != sps.bit_depth_chroma:
             missing.append("cross-component prediction with unequal bit "
                            "depths")
+        # H.265 7.4.7.3 drops the offsets' bit-depth shift under
+        # high_precision_offsets_enabled_flag; the reference always applies
+        # it (_inter_level_gathered copies it)
+        if sps.high_precision_offsets and any(
+                getattr(pu, "wp", None) is not None
+                for pu in it["pic"].inter_list):
+            missing.append("weighted prediction with "
+                           "high_precision_offsets_enabled_flag")
         if missing:
             raise NotImplementedError(
                 "libhm_tpu_torch decode_batch: not ported: " +
@@ -358,8 +366,8 @@ def _on(device):
 def _recon_levels(items, devices, download=True):
     """Device-resident reconstruction of collect items grouped into
     reference-DAG levels.  Returns [(dp, item, small_planes)] where
-    small_planes are the padded output planes narrowed to int16 on the
-    device (downloaded by _materialize).
+    small_planes are the padded output planes narrowed to two bytes a
+    sample on the device (downloaded by _materialize).
 
     devices: a list of devices: each level's pictures split into
     contiguous shards (_shards), shard k reconstructed on devices[k] (with
@@ -416,8 +424,9 @@ def _recon_shard(items, sps0, device, download):
             sx, sy, _, Wc, Hc = _comp_geometry(sps, c)
             cache[(c, Hc, Wc)] = stacked[c][b, :Hc, :Wc]
             if download:
-                # samples are < 2^12, so int16 holds them (torch's uint16
-                # support is thin); _materialize widens back
+                # two bytes a sample: the low 16 bits of samples of up to
+                # 16 bits, in an int16 (torch's uint16 support is thin);
+                # _download reads them back unsigned
                 small.append(stacked[c][b].to(torch.int16))
         it["dp"]._device_planes = cache
         pending.append((it["dp"], it, small))
@@ -425,12 +434,13 @@ def _recon_shard(items, sps0, device, download):
 
 
 def _download(small):
-    """Host int32 planes of one picture's int16 device planes (D2H counted)."""
+    """Host int32 planes of one picture's int16 device planes, whose bits
+    are uint16 samples (D2H counted)."""
     planes = []
     for s in small:
         a = s.cpu().numpy()
         xfer.count_d2h(a.nbytes)
-        planes.append(a.astype(np.int32))
+        planes.append(a.view(np.uint16).astype(np.int32))
     return planes
 
 

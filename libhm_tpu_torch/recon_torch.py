@@ -17,8 +17,9 @@ from .utils import xfer
 
 def reconstruct_picture(item, device):
     """Reconstruct one picture on `device`; returns its padded int32 host
-    planes (downloaded as int16, D2H counted).  The filtered planes stay on
-    the device as item["dp"]._device_planes for later pictures' MC.
+    planes (downloaded at two bytes a sample, D2H counted).  The filtered
+    planes stay on the device as item["dp"]._device_planes for later
+    pictures' MC.
 
     item: a collect-mode item (hostdec.decoder) with its "dp".  The picture
     is one reference-DAG level of one picture, so it runs the DAG path's

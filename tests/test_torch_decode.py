@@ -3,8 +3,9 @@
 Each all-intra stream must match its HM golden MD5 and equal the JAX
 decode_batch plane by plane (exact).  The 1080p stream runs only under
 HEVC_SLOW_TESTS, as in test_dag_decode.py.  Streams outside the port
-raise NotImplementedError naming what is missing; the entry point runs on
-the card unless the CPU is asked for.
+(extended precision, at any bit depth up to 16) raise NotImplementedError
+naming what is missing; the entry point runs on the card unless the CPU
+is asked for.
 """
 import hashlib
 import json
@@ -85,11 +86,14 @@ def test_inter_stream_raises():
 
 
 def test_tiles_stream_raises():
-    """Tiles and cross-component prediction are ported; the refusal is
-    held on a picture whose bit depth is set to 14: named."""
+    """Tiles, cross-component prediction and bit depths up to 16 are
+    ported; the refusal is held on a picture set to 16 bits with extended
+    precision, which stays refused: named."""
     items = _collected("ccp444_lowdelay_160x96")
-    items[0]["sps"].bit_depth_chroma = 14
-    with pytest.raises(NotImplementedError, match="bit depths above 12"):
+    sps = items[0]["sps"]
+    sps.bit_depth_luma = sps.bit_depth_chroma = 16
+    sps.extended_precision = 1
+    with pytest.raises(NotImplementedError, match="extended precision"):
         DD._recon_levels(items, [CPU])
 
 

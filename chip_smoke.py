@@ -6,7 +6,10 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 Phases, each fatal on failure (the exit code is then non-zero and the
-result line is not printed):
+result line is not printed).  Bounds are the larger of the bytes at the
+card's HBM rate and the integer operations at its int32 rate (64 INT32
+lanes an SM x 2 for a multiply-add x SMs x the maximum SM clock,
+libhm_tpu_torch/utils/timing.py int32_ops_per_s).
 
  1. card name and power limit (nvidia-smi); CUDA must be available;
  2. build the port's native host parser (libhm_tpu_torch/hostdec/native)
@@ -78,7 +81,9 @@ result line is not printed):
     - the golden sweep: the seven small goldens of SWEEP through
       HmDecoder, their MD5s; lowdelayP_main10_4k through decode_batch: its
       MD5, fps, K2 launches and peak device memory under what the path
-      holds by design;
+      holds by design; and through HmDecoder: its MD5, fps, time to the
+      first picture and peak device memory under (DPB size + 3) pictures
+      + 256 MiB;
     - the dec_app CLI on lowdelayP_416x240 (a subprocess): exit 0 and the
       YUV's golden MD5;
     - decode_intra_batch on the all-intra 1080p stream: golden MD5, every
@@ -147,6 +152,11 @@ result line is not printed):
     memcpys, memsets; a CPU op's row carries the device time of what it
     launched), and K1's, K5's and the loop filter's launches and device
     time and the H2D memcpy count;
+    then the bench phase (bench_phase): bench_torch.py's device section
+    as a child process with one timed run and two streams (its checksum
+    equal to the native CPU decode's, every MD5 golden, every line
+    present) and tools/bench_kernels_torch.py's K1 and K6 rows at the
+    JAX harness's shapes (exact, at most 100% of their bound);
  6. one JSON line of per-kernel results, then the result line
     {"ok": true, "device": {...}}.
 """
@@ -246,49 +256,17 @@ LAUNCHES_FROM = {"residual_bypass": "lossless_intra_416x240",
 # rows
 EXACT = ("pcm_port_416x240", "rext444_randomaccess_416x240")
 
-# published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, and the
-# CUDA-core rate (67 TFLOP/s float32 outside the tensor cores; the table
-# has no int32 entry, so integer operations are held against it too)
+# published H100 SXM peak HBM bytes/s (NVIDIA data sheet); the int32 rate
+# that integer operations are held to is the card's own, set in main()
+# (libhm_tpu_torch/utils/timing.py int32_ops_per_s); so are the timing
+# helpers cuda_ms and device_ms of that module (the package is importable
+# only once main() has checked the checkout)
 HBM_BPS = 3.35e12
-CORE_OPS = 67e12
+CORE_OPS = cuda_ms = device_ms = None
 
 
 def log(msg):
     print(msg, flush=True)
-
-
-def cuda_ms(fn, reps):
-    """Mean milliseconds of fn() on the card over `reps` runs (warmed)."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def device_ms(fn, reps):
-    """Mean device milliseconds of fn() over `reps` runs queued behind a
-    sleeping kernel (~0.5 ms a run), so that the host enqueues them all
-    before the first starts: for launches shorter than their enqueue,
-    which cuda_ms would time at the host's rate."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(reps * 1000000)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def device_events(fn):
@@ -1389,10 +1367,11 @@ def pics_md5(pics):
                                 for pl in p.planes)).hexdigest()
 
 
-def picture_main_path(data, gold, card):
-    """The per-picture main path: the RA 1080p stream pushed through
-    HmDecoder and every picture pulled, timed per picture; golden MD5, no
-    reference plane uploaded, peak device memory under the DPB's bound."""
+def picture_main_path(data, gold, card, name=STREAM):
+    """The per-picture main path: a golden stream (the RA 1080p one by
+    default) pushed through HmDecoder and every picture pulled, timed per
+    picture; golden MD5, no reference plane uploaded, peak device memory
+    under the DPB's bound."""
     import torch
     import libhm_tpu_torch.recon_torch as RT
     from libhm_tpu_torch.utils import xfer
@@ -1414,9 +1393,9 @@ def picture_main_path(data, gold, card):
         RT.reconstruct_picture = orig
     peak = torch.cuda.max_memory_allocated()
     md5 = pics_md5(pics)
-    if len(pics) != gold[STREAM]["frames"] or \
-            md5 != gold[STREAM]["decoded_yuv_md5"]:
-        raise AssertionError(f"{STREAM} through HmDecoder: {len(pics)} "
+    if len(pics) != gold[name]["frames"] or \
+            md5 != gold[name]["decoded_yuv_md5"]:
+        raise AssertionError(f"{name} through HmDecoder: {len(pics)} "
                              f"pictures, MD5 {md5}")
     sps = pics[0]._dp.sps
     dpb = sps.max_dec_pic_buffering[sps.max_sub_layers_minus1]
@@ -1426,7 +1405,7 @@ def picture_main_path(data, gold, card):
     cap = (dpb + 3) * pic_bytes + (256 << 20)
     ref = xfer.BY_TAG.get("ref", 0)
     ms = sorted(recon_ms)
-    log(f"{STREAM} through HmDecoder ({card}): {len(pics)} pictures, MD5 "
+    log(f"{name} through HmDecoder ({card}): {len(pics)} pictures, MD5 "
         f"matches golden; first picture pulled after {first:.3f} s; "
         f"{len(pics) / total:.3f} fps over {total:.3f} s; recon per picture "
         f"median {ms[len(ms) // 2]:.1f} ms, max {ms[-1]:.1f} ms; H2D "
@@ -1436,10 +1415,10 @@ def picture_main_path(data, gold, card):
         f"cap {cap / 1e6:.1f} MB = (DPB {dpb} + 3) x {pic_bytes / 1e6:.3f} "
         f"MB + 256 MiB); DPB at the end {len(dec._core.dpb)} pictures")
     if ref:
-        raise AssertionError(f"{STREAM}: {ref} bytes of reference planes "
+        raise AssertionError(f"{name}: {ref} bytes of reference planes "
                              "uploaded")
     if peak > cap:
-        raise AssertionError(f"{STREAM}: peak device memory {peak} over "
+        raise AssertionError(f"{name}: peak device memory {peak} over "
                              f"the cap {cap}")
     return len(pics)
 
@@ -2124,7 +2103,67 @@ def hbd_phase(ports, card):
         del outs, pics
 
 
+# the bench phase's device section: seconds it may take, one timed run
+# each and decode_streams at 2 (bench_torch.py run alone takes medians of
+# 3 and 4 streams too)
+BENCH_BUDGET = 420
+BENCH_KEYS = ("device_compute_fps", "cuda_fps", "h2d_mb_per_frame",
+              "d2h_mb_per_frame")
+
+
+def bench_phase(data, card):
+    """The benchmark harness on the card: bench_torch.py's device section
+    in a child process (as bench_torch.py runs it, with one timed run and
+    two streams) on the RA 1080p stream, then tools/bench_kernels_torch.py's
+    K1 and K6 rows.  Every line is logged with the card; fails unless the
+    child exits 0 with device_compute_fps and device_checksum_ok true (the
+    checksum against cropped_checksum of the native CPU decode), cuda_fps
+    (each repetition's MD5 golden), multistream_fps at 2 and the bytes per
+    picture, and unless every kernel row has max_abs_err 0 and a share of
+    its bound of at most 1."""
+    import importlib.util
+    import bench_torch as BT
+    from libhm_tpu_torch.hostdec.decoder import Decoder
+    from libhm_tpu_torch.parallel.dag_decode import cropped_checksum
+    t0 = time.monotonic()
+    csum = cropped_checksum(Decoder(parse="native",
+                                    recon="native").decode_annexb(data))
+    r = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "bench_torch.py"),
+         "--device-child", "--budget", str(BENCH_BUDGET), "--expect-csum",
+         str(csum), "--runs", "1", "--streams", "2"], cwd=ROOT,
+        capture_output=True, text=True, timeout=BENCH_BUDGET + 120)
+    for ln in r.stdout.splitlines():
+        log(f"bench_torch.py --device-child ({card}): {ln}")
+    got = BT.merge_lines(r.stdout)
+    missing = [k for k in BENCH_KEYS if k not in got]
+    if r.returncode != 0 or missing or \
+            got.get("device_checksum_ok") is not True or \
+            "2" not in got.get("multistream_fps", {}):
+        raise AssertionError(f"bench_torch.py device section: exit "
+                             f"{r.returncode}, missing {missing}, lines "
+                             f"{got}\n{r.stderr[-3000:]}")
+    log(f"bench_torch.py device section: {time.monotonic() - t0:.1f} s")
+    t0 = time.monotonic()
+    spec = importlib.util.spec_from_file_location(      # tools/: no package
+        "bench_kernels_torch", os.path.join(ROOT, "tools",
+                                            "bench_kernels_torch.py"))
+    BK = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(BK)
+    log(BK.header("cuda"))
+    rows = BK.measure("cuda")
+    for row in rows:
+        log(f"bench_kernels_torch ({card}): {json.dumps(row)}")
+    bad = [row for row in rows if row["max_abs_err"] != 0 or
+           row["share"] is None or row["share"] > 1]
+    if bad:
+        raise AssertionError(f"bench_kernels_torch rows off: {bad}")
+    log(f"tools/bench_kernels_torch.py: {len(rows)} rows in "
+        f"{time.monotonic() - t0:.1f} s")
+
+
 def main():
+    global CORE_OPS, cuda_ms, device_ms
     start = time.monotonic()
     if not os.path.isdir(os.path.join(ROOT, "libhm_tpu_torch")) or \
             not os.path.isdir(os.path.join(ROOT, "testdata")):
@@ -2134,13 +2173,17 @@ def main():
     import torch
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    from libhm_tpu_torch.utils import timing as TM
+    cuda_ms, device_ms = TM.cuda_ms, TM.device_ms
+    card = TM.card_name()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
+    CORE_OPS = TM.int32_ops_per_s()
+    log(f"bounds: HBM {HBM_BPS / 1e12:.2f} TB/s, int32 {CORE_OPS / 1e12:.3f} "
+        f"T ops/s ({TM.INT32_LANES_PER_SM} lanes x 2 x "
+        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs x "
+        "the maximum SM clock)")
 
     # ---- build: the host parser and the kernels at once ----
     from libhm_tpu_torch.hostdec import native_bridge
@@ -2308,6 +2351,11 @@ def main():
     if peak > cap:
         raise AssertionError(f"{UHD}: peak device memory {peak} over {cap}")
     del outs
+    uhd = open(os.path.join(ROOT, "testdata", gold[UHD]["bitstream"]),
+               "rb").read()
+    run_path(f"{UHD} HmDecoder",
+             lambda: picture_main_path(uhd, gold, card, name=UHD),
+             K1_K4 + ["mc_grid"])
     with tempfile.TemporaryDirectory(dir=KB.BUILD) as tmp:
         yuv = os.path.join(tmp, "out.yuv")
         r = subprocess.run(
@@ -2494,6 +2542,7 @@ def main():
     log(f"{REXT}: every picture's hash SEI checks OK")
 
     breakdown(data, card)
+    bench_phase(data, card)
 
     src = {"residual_scatter": ("libhm_tpu_torch/csrc/residual.cu",
                                 "libhm_tpu/recon_tpu.py:60"),

@@ -1,6 +1,7 @@
 """The golden sweep of the port: goldens that no other port test decodes,
-through decode_batch(device="cpu") (the plain versions of every kernel),
-against their HM MD5s in testdata/golden.json.
+through decode_batch(device="cpu") (the plain versions of every kernel)
+and through the per-picture path, Decoder(parse="native", recon="torch",
+device="cpu"), against their HM MD5s in testdata/golden.json.
 
 The 4K golden runs only under HEVC_SLOW_TESTS, as in test_dag_decode.py.
 """
@@ -11,6 +12,7 @@ import os
 import pytest
 import torch
 
+from libhm_tpu_torch.hostdec.decoder import Decoder
 from libhm_tpu_torch.parallel.dag_decode import decode_batch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -20,10 +22,14 @@ SWEEP = ("intra_qp22_416x240", "intra_nofilt_416x240", "intra_nosao_416x240",
          "cra_randomaccess_416x240", "randomaccess_416x240")
 
 
-def _md5_of(name):
+def _md5_of(name, per_picture=False):
     data = open(os.path.join(ROOT, "testdata", GOLD[name]["bitstream"]),
                 "rb").read()
-    outs = decode_batch(data, device=torch.device("cpu"))
+    if per_picture:
+        outs = Decoder(parse="native", recon="torch",
+                       device="cpu").decode_annexb(data)
+    else:
+        outs = decode_batch(data, device=torch.device("cpu"))
     assert len(outs) == GOLD[name]["frames"]
     return hashlib.md5(b"".join(p.tobytes() for pic in outs
                                 for p in pic)).hexdigest()
@@ -32,6 +38,11 @@ def _md5_of(name):
 @pytest.mark.parametrize("name", SWEEP)
 def test_golden(name):
     assert _md5_of(name) == GOLD[name]["decoded_yuv_md5"]
+
+
+@pytest.mark.parametrize("name", SWEEP)
+def test_golden_per_picture(name):
+    assert _md5_of(name, per_picture=True) == GOLD[name]["decoded_yuv_md5"]
 
 
 def test_golden_4k():

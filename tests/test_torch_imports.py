@@ -1,8 +1,9 @@
 """Port hygiene and shared state.
 
-- libhm_tpu_torch and chip_smoke.py import neither JAX nor anything of
-  the JAX package (libhm_tpu), directly or indirectly: the port keeps its
-  own copy of the host half (libhm_tpu_torch.hostdec);
+- libhm_tpu_torch, chip_smoke.py and the port's harness (bench_torch.py,
+  tools/bench_kernels_torch.py) import neither JAX nor anything of the
+  JAX package (libhm_tpu), directly or indirectly: the port keeps its own
+  copy of the host half (libhm_tpu_torch.hostdec);
 - the port's constant tables (state.tables_from_numpy) equal the JAX
   package's jnp tables element by element, and the literal tables in the
   CUDA sources equal the numpy ones;
@@ -30,6 +31,8 @@ def _py_files():
             if f.endswith(".py"):
                 yield os.path.join(d, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "bench_torch.py")
+    yield os.path.join(ROOT, "tools", "bench_kernels_torch.py")
 
 
 def _imports(path):

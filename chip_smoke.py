@@ -63,7 +63,14 @@ libhm_tpu_torch/utils/timing.py int32_ops_per_s).
     level kernel on the 16-bit stream's own level (int16 chroma tc, band
     shift 11, SAO offset scale 6); K3 chroma's int16-tc form, K4, K5 and
     K6 (weighted and plain epilogues; K5 and K6 also at 14 bits), K7, K8,
-    and K9 with 16-bit PCM samples of 2^15 and more;
+    and K9 with 16-bit PCM samples of 2^15 and more; and K1's wide form
+    (extended precision, check_ext): seeded 1080p 4:4:4 tables at 10, 12,
+    14 and 16 bits (tests/ext_cases.py: every mode, levels over
+    [-2^(bd+6), 2^(bd+6) - 1], a luma table of F_EXT rows and a chroma
+    table with CCP rows and a quarter of its rows without F_EXT), and the
+    real level of the extended-precision 1080p stream, each component
+    timed beside the same level of the stream without the flag (K1's
+    int16 form);
  4. the main paths, each with the launch counters reset just before it and
     read just after, and the reference-DAG levels it reconstructs counted:
     K1 and K2 launch at most once per component and level on every path,
@@ -132,6 +139,13 @@ libhm_tpu_torch/utils/timing.py int32_ops_per_s).
       decode_intra_batch, decode_batch and HmDecoder (MD5 and every hash
       SEI OK) and decode_batch_device (checksum equal to cropped_checksum),
       with the 1080p stream's fps through each;
+    - the extprec phase: testdata/rext444_16b_intra_1080p_extprec (that
+      stream with extended_precision_processing_flag set;
+      tools/make_extprec_stream.py, port_streams.json) through
+      decode_intra_batch, decode_batch and HmDecoder (its MD5; the hash
+      SEIs hash the decode without the flag and are not checked) and
+      decode_batch_device (checksum equal to cropped_checksum), K1's wide
+      form launched on each path, fps of each;
     - the multi-device decode (multidevice_phase): the RA 1080p stream
       through decode_batch and decode_batch_device with
       devices=["cuda:0", "cuda:0"] (each level's pictures split into
@@ -323,9 +337,10 @@ class Result:
         return (tb, "bytes") if tb >= to else (to, "operations")
 
 
-def _k1_work(rows):
-    """(bytes, operations) of K1 over TU_DTYPE rows: each row, its int16
-    coefficients, its int32 residual samples and each scaling matrix it
+def _k1_work(rows, coef_bytes=2):
+    """(bytes, operations) of K1 over TU_DTYPE rows: each row, its
+    coefficients (int16, or int32 in the wide form: coef_bytes), its int32
+    residual samples and each scaling matrix it
     names once; the butterflies' multiply-adds (each 1-D pass 1.5 n per
     4 samples) and the dequant, or the shifts and RDPCM sums of transform
     skip and bypass rows."""
@@ -337,7 +352,7 @@ def _k1_work(rows):
     ops = ops + np.where(rows["rdpcm"] != 0, n * n * (n + 1) // 2, 0)
     sc = rows[(rows["flags"] & TK.F_SCALED) != 0]
     mats = np.unique(sc["log2n"].astype(np.int64) << 8 | sc["midx"])
-    nbytes = len(rows) * 16 + (n * n).sum() * 6 + \
+    nbytes = len(rows) * 16 + (n * n).sum() * (coef_bytes + 4) + \
         sum(1 << (2 * int(m >> 8)) for m in mats)
     return int(nbytes), int(ops.sum())
 
@@ -1635,7 +1650,8 @@ def kernel_counters():
                "mc_grid": MK._K5, "mc_weighted": MK._K6,
                "plane_checksum": CK._K7, "restore_unfiltered": PK._K8,
                "pcm_level": PK._K9, "deblock_chroma16": DK._K3_CHROMA16,
-               "residual_table_ccp": TK._K1_CCP}
+               "residual_table_ccp": TK._K1_CCP,
+               "residual_table_ext": TK._K1_EXT}
     return kernels, dict(kernels, loop_filter_multi=LF.FORMS["multi"],
                          loop_filter_ctc16=LF.FORMS["ctc16"])
 
@@ -1943,6 +1959,8 @@ def timed_run(name, data, md5, card, check_sei_hash=False):
 # 14-bit 4:2:0), all in testdata/port_streams.json
 HBD = "rext444_16b_intra_1080p"
 HBD_SMALL = ("rext444_16b_intra_160x96", "main14_intra_160x96")
+# extended precision (the extprec phase): HBD with the flag set
+EXT = HBD + "_extprec"
 
 
 def check_hbd(results, ra_levels, tool_levels, intra_items, hbd_items, card,
@@ -2101,6 +2119,163 @@ def hbd_phase(ports, card):
             f"{ {k: round(v, 3) for k, v in fps.items()} }, HmDecoder's "
             f"first picture after {first:.3f} s")
         del outs, pics
+
+
+def check_ext(card, rng):
+    """K1's wide form against its plain version, exact.  Seeded 1080p
+    4:4:4 tables (tests/ext_cases.py) at 10, 12, 14 and 16 bits, levels
+    over [-2^(bd+6), 2^(bd+6) - 1], every mode (DCT 4-32, DST, transform
+    skip with rotation, bypass, RDPCM both ways, scaled rows with factors
+    from 1): a luma table of F_EXT rows, and a chroma table with CCP rows
+    (a seeded luma residual) and a quarter of its rows without F_EXT.
+    Then the real level of EXT (both pictures, all three components):
+    each component's wide table against its plain version, and timed
+    beside the same component of HBD's level (the stream without the flag:
+    K1's int16 form), in turns, with the plain version's time."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from ext_cases import ext_level
+    from libhm_tpu_torch.hostdec.decoder import Decoder
+    from libhm_tpu_torch.ops import transform as TK
+    from libhm_tpu_torch.parallel import batch_decode as TB
+    r = Result()
+    shape = (1, 1088, 1920)
+    seeded, n0 = {}, TK._K1_EXT.launches
+    for bd in (10, 12, 14, 16):
+        for chroma in (False, True):
+            rows, coeffs, counts, flags, mats, _ = ext_level(
+                rng, bd, *shape, chroma=chroma,
+                plain_share=0.25 if chroma else 0.0)
+            table = TB.upload_tables([(rows, coeffs, counts, flags)], DEV)[0]
+            m = {n: torch.from_numpy(v).to(DEV) for n, v in mats.items()}
+            res_l = torch.from_numpy(rng.integers(
+                -(1 << (bd + 5)), 1 << (bd + 5), shape).astype(np.int32)) \
+                .to(DEV) if chroma else None
+            want = TK.residual_table_plain(
+                torch.zeros(shape, dtype=torch.int32, device=DEV), table, m,
+                res_l)
+            got = TK.residual_table(
+                torch.zeros(shape, dtype=torch.int32, device=DEV), table, m,
+                res_l)
+            torch.cuda.synchronize()
+            e = max_abs_err(got, want)
+            seeded[(bd, "ccp" if chroma else "luma")] = (
+                len(rows), e, int((got != want).sum()),
+                int(want.abs().max()))
+            r.err = max(r.err, e)
+    if TK._K1_EXT.launches != n0 + 8:
+        raise AssertionError("K1's wide form: launches not counted")
+    log(f"K1 wide form on seeded 1080p 4:4:4 tables ({card}): (bd, table) "
+        f"-> (rows, max abs err, mismatches, largest |residual|) {seeded}")
+
+    def level(name):
+        dec = Decoder(parse="native", recon="collect")
+        dec.decode_annexb(open(os.path.join(ROOT, "testdata",
+                                            f"{name}.bin"), "rb").read())
+        items = dec.collected
+        tables, lists = TB.residual_tables(items)
+        return items, tables, TB._MatrixTable(lists, DEV).tables
+    items, ext_tables, mats = level(EXT)
+    _, tables16, mats16 = level(HBD)
+    sps = items[0]["sps"]
+    shape = (len(items), sps.pic_height_ctbs << sps.log2_ctb,
+             sps.pic_width_ctbs << sps.log2_ctb)
+    ext_up = TB.upload_tables(ext_tables, DEV)
+    up16 = TB.upload_tables(tables16, DEV)
+    t = {"ext": [0.0, 0.0], "int16": [0.0, 0.0]}
+    pms = 0.0
+    for c, (te, t16) in enumerate(zip(ext_up, up16)):
+        if not te.flags & TK.F_EXT or t16.flags & TK.F_EXT:
+            raise AssertionError(f"{EXT} component {c}: flags {te.flags}, "
+                                 f"{t16.flags} without the flag")
+        got = torch.zeros(shape, dtype=torch.int32, device=DEV)
+        want = torch.zeros(shape, dtype=torch.int32, device=DEV)
+        TK.residual_table(got, te, mats)
+        TK.residual_table_plain(want, te, mats)
+        torch.cuda.synchronize()
+        r.err = max(r.err, max_abs_err(got, want))
+        runs = {"ext": lambda: TK.residual_table(got, te, mats),
+                "int16": lambda: TK.residual_table(got, t16, mats16)}
+        for k in ("ext", "int16", "int16", "ext"):
+            t[k][0] += cuda_ms(runs[k], 20) / 2
+            t[k][1] += device_ms(runs[k], 20) / 2
+        pms += cuda_ms(lambda: TK.residual_table_plain(want, te, mats), 3)
+        nbytes, ops = _k1_work(ext_tables[c][0], coef_bytes=4)
+        r.add(0, 0.0, 0.0, nbytes, ops)
+    r.ms, r.plain_ms = t["ext"][0], pms
+    tb, by = r.bound()
+    log(f"K1 wide form on {EXT}'s level ({len(items)} pictures, one table "
+        f"per component, {sum(len(x[0]) for x in ext_tables)} TUs) "
+        f"({card}): {t['ext'][0]:.4f} ms (device, queued behind a sleep: "
+        f"{t['ext'][1]:.4f} ms) against the same level without the flag, "
+        f"K1's int16 form, {t['int16'][0]:.4f} ms (device "
+        f"{t['int16'][1]:.4f} ms), two runs each in turns; plain "
+        f"{pms:.4f} ms; bound {tb:.6f} ms ({by}: {r.bytes} bytes, {r.ops} "
+        f"operations); max abs err {r.err}")
+    return r
+
+
+def extprec_phase(ports, card):
+    """Extended precision end to end: EXT through decode_intra_batch,
+    decode_batch and HmDecoder (MD5 of port_streams.json; the stream's
+    hash SEIs hash its decode without the flag, so they are not checked)
+    and decode_batch_device (its checksum against cropped_checksum of the
+    decoded pictures), each path with the launch counters from 0 and K1's
+    wide form launched; fps of each.  Returns the wide form's launches on
+    decode_batch."""
+    import torch
+    from libhm_tpu_torch.parallel import dag_decode as DD
+    from libhm_tpu_torch.parallel.batch_decode import decode_intra_batch
+    data = open(os.path.join(ROOT, "testdata", ports[EXT]["bitstream"]),
+                "rb").read()
+    want, frames = ports[EXT]["decoded_yuv_md5"], ports[EXT]["frames"]
+    needed = K1_K4 + ["residual_table_ext"]
+    fps = {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.monotonic() - t0
+    (dps, secs), _ = run_path(f"{EXT} decode_intra_batch",
+                              lambda: timed(lambda: decode_intra_batch(data)),
+                              needed)
+    md5 = hashlib.md5(b"".join(p.tobytes() for dp in dps
+                               for p in dp.cropped())).hexdigest()
+    if md5 != want:
+        raise AssertionError(f"{EXT} decode_intra_batch: MD5 {md5}")
+    fps["decode_intra_batch"] = frames / secs
+    del dps
+    (outs, secs), counts = run_path(
+        f"{EXT} decode_batch",
+        lambda: timed(lambda: DD.decode_batch(data, device="cuda")), needed)
+    if outs_md5(outs) != want:
+        raise AssertionError(f"{EXT} decode_batch: MD5 {outs_md5(outs)}")
+    fps["decode_batch"] = frames / secs
+    launches = counts["residual_table_ext"]
+    (_, pics, first, secs), _ = run_path(f"{EXT} HmDecoder",
+                                         lambda: push_decode(data), needed)
+    if pics_md5(pics) != want or len(pics) != frames:
+        raise AssertionError(f"{EXT} HmDecoder: {len(pics)} pictures, MD5 "
+                             f"{pics_md5(pics)}")
+    fps["HmDecoder"] = frames / secs
+    ((_, _, csum, n), secs), _ = run_path(
+        f"{EXT} decode_batch_device",
+        lambda: timed(lambda: DD.decode_batch_device(data, device="cuda")),
+        needed + ["plane_checksum"])
+    if csum != DD.cropped_checksum(outs) or n != frames:
+        raise AssertionError(f"{EXT} decode_batch_device: checksum {csum}, "
+                             f"{n} pictures")
+    fps["decode_batch_device"] = frames / secs
+    log(f"extprec {EXT}: MD5 matches port_streams.json through "
+        f"decode_intra_batch, decode_batch and HmDecoder; "
+        f"decode_batch_device's checksum {csum} equals cropped_checksum; "
+        f"K1's wide form {launches} launches on decode_batch; fps with the "
+        f"parse ({card}): { {k: round(v, 3) for k, v in fps.items()} }, "
+        f"HmDecoder's first picture after {first:.3f} s")
+    return launches
 
 
 # the bench phase's device section: seconds it may take, one timed run
@@ -2275,6 +2450,7 @@ def main():
                                         ports[HBD]["bitstream"]), "rb").read())
     check_hbd(results, ra_levels, tool_levels, items, dec.collected, card,
               rng, rt_us)
+    results["residual_table_ext"] = check_ext(card, rng)
     del tool_items, ra_levels, tool_levels, dec
     bad = {k: v.err for k, v in results.items() if v.err != 0}
     if bad:
@@ -2526,6 +2702,7 @@ def main():
         "MD5 matches golden")
     del outs
     hbd_phase(ports, card)
+    launches["residual_table_ext"] = extprec_phase(ports, card)
     multidevice_phase(gold, card)
 
     # ---- timed runs: parse and device phases ----
@@ -2575,7 +2752,9 @@ def main():
            "deblock_chroma16": ("libhm_tpu_torch/csrc/loopfilter.cu",
                                 "libhm_tpu/ops/deblock.py:136"),
            "residual_table_ccp": ("libhm_tpu_torch/csrc/residual.cu",
-                                  "libhm_tpu/parallel/batch_decode.py:164")}
+                                  "libhm_tpu/parallel/batch_decode.py:164"),
+           "residual_table_ext": ("libhm_tpu_torch/csrc/residual.cu",
+                                  "libhm_tpu/recon_tpu.py:60")}
     rows = []
     for name in kernels:
         r = results[name]

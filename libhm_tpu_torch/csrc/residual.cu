@@ -24,8 +24,11 @@
 //     thread computes 4 outputs of one line: outputs q, n/2-1-q, n/2+q and
 //     n-1-q from O[q], O[n/2-1-q] (odd inputs), EO[q] (inputs 2 mod 4) and
 //     EE[q] (inputs 0 mod 4), 1.5 n MACs for 4 outputs instead of 4 n.  It
-//     only reassociates integer sums (|coef| <= 32768, |T| <= 90, n <= 32
-//     keep every partial sum below 2^27), so it is exact;
+//     only reassociates integer sums, so it is exact: in the int16 form
+//     each pass's inputs are clipped to int16 (|v| <= 32768, |T| <= 90,
+//     n <= 32 keep every partial sum below 2^27, an int accumulates them);
+//     in the wide form (below) to +-2^22, and the sums, up to 2^33.5,
+//     accumulate in 64 bits;
 //   - the CTA's n-point matrix sits in shared memory, where a warp's reads
 //     at distinct columns fall in distinct banks; the constant cache would
 //     serialize them;
@@ -58,6 +61,35 @@
 //   4 extra bytes a CCP sample, no extra launch.  The luma residual is
 //   final because the luma launch precedes the chroma ones on the stream.
 //   Rows without the flag do not touch res_l, which is NULL for luma.
+//
+// Extended precision (RExt extended_precision_processing_flag), the wide
+// form.  Replaces: libhm_tpu/recon_tpu.py _residual_fn built with
+//   max_dyn = max(15, bd + 6) (libhm_tpu/parallel/batch_decode.py:73-74),
+//   i.e. ops/transform.py dequant_batch, dequant_batch_scaling,
+//   inverse_transform_batch and inverse_transform_skip_batch at a dynamic
+//   range of 16-22 bits.  An F_EXT row (flag 64) computes H.265 8.6.2-8.6.4
+//   at max_dyn_range M = max(15, bd + 6): the dequantized values and the
+//   stage-1 output are clipped to [-2^M, 2^M - 1] (not to int16), stage 2
+//   shifts by max(20 - bd, 11), transform skip by max(M - bd - log2n, 0)
+//   (HM's xITransformSkip under the flag), and the stage-2 output, RDPCM and
+//   CCP are not clipped, as H.265 has no clip there (the JAX package clips
+//   to int16: ROADMAP C12).  Its dequant clips the coefficient to
+//   [-2^M, 2^M - 1], the input clip of HM's xDeQuant in the build that
+//   decodes extended precision (RExt__HIGH_BIT_DEPTH_SUPPORT, a 64-bit
+//   Intermediate_Int, where min(M + 1, 64 + right - 15) is M + 1); a
+//   conforming stream's levels lie in that range already.  The product of a
+//   coefficient, a scaling factor (<= 255) and a level scale (<= 72) reaches
+//   2^36, so it is formed in 64 bits.
+// What bounds it: bytes, as the int16 form, at 4-byte coefficients: 8
+//   bytes a sample.  A table with an F_EXT row carries int32 coefficients
+//   for every row, and the C entry takes `wide`: the kernel is a template
+//   on the coefficient type and the accumulator, int16/int and
+//   int32/long long.  The wide form loads its 8 coefficients a thread as
+//   two 16-byte vectors, keeps the clipped values as int in the same
+//   shared buffers, and sums both passes in 64 bits; rows without F_EXT in
+//   a wide table keep the int16 form's clips (M = 15).  Every wide-only
+//   step is `if constexpr`, so the int16 form computes what it did.
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -112,6 +144,7 @@ struct TuRow {
   uint8_t log2n;
   int8_t qp;           // incl. the bit-depth offset
   uint8_t flags;       // kDst | kTskip | kBypass | kRotate | kScaled | kCcp
+                       // | kExt
   uint8_t rdpcm;       // bits 0-1: 0 off, 1 horizontal, 2 vertical;
                        // kCcp rows: bits 4-6 log2|alpha| + 1, bit 7 sign
   uint8_t midx;        // row of the scaling-matrix table
@@ -120,7 +153,7 @@ struct TuRow {
 static_assert(sizeof(TuRow) == 16, "TU_DTYPE is 16 bytes");
 
 enum { kDst = 1, kTskip = 2, kBypass = 4, kRotate = 8, kScaled = 16,
-       kCcp = 32 };
+       kCcp = 32, kExt = 64 };
 
 constexpr int kThreads = 256;
 constexpr int kBuf = 64 * 4 * 5;              // 64 4x4 TUs, stride n + 1
@@ -133,7 +166,8 @@ struct Counts {
   int n[4];                                   // rows of each size
 };
 
-__device__ __forceinline__ int clip3(int lo, int hi, int v) {
+template <typename T>
+__device__ __forceinline__ T clip3(T lo, T hi, T v) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
@@ -143,15 +177,15 @@ __device__ __forceinline__ int clip16(int v) {
 
 // Outputs q, n/2-1-q, n/2+q, n-1-q of one line of the N-point inverse DCT
 // out[k] = sum_i T[i][k] src[i]; t holds T[i][k] for k < N/2 as t[i][N/2].
-template <int N>
+template <int N, typename Acc>
 __device__ __forceinline__ void idct_line(const int* src, int stride,
-                                          const int* t, int q, int out[4]) {
+                                          const int* t, int q, Acc out[4]) {
   constexpr int H = N / 2;
   const int qb = H - 1 - q;
-  int oa = 0, ob = 0, eo = 0, ee = 0;
+  Acc oa = 0, ob = 0, eo = 0, ee = 0;
 #pragma unroll
   for (int i = 0; i < N; ++i) {
-    const int v = src[i * stride];
+    const Acc v = src[i * stride];
     if (i & 1) {
       oa += t[i * H + q] * v;
       ob += t[i * H + qb] * v;
@@ -161,7 +195,7 @@ __device__ __forceinline__ void idct_line(const int* src, int stride,
       ee += t[i * H + q] * v;
     }
   }
-  const int ea = ee + eo, eb = ee - eo;
+  const Acc ea = ee + eo, eb = ee - eo;
   out[0] = ea + oa;
   out[1] = eb + ob;
   out[2] = eb - ob;
@@ -174,49 +208,56 @@ __device__ __forceinline__ int out_index(int n, int q, int j) {
 }
 
 // one line (4 outputs) of the 4-point inverse DST: d holds DST[i][k]
+template <typename Acc>
 __device__ __forceinline__ void idst_line(const int* src, int stride,
-                                          const int* d, int out[4]) {
+                                          const int* d, Acc out[4]) {
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    int s = 0;
+    Acc s = 0;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) s += d[i * 4 + k] * src[i * stride];
+    for (int i = 0; i < 4; ++i) s += d[i * 4 + k] * (Acc)src[i * stride];
     out[k] = s;
   }
 }
 
 // one pass (columns: stage 1, or rows: stage 2) of one line of a TU:
 // reads the line from `in` (stride along it `step`), writes the 4 outputs,
-// rounded by `shift` and clipped to int16, into `out` at the same stride
+// rounded by `shift` and clipped to [lo, hi], into `out` at the same stride
+template <typename Acc>
 __device__ __forceinline__ void transform_line(int log2n, bool dst,
                                                const int* in, int* out,
                                                int step, const int* t,
-                                               int q, int shift) {
-  int v[4];
+                                               int q, int shift, int lo,
+                                               int hi) {
+  Acc v[4];
   const int n = 1 << log2n;
   switch (log2n) {
     case 2:
-      if (dst) idst_line(in, step, t + 8, v);
-      else idct_line<4>(in, step, t, q, v);
+      if (dst) idst_line<Acc>(in, step, t + 8, v);
+      else idct_line<4, Acc>(in, step, t, q, v);
       break;
-    case 3: idct_line<8>(in, step, t, q, v); break;
-    case 4: idct_line<16>(in, step, t, q, v); break;
-    default: idct_line<32>(in, step, t, q, v); break;
+    case 3: idct_line<8, Acc>(in, step, t, q, v); break;
+    case 4: idct_line<16, Acc>(in, step, t, q, v); break;
+    default: idct_line<32, Acc>(in, step, t, q, v); break;
   }
-  const int rnd = 1 << (shift - 1);
+  const Acc rnd = (Acc)1 << (shift - 1);
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
     const int k = dst ? j : out_index(n, q, j);
-    out[k * step] = clip16((v[j] + rnd) >> shift);
+    out[k * step] = (int)clip3<Acc>(lo, hi, (v[j] + rnd) >> shift);
   }
 }
 
+// C: the coefficient type (int16_t, or int32_t for tables with F_EXT rows);
+// Acc: the butterflies' accumulator (int, or long long)
+template <typename C, typename Acc>
 __global__ void __launch_bounds__(kThreads)
 residual_table_kernel(const TuRow* __restrict__ rows,
-                      const int16_t* __restrict__ coeffs, Mats mats,
+                      const C* __restrict__ coeffs, Mats mats,
                       Counts counts, int32_t* __restrict__ planes,
                       const int32_t* __restrict__ res_l, int Bp, int H,
                       int W) {
+  constexpr bool kWide = sizeof(C) == 4;
   __shared__ int s_a[kBuf];
   __shared__ int s_b[kBuf];
   __shared__ int s_t[32 * 16 + 16];
@@ -249,27 +290,41 @@ residual_table_kernel(const TuRow* __restrict__ rows,
   const TuRow r = s_row[min(j, ntu - 1)];
   const int base = j * n * ps;
   const bool skip = r.flags & (kTskip | kBypass);
+  // the row's dynamic range M (15, or max(15, bd + 6) for F_EXT rows) and
+  // the clip of stage 2, transform skip, bypass, RDPCM and CCP: int16, or
+  // none for F_EXT rows
+  bool ext = false;
+  int mdr = 15;
+  if constexpr (kWide) {
+    ext = r.flags & kExt;
+    if (ext) mdr = max(15, r.bd + 6);
+  }
+  const int lo1 = -(1 << mdr), hi1 = (1 << mdr) - 1;
+  const int lo2 = ext ? INT_MIN : -32768, hi2 = ext ? INT_MAX : 32767;
 
-  // 1. coefficients (16-byte loads, 8 a thread) -> dequantized, int16
-  //    range, into s_a at row stride n + 1
+  // 1. coefficients (16-byte loads, 8 a thread) -> dequantized, clipped to
+  //    [-2^M, 2^M - 1], into s_a at row stride n + 1
   if (live && tt < nn / 8) {
     const int p0 = tt * 8;
-    const int16_t* src = coeffs + r.off + p0;
-    alignas(16) int16_t c[8];
+    const C* src = coeffs + r.off + p0;
+    alignas(16) C c[8];
     if (((uintptr_t)src & 15) == 0) {
-      const int4 v = __ldg(reinterpret_cast<const int4*>(src));
-      *reinterpret_cast<int4*>(c) = v;
+#pragma unroll
+      for (int h = 0; h < (int)sizeof(C) / 2; ++h)
+        reinterpret_cast<int4*>(c)[h] =
+            __ldg(reinterpret_cast<const int4*>(src) + h);
     } else {
 #pragma unroll
       for (int k = 0; k < 8; ++k) c[k] = src[k];
     }
     int right = 0, hi = 0, scale = 0;
     if (!(r.flags & kBypass)) {
-      // dequant (Rec. 8.6.3, non-extended precision: max_dyn_range 15)
+      // dequant (Rec. 8.6.3 at max_dyn_range M)
       const int per6 = r.qp / 6, rem = r.qp % 6;
-      const int tshift = 15 - r.bd - log2n;
+      const int tshift = mdr - r.bd - log2n;
       right = 6 - (tshift + per6) + ((r.flags & kScaled) ? 4 : 0);
-      const int tbits = min(16, 32 + right - ((r.flags & kScaled) ? 15 : 7));
+      const int tbits = ext ? mdr + 1
+          : min(mdr + 1, 32 + right - ((r.flags & kScaled) ? 15 : 7));
       hi = (1 << (tbits - 1)) - 1;
       scale = kInvQuantScales[rem];
     }
@@ -280,25 +335,38 @@ residual_table_kernel(const TuRow* __restrict__ rows,
       if (!(r.flags & kBypass)) {
         const int m = (r.flags & kScaled)
                           ? (int)mats.m[s][(size_t)r.midx * nn + p] : 1;
-        const int prod = clip3(-hi - 1, hi, v) * (scale * m);
-        // a negative int must not be shifted left: multiply by 1 << -right
-        v = clip16(right > 0 ? (prod + (1 << (right - 1))) >> right
-                             : prod * (1 << -right));
+        if constexpr (kWide) {
+          const long long prod =
+              (long long)clip3(-hi - 1, hi, v) * (scale * m);
+          v = (int)clip3<long long>(
+              lo1, hi1, right > 0 ? (prod + (1LL << (right - 1))) >> right
+                                  : prod * (1LL << -right));
+        } else {
+          const int prod = clip3(-hi - 1, hi, v) * (scale * m);
+          // a negative int must not be shifted left: multiply by 1 << -right
+          v = clip16(right > 0 ? (prod + (1 << (right - 1))) >> right
+                               : prod * (1 << -right));
+        }
+      } else if constexpr (kWide) {
+        v = clip3(lo2, hi2, v);
       }
       s_a[base + (p >> log2n) * ps + (p & (n - 1))] = v;
     }
   }
   __syncthreads();
 
-  // 2. columns (stage 1, shift 7) into s_b; transform skip and bypass
-  //    write their residual into s_b directly
+  // 2. columns (stage 1, shift 7, clipped to [-2^M, 2^M - 1]) into s_b;
+  //    transform skip and bypass write their residual into s_b directly
   const int tpl = n / 4, line = tt / tpl, q = tt % tpl;
   if (live) {
     if (!skip) {
-      transform_line(log2n, r.flags & kDst, s_a + base + line,
-                     s_b + base + line, ps, s_t, q, 7);
+      transform_line<Acc>(log2n, r.flags & kDst, s_a + base + line,
+                          s_b + base + line, ps, s_t, q, 7, lo1, hi1);
     } else {
-      const int tshift = 15 - r.bd - log2n;
+      int tshift = mdr - r.bd - log2n;
+      if constexpr (kWide) {
+        if (ext) tshift = max(tshift, 0);
+      }
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const int p = tt * 4 + k;
@@ -308,7 +376,7 @@ residual_table_kernel(const TuRow* __restrict__ rows,
         if (r.flags & kTskip) {
           v = tshift >= 0 ? (v + (tshift ? 1 << (tshift - 1) : 0)) >> tshift
                           : v * (1 << -tshift);
-          v = clip16(v);
+          v = clip3(lo2, hi2, v);
         }
         s_b[base + (p >> log2n) * ps + (p & (n - 1))] = v;
       }
@@ -316,15 +384,17 @@ residual_table_kernel(const TuRow* __restrict__ rows,
   }
   __syncthreads();
 
-  // 3. rows (stage 2, shift 20 - bd) back into s_a
+  // 3. rows (stage 2, shift 5 + M - bd: 20 - bd, or max(20 - bd, 11))
+  //    back into s_a
   if (live && !skip)
-    transform_line(log2n, r.flags & kDst, s_b + base + line * ps,
-                   s_a + base + line * ps, 1, s_t, q, 20 - r.bd);
+    transform_line<Acc>(log2n, r.flags & kDst, s_b + base + line * ps,
+                        s_a + base + line * ps, 1, s_t, q, 5 + mdr - r.bd,
+                        lo2, hi2);
   __syncthreads();
 
   // 4. RDPCM (Rec. 8.6.8: a running sum along rows (1) or columns (2),
-  //    clipped to int16), CCP (Rec. 8.6.6) and 16-byte row stores into
-  //    the plane
+  //    clipped to int16 outside F_EXT rows), CCP (Rec. 8.6.6) and 16-byte
+  //    row stores into the plane
   if (!live) return;
   const int* res = skip ? s_b + base : s_a + base;
   const int p0 = tt * 4, ry = p0 >> log2n, rx = p0 & (n - 1);
@@ -336,13 +406,13 @@ residual_table_kernel(const TuRow* __restrict__ rows,
     int acc = 0;
     for (int i = 0; i < rx; ++i) acc += res[ry * ps + i];
 #pragma unroll
-    for (int k = 0; k < 4; ++k) v[k] = clip16(acc += v[k]);
+    for (int k = 0; k < 4; ++k) v[k] = clip3(lo2, hi2, acc += v[k]);
   } else if (rd == 2) {
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       int acc = 0;
       for (int i = 0; i <= ry; ++i) acc += res[i * ps + rx + k];
-      v[k] = clip16(acc);
+      v[k] = clip3(lo2, hi2, acc);
     }
   }
   const int y = r.y + ry, x = r.x + rx;
@@ -365,7 +435,8 @@ residual_table_kernel(const TuRow* __restrict__ rows,
         if (x + k < W) rl[k] = __ldg(src + k);
     }
 #pragma unroll
-    for (int k = 0; k < 4; ++k) v[k] = clip16(v[k] + ((alpha * rl[k]) >> 3));
+    for (int k = 0; k < 4; ++k)
+      v[k] = clip3(lo2, hi2, v[k] + ((alpha * rl[k]) >> 3));
   }
   if (vec) {
     *reinterpret_cast<int4*>(dst) = make_int4(v[0], v[1], v[2], v[3]);
@@ -379,15 +450,15 @@ residual_table_kernel(const TuRow* __restrict__ rows,
 }  // namespace
 
 // rows: [N] TU_DTYPE sorted by size (counts c4 .. c32 rows of each);
-// coeffs: the packed int16 coefficients; m4 .. m32: the scaling-matrix
-// tables per size (NULL where no row of that size is scaled); res_l: the
-// luma residual planes of the planes' shape that kCcp rows read (NULL when
-// no row has the flag).
+// coeffs: the packed coefficients, int16, or int32 when `wide` (a table
+// with F_EXT rows); m4 .. m32: the scaling-matrix tables per size (NULL
+// where no row of that size is scaled); res_l: the luma residual planes of
+// the planes' shape that kCcp rows read (NULL when no row has the flag).
 extern "C" int residual_table(const void* rows, const void* coeffs,
                               const void* m4, const void* m8, const void* m16,
                               const void* m32, int c4, int c8, int c16,
                               int c32, void* planes, const void* res_l,
-                              int Bp, int H, int W, void* stream) {
+                              int Bp, int H, int W, int wide, void* stream) {
   const Counts counts = {{c4, c8, c16, c32}};
   const Mats mats = {{(const uint8_t*)m4, (const uint8_t*)m8,
                       (const uint8_t*)m16, (const uint8_t*)m32}};
@@ -399,8 +470,15 @@ extern "C" int residual_table(const void* rows, const void* coeffs,
   }
   if (ctas == 0) return 0;
   if (ctas > 0x7fffffff) return (int)cudaErrorInvalidValue;
-  residual_table_kernel<<<(unsigned)ctas, kThreads, 0, (cudaStream_t)stream>>>(
-      (const TuRow*)rows, (const int16_t*)coeffs, mats, counts,
-      (int32_t*)planes, (const int32_t*)res_l, Bp, H, W);
+  if (wide)
+    residual_table_kernel<int32_t, long long>
+        <<<(unsigned)ctas, kThreads, 0, (cudaStream_t)stream>>>(
+            (const TuRow*)rows, (const int32_t*)coeffs, mats, counts,
+            (int32_t*)planes, (const int32_t*)res_l, Bp, H, W);
+  else
+    residual_table_kernel<int16_t, int>
+        <<<(unsigned)ctas, kThreads, 0, (cudaStream_t)stream>>>(
+            (const TuRow*)rows, (const int16_t*)coeffs, mats, counts,
+            (int32_t*)planes, (const int32_t*)res_l, Bp, H, W);
   return (int)cudaGetLastError();
 }

@@ -148,8 +148,11 @@ class PictureRecon:
                 lr = residuals[j].astype(np.int64)
                 r = residuals[i].astype(np.int64)
                 r += (tu.cross_comp_alpha * lr) >> 3
-                residuals[i] = np.clip(r, refimpl.I16MIN, refimpl.I16MAX
-                                       ).astype(np.int32)
+                # no clip under extended precision (H.265 8.6.6)
+                if not (self.sps.extended_precision and
+                        self.sps.bit_depth_chroma + 6 > 15):
+                    r = np.clip(r, refimpl.I16MIN, refimpl.I16MAX)
+                residuals[i] = r.astype(np.int32)
 
     # ------------------------------------------------------------------
     def _avail_fn(self, blk):

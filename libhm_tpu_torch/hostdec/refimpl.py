@@ -10,6 +10,11 @@ Each function mirrors one dense stage of the reference decoder:
 The JAX/Pallas kernels in libhm_tpu/ops are verified against these on real
 bitstreams; these in turn are verified against the HM binaries via the
 decoded-picture-hash oracle.
+
+Extended precision (max_dyn_range > 15) follows H.265 8.6.2-8.6.4: the
+dequant's input clip and the stage-1 clip are to +-2^max_dyn_range (HM's
+build with a 64-bit intermediate, which decodes such streams), and the
+residual, transform skip and RDPCM are not clipped to int16.
 """
 import numpy as np
 from .tables import DCT, DST4, INV_QUANT_SCALES
@@ -27,7 +32,8 @@ def dequant(coeffs, qp, log2_size, bit_depth, scaling=None,
     if scaling is None:
         scale = int(INV_QUANT_SCALES[rem])
         right = 6 - (tshift + per)
-        target_bits = min(max_dyn_range + 1, 32 + right - 7)
+        target_bits = min(max_dyn_range + 1, 32 + right - 7) \
+            if max_dyn_range == 15 else max_dyn_range + 1
         lo, hi = -(1 << (target_bits - 1)), (1 << (target_bits - 1)) - 1
         c = np.clip(c, lo, hi)
         if right > 0:
@@ -39,7 +45,8 @@ def dequant(coeffs, qp, log2_size, bit_depth, scaling=None,
         right = 6 - (tshift + per) + 4  # + LOG2_SCALING_LIST_NEUTRAL_VALUE
         dq = scaling.astype(np.int64) * int(INV_QUANT_SCALES[rem])
         # dequantCoefBits = 1 + IQUANT_SHIFT + SCALING_LIST_BITS = 15
-        target_bits = min(max_dyn_range + 1, 32 + right - 15)
+        target_bits = min(max_dyn_range + 1, 32 + right - 15) \
+            if max_dyn_range == 15 else max_dyn_range + 1
         lo, hi = -(1 << (target_bits - 1)), (1 << (target_bits - 1)) - 1
         c = np.clip(c, lo, hi)
         if right > 0:
@@ -50,7 +57,9 @@ def dequant(coeffs, qp, log2_size, bit_depth, scaling=None,
 
 
 def inverse_transform(coeffs, use_dst, bit_depth, max_dyn_range=15):
-    """2-D inverse core transform; int32 [h, w] -> int16-range residual."""
+    """2-D inverse core transform; int32 [h, w] -> int16-range residual
+    (stage 1 clipped to +-2^max_dyn_range and no clip after stage 2 when
+    max_dyn_range > 15)."""
     h, w = coeffs.shape
     ty = DST4 if (use_dst and h == 4) else DCT[h]
     tx = DST4 if (use_dst and w == 4) else DCT[w]
@@ -60,10 +69,15 @@ def inverse_transform(coeffs, use_dst, bit_depth, max_dyn_range=15):
     c = coeffs.astype(np.int64)
     # stage 1: columns (vertical inverse)
     t1 = (ty.T.astype(np.int64) @ c + (1 << (shift1 - 1))) >> shift1
-    t1 = np.clip(t1, I16MIN, I16MAX)
+    if max_dyn_range == 15:
+        t1 = np.clip(t1, I16MIN, I16MAX)
+    else:
+        t1 = np.clip(t1, -(1 << max_dyn_range), (1 << max_dyn_range) - 1)
     # stage 2: rows (horizontal inverse)
     t2 = (t1 @ tx.astype(np.int64) + (1 << (shift2 - 1))) >> shift2
-    return np.clip(t2, I16MIN, I16MAX).astype(np.int32)
+    if max_dyn_range == 15:
+        t2 = np.clip(t2, I16MIN, I16MAX)
+    return t2.astype(np.int32)
 
 
 def inverse_transform_skip(coeffs, bit_depth, log2w, max_dyn_range=15,
@@ -79,17 +93,22 @@ def inverse_transform_skip(coeffs, bit_depth, log2w, max_dyn_range=15,
         r = (c + off) >> tshift
     else:
         r = c << (-tshift)
-    return np.clip(r, I16MIN, I16MAX).astype(np.int32)
+    if max_dyn_range == 15:
+        r = np.clip(r, I16MIN, I16MAX)
+    return r.astype(np.int32)
 
 
-def inverse_rdpcm(res, mode):
-    """Residual DPCM accumulation (reference invRdpcmNxN)."""
+def inverse_rdpcm(res, mode, clip=True):
+    """Residual DPCM accumulation (reference invRdpcmNxN); clip: to int16
+    (H.265 has none: extended precision passes False)."""
     out = res.astype(np.int64)
     if mode == 1:  # horizontal
         out = np.cumsum(out, axis=1)
     elif mode == 2:  # vertical
         out = np.cumsum(out, axis=0)
-    return np.clip(out, I16MIN, I16MAX).astype(np.int32)
+    if clip:
+        out = np.clip(out, I16MIN, I16MAX)
+    return out.astype(np.int32)
 
 
 def residual_for_tu(tu, sps, scaling_lists=None, is_intra=True):
@@ -107,7 +126,7 @@ def residual_for_tu(tu, sps, scaling_lists=None, is_intra=True):
         if do_rotate:
             res = res[::-1, ::-1]
         if tu.rdpcm_mode:
-            res = inverse_rdpcm(res, tu.rdpcm_mode)
+            res = inverse_rdpcm(res, tu.rdpcm_mode, max_dyn == 15)
         return res
     scaling = None
     if scaling_lists is not None:
@@ -116,7 +135,7 @@ def residual_for_tu(tu, sps, scaling_lists=None, is_intra=True):
     if tu.transform_skip:
         res = inverse_transform_skip(deq, bd, log2w, max_dyn, do_rotate)
         if tu.rdpcm_mode:
-            res = inverse_rdpcm(res, tu.rdpcm_mode)
+            res = inverse_rdpcm(res, tu.rdpcm_mode, max_dyn == 15)
         return res
     return inverse_transform(deq, tu.use_dst, bd, max_dyn)
 

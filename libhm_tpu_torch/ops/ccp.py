@@ -16,10 +16,11 @@ import torch
 CCP_FIELDS = ("b", "y", "x", "n", "alpha")
 
 
-def ccp_apply_plain(res_c, res_l, tus):
+def ccp_apply_plain(res_c, res_l, tus, clip=True):
     """Plain torch version of cross-component prediction (any device), in
     place: one gather/scatter per TU size, as the JAX _ccp_fn is keyed by
-    it."""
+    it.  clip: to int16, as the JAX package does (H.265 8.6.6 has no clip:
+    extended-precision TUs pass False)."""
     Bp, H, W = res_c.shape
     tus = tus.long()
     for n in torch.unique(tus[:, 3]).tolist():
@@ -37,7 +38,9 @@ def ccp_apply_plain(res_c, res_l, tus):
         alpha = t[:, 4, None, None].expand(shp)[keep]
         r = res_c[ib, iy, ix].long() + ((alpha * res_l[ib, iy, ix].long())
                                         >> 3)
-        res_c[ib, iy, ix] = torch.clamp(r, -32768, 32767).to(res_c.dtype)
+        if clip:
+            r = torch.clamp(r, -32768, 32767)
+        res_c[ib, iy, ix] = r.to(res_c.dtype)
     return res_c
 
 

@@ -4,15 +4,19 @@ Port of libhm_tpu/ops/transform.py.  The plain functions keep the JAX
 semantics on [N, n, n] int32 tensors; the TPU's int8-limb matmul split is
 dropped (an int64 matmul is exact here).  `residual_table` is the kernel
 wrapper: every TU of one component of a level, from a flat table of
-TU_DTYPE rows sorted by size and a packed int16 coefficient buffer,
-dequantized (flat, or with scaling matrices) -> inverse DCT/DST or
+TU_DTYPE rows sorted by size and a packed coefficient buffer (int16, or
+int32 for a table with extended-precision rows), dequantized (flat, or
+with scaling matrices) -> inverse DCT/DST or
 transform skip (or, for transquant-bypass TUs, the coefficients as they
 are) -> RDPCM -> cross-component prediction (4:4:4 chroma rows with an
 alpha, from the level's finished luma residual) -> written into the
 stacked residual planes; one CUDA launch (csrc/residual.cu) for a CUDA
-tensor, `residual_table_plain` for a CPU tensor.  `residual_scatter` keeps
-the per-bucket signature: it builds a one-size table and goes through
-`residual_table`.
+tensor, `residual_table_plain` for a CPU tensor.  Rows with F_EXT (RExt
+extended_precision_processing_flag) follow H.265 at max_dyn_range
+max(15, bd + 6), exactly (`residual_blocks(..., ext=True)`), where the
+JAX package's functions are exact only while every value fits in int16.
+`residual_scatter` keeps the per-bucket signature: it builds a one-size
+table and goes through `residual_table`.
 """
 from typing import NamedTuple
 
@@ -25,16 +29,19 @@ from ..kernels.build import I, P, Kernel, check, ptr
 from .ccp import ccp_apply_plain
 
 I16MIN, I16MAX = -32768, 32767
+# max_dyn_range of the JAX package's functions, which these mirror; rows
+# with F_EXT take residual_blocks(..., ext=True) instead
+MAX_DYN = 15
 
 
-def dequant_batch(coeffs, qp, bit_depth, log2_size, max_dyn_range=15):
+def dequant_batch(coeffs, qp, bit_depth, log2_size):
     """coeffs: [N, n, n] int32; qp: [N] int32 (incl. bit-depth offset)."""
     per = torch.div(qp, 6, rounding_mode="floor")
     rem = qp % 6
     scale = torch.as_tensor(INV_QUANT_SCALES, device=qp.device)[rem.long()]
-    tshift = max_dyn_range - bit_depth - log2_size
+    tshift = MAX_DYN - bit_depth - log2_size
     right = (6 - (tshift + per))[:, None, None]                # [N,1,1]
-    target_bits = torch.clamp(32 + right - 7, max=max_dyn_range + 1)
+    target_bits = torch.clamp(32 + right - 7, max=MAX_DYN + 1)
     hi = (1 << (target_bits - 1).long()) - 1
     c = torch.maximum(torch.minimum(coeffs.long(), hi), -hi - 1)
     prod = c * scale.long()[:, None, None]
@@ -42,24 +49,20 @@ def dequant_batch(coeffs, qp, bit_depth, log2_size, max_dyn_range=15):
     rn = torch.clamp(-right, min=0).long()
     add = torch.where(right > 0, 1 << torch.clamp(rp - 1, min=0), 0)
     q = torch.where(right > 0, (prod + add) >> rp, prod << rn)
-    tmin, tmax = -(1 << max_dyn_range), (1 << max_dyn_range) - 1
-    return torch.clamp(q, tmin, tmax).to(torch.int32)
+    return torch.clamp(q, I16MIN, I16MAX).to(torch.int32)
 
 
-def dequant_batch_scaling(coeffs, qp, mat, bit_depth, log2_size,
-                          max_dyn_range=15):
+def dequant_batch_scaling(coeffs, qp, mat, bit_depth, log2_size):
     """Dequant with per-TU scaling matrices (Rec. 8.6.3 with m[x][y]).
 
     coeffs: [N, n, n] int32; qp: [N]; mat: [N, n, n] scaling factors.
-    Exact (int64) for any max_dyn_range; the JAX version is int32-exact
-    only at 15, the one value the batched path takes.
     """
     per = torch.div(qp, 6, rounding_mode="floor")
     rem = qp % 6
     scale = torch.as_tensor(INV_QUANT_SCALES, device=qp.device)[rem.long()]
-    tshift = max_dyn_range - bit_depth - log2_size
+    tshift = MAX_DYN - bit_depth - log2_size
     right = (6 - (tshift + per) + 4)[:, None, None]  # + log2(16), the neutral
-    target_bits = torch.clamp(32 + right - 15, max=max_dyn_range + 1)
+    target_bits = torch.clamp(32 + right - 15, max=MAX_DYN + 1)
     hi = (1 << (target_bits - 1).long()) - 1
     c = torch.maximum(torch.minimum(coeffs.long(), hi), -hi - 1)
     prod = c * (mat.long() * scale.long()[:, None, None])
@@ -67,8 +70,7 @@ def dequant_batch_scaling(coeffs, qp, mat, bit_depth, log2_size,
     rn = torch.clamp(-right, min=0).long()
     add = torch.where(right > 0, 1 << torch.clamp(rp - 1, min=0), 0)
     q = torch.where(right > 0, (prod + add) >> rp, prod << rn)
-    tmin, tmax = -(1 << max_dyn_range), (1 << max_dyn_range) - 1
-    return torch.clamp(q, tmin, tmax).to(torch.int32)
+    return torch.clamp(q, I16MIN, I16MAX).to(torch.int32)
 
 
 def _matrix(n, use_dst, device):
@@ -76,14 +78,14 @@ def _matrix(n, use_dst, device):
     return torch.as_tensor(m, dtype=torch.float64, device=device)
 
 
-def inverse_transform_batch(coeffs, n, use_dst, bit_depth, max_dyn_range=15):
+def inverse_transform_batch(coeffs, n, use_dst, bit_depth):
     """coeffs: [N, n, n] int32 dequantized -> residual [N, n, n] int32.
 
     Two-stage exact integer transform; both stages clip to int16 range.
     """
     t = _matrix(n, use_dst, coeffs.device)
     shift1 = 7
-    shift2 = (6 + max_dyn_range - 1) - bit_depth
+    shift2 = (6 + MAX_DYN - 1) - bit_depth
     # float64 products are exact: every partial sum is an integer below
     # 32768 * 90 * 32 < 2^53 (and CUDA has no integer matmul)
     s1 = torch.matmul(t.T, coeffs.double()).long()             # T^T @ C
@@ -93,9 +95,8 @@ def inverse_transform_batch(coeffs, n, use_dst, bit_depth, max_dyn_range=15):
     return s2.to(torch.int32)
 
 
-def inverse_transform_skip_batch(coeffs, bit_depth, log2_size,
-                                 max_dyn_range=15, rotate=False):
-    tshift = max_dyn_range - bit_depth - log2_size
+def inverse_transform_skip_batch(coeffs, bit_depth, log2_size, rotate=False):
+    tshift = MAX_DYN - bit_depth - log2_size
     c = coeffs.long()
     if rotate:
         c = torch.flip(c, (1, 2))
@@ -107,46 +108,95 @@ def inverse_transform_skip_batch(coeffs, bit_depth, log2_size,
     return torch.clamp(r, I16MIN, I16MAX).to(torch.int32)
 
 
-def inverse_rdpcm_batch(res, mode):
-    """mode: [N] int32 (0 off, 1 hor, 2 ver)."""
+def inverse_rdpcm_batch(res, mode, clip=True):
+    """mode: [N] int32 (0 off, 1 hor, 2 ver).  clip: to int16, as the JAX
+    package does (H.265 8.6.8 has no clip: extended-precision rows pass
+    False)."""
     h = torch.cumsum(res, dim=2)
     v = torch.cumsum(res, dim=1)
     m = mode[:, None, None]
     out = torch.where(m == 1, h, torch.where(m == 2, v, res.long()))
-    return torch.clamp(out, I16MIN, I16MAX).to(torch.int32)
+    if clip:
+        out = torch.clamp(out, I16MIN, I16MAX)
+    return out.to(torch.int32)
 
 
-def bypass_blocks(coeffs, rotate=False):
-    """Transquant-bypass residual: the coefficients, clipped to int16."""
+def bypass_blocks(coeffs, rotate=False, clip=True):
+    """Transquant-bypass residual: the coefficients, clipped to int16 as
+    the JAX package does (extended-precision rows pass clip=False)."""
     res = coeffs.to(torch.int32)
     if rotate:
         res = torch.flip(res, (1, 2))
-    return torch.clamp(res, I16MIN, I16MAX)
+    return torch.clamp(res, I16MIN, I16MAX) if clip else res
 
 
-def residual_blocks(coeffs, qp, n, use_dst, tskip, bd, max_dyn_range=15,
-                    rotate=False, mat=None):
+def residual_blocks(coeffs, qp, n, use_dst, tskip, bd, rotate=False,
+                    mat=None, ext=False):
     """Plain dequant (with scaling matrices `mat` [N, n, n] when given) +
-    (transform skip | inverse DCT/DST) of one bucket."""
+    (transform skip | inverse DCT/DST) of one bucket: the JAX package's
+    arithmetic at max_dyn_range 15, or with `ext` (extended precision,
+    F_EXT rows) `_residual_ext`."""
+    if ext:
+        return _residual_ext(coeffs, qp, n, use_dst, tskip, bd, rotate, mat)
     log2n = n.bit_length() - 1
     if mat is None:
         deq = dequant_batch(coeffs.to(torch.int32), qp.to(torch.int32), bd,
-                            log2n, max_dyn_range)
+                            log2n)
     else:
         deq = dequant_batch_scaling(coeffs.to(torch.int32),
-                                    qp.to(torch.int32), mat, bd, log2n,
-                                    max_dyn_range)
+                                    qp.to(torch.int32), mat, bd, log2n)
     if tskip:
-        return inverse_transform_skip_batch(deq, bd, log2n, max_dyn_range,
-                                            rotate)
-    return inverse_transform_batch(deq, n, use_dst, bd, max_dyn_range)
+        return inverse_transform_skip_batch(deq, bd, log2n, rotate)
+    return inverse_transform_batch(deq, n, use_dst, bd)
+
+
+def _residual_ext(coeffs, qp, n, use_dst, tskip, bd, rotate, mat):
+    """Residual blocks [N, n, n] int32 of extended-precision TUs, exact in
+    int64: H.265 8.6.2-8.6.4 at max_dyn_range M = max(15, bd + 6).
+
+    The dequant (8.6.3): Clip3(-2^M, 2^M - 1, (c * m * levelScale <<
+    qp / 6 + (1 << bdShift - 1)) >> bdShift), bdShift = bd + log2n + 10 - M,
+    m 16 or the scaling factor `mat`, after HM's input clip of the level to
+    [-2^M, 2^M - 1] (its build with a 64-bit intermediate, which decodes
+    extended precision; a conforming level lies there already).  Then
+    transform skip, rotated, shifted right by max(M - bd - log2n, 0) with
+    rounding (HM's xITransformSkip under the flag; H.265's
+    (d << tsShift) >> bdShift with tsShift = 5 + log2n is the same shift
+    here), or the inverse DCT/DST: columns, (e + 64) >> 7 clipped to
+    [-2^M, 2^M - 1], then rows, rounded by max(20 - bd, 11).  Neither the
+    residual nor the transform-skip output is clipped: H.265 has no clip
+    there, where the JAX package clips to int16 (ROADMAP C12)."""
+    log2n = n.bit_length() - 1
+    M = max(15, bd + 6)
+    lo, hi = -(1 << M), (1 << M) - 1
+    c = torch.clamp(coeffs.long(), lo, hi)
+    qp = qp.long()
+    per = torch.div(qp, 6, rounding_mode="floor")[:, None, None]
+    scale = torch.as_tensor(INV_QUANT_SCALES, device=c.device)[qp % 6]
+    m = 16 if mat is None else mat.long()
+    bd_shift = bd + log2n + 10 - M
+    d = torch.clamp(((c * m * scale[:, None, None]) << per) +
+                    (1 << (bd_shift - 1)) >> bd_shift, lo, hi)
+    if tskip:
+        ts = max(M - bd - log2n, 0)
+        if rotate:
+            d = torch.flip(d, (1, 2))
+        return ((d + ((1 << ts) >> 1)) >> ts).to(torch.int32)
+    t = _matrix(n, use_dst, c.device)
+    # float64 products are exact: every partial sum is an integer below
+    # 2^22 * 90 * 32 < 2^53
+    e = torch.matmul(t.T, d.double()).long()
+    g = torch.clamp((e + 64) >> 7, lo, hi)
+    r = torch.matmul(g.double(), t).long()
+    shift2 = max(20 - bd, 11)
+    return ((r + (1 << (shift2 - 1))) >> shift2).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
 # K1: one launch per (level, component) over a flat table of TUs
 
 # one row of the TU table (csrc/residual.cu TuRow), 16 bytes: the first
-# coefficient of the TU in the packed int16 buffer, picture, sample
+# coefficient of the TU in the packed coefficient buffer, picture, sample
 # origin, log2 size, qp (incl. the bit-depth offset), mode flags, RDPCM
 # direction (0 off, 1 horizontal, 2 vertical) in bits 0-1 of `rdpcm` and
 # the CCP alpha of F_CCP rows in its bits 4-7 (ccp_bits), scaling-matrix
@@ -156,6 +206,10 @@ TU_DTYPE = np.dtype([("off", "<u4"), ("b", "<i2"), ("y", "<u2"),
                      ("flags", "u1"), ("rdpcm", "u1"), ("midx", "u1"),
                      ("bd", "u1")])
 F_DST, F_TSKIP, F_BYPASS, F_ROTATE, F_SCALED, F_CCP = 1, 2, 4, 8, 16, 32
+# extended precision: the row's max_dyn_range is max(15, bd + 6)
+# (residual_blocks(..., ext=True)); a table with such a row has int32
+# coefficients
+F_EXT = 64
 SIZES = (4, 8, 16, 32)
 
 
@@ -175,9 +229,15 @@ def ccp_bits(alpha):
 class TuTable(NamedTuple):
     """The TUs of one component of one level, as K1 takes them."""
     rows: torch.Tensor      # uint8 [N, 16]: TU_DTYPE rows sorted by size
-    coeffs: torch.Tensor    # int16 [K]: the packed coefficients
+    coeffs: torch.Tensor    # [K] the packed coefficients: int16, or int32
+                            # (coeff_dtype) when a row has F_EXT
     counts: tuple           # rows of each size in SIZES
     flags: int              # OR of every row's flags
+
+
+def coeff_dtype(flags):
+    """The coefficient dtype of a table whose rows' flags OR to `flags`."""
+    return torch.int32 if flags & F_EXT else torch.int16
 
 
 def _fields(rows):
@@ -215,24 +275,25 @@ def residual_table_plain(planes, table, mats=None, res_l=None):
         raise ValueError("residual_table: rows not sorted by size as the "
                          "counts say")
     Bp, H, W = planes.shape
-    key = f["log2n"] | (f["flags"] << 3) | (f["bd"] << 9)
+    key = f["log2n"] | (f["flags"] << 3) | (f["bd"] << 10)
     for k in torch.unique(key).tolist():
         i = torch.nonzero(key == k).squeeze(1)
-        log2n, flags, bd = k & 7, (k >> 3) & 63, k >> 9
+        log2n, flags, bd = k & 7, (k >> 3) & 127, k >> 10
         n = 1 << log2n
         idx = f["off"][i, None] + torch.arange(n * n, device=dev)
         c = table.coeffs[idx].view(-1, n, n)
         rotate = bool(flags & F_ROTATE)
+        ext = bool(flags & F_EXT)
         if flags & F_BYPASS:
-            res = bypass_blocks(c, rotate)
+            res = bypass_blocks(c, rotate, clip=not ext)
         else:
             mat = mats[n][f["midx"][i]] if flags & F_SCALED else None
             res = residual_blocks(c, f["qp"][i], n, bool(flags & F_DST),
                                   bool(flags & F_TSKIP), bd, rotate=rotate,
-                                  mat=mat)
+                                  mat=mat, ext=ext)
         rd = f["rdpcm"][i]
         if rd.any():
-            res = inverse_rdpcm_batch(res, rd.to(torch.int32))
+            res = inverse_rdpcm_batch(res, rd.to(torch.int32), clip=not ext)
         # rows of pictures outside [0, Bp) and samples outside the plane
         # are not written
         keep = (f["b"][i] >= 0) & (f["b"][i] < Bp)
@@ -244,12 +305,15 @@ def residual_table_plain(planes, table, mats=None, res_l=None):
         m = (iy < H) & (ix < W)
         planes[b[:, None, None].expand(res.shape)[m], iy[m], ix[m]] = res[m]
     # cross-component prediction once every row's residual is in place, as
-    # the JAX package runs _ccp_fn after its scatters (TUs never overlap)
-    i = torch.nonzero(f["flags"] & F_CCP).squeeze(1)
-    if len(i):
-        ccp_apply_plain(planes, res_l, torch.stack(
-            [f["b"][i], f["y"][i], f["x"][i], 1 << f["log2n"][i],
-             f["alpha"][i]], 1))
+    # the JAX package runs _ccp_fn after its scatters (TUs never overlap);
+    # F_EXT rows unclipped (H.265 8.6.6)
+    for ext in (0, F_EXT):
+        i = torch.nonzero((f["flags"] & (F_CCP | F_EXT)) ==
+                          F_CCP | ext).squeeze(1)
+        if len(i):
+            ccp_apply_plain(planes, res_l, torch.stack(
+                [f["b"][i], f["y"][i], f["x"][i], 1 << f["log2n"][i],
+                 f["alpha"][i]], 1), clip=not ext)
     return planes
 
 
@@ -262,10 +326,11 @@ class _ModeCount:
         self.launches = 0
 
 
-_K1 = Kernel("residual_table", [P] * 6 + [I] * 4 + [P, P] + [I] * 3)
+_K1 = Kernel("residual_table", [P] * 6 + [I] * 4 + [P, P] + [I] * 4)
 _K1_SCAL = _ModeCount("residual_table with scaled rows")
 _K1_BYPASS = _ModeCount("residual_table with bypass rows")
 _K1_CCP = _ModeCount("residual_table with CCP rows")
+_K1_EXT = _ModeCount("residual_table, wide form (F_EXT rows)")
 
 
 def residual_table(planes, table, mats=None, res_l=None):
@@ -279,9 +344,10 @@ def residual_table(planes, table, mats=None, res_l=None):
     scaled rows index by their `midx`.  res_l: the level's finished luma
     residual planes, of the shape of `planes` (4:4:4), which F_CCP rows
     (cross-component prediction) read: res += (alpha * res_l) >> 3,
-    clipped to int16; needed when the table has such rows.
-    Non-extended precision only (max_dyn_range 15), bit depths 8-16
-    outside bypass rows.
+    clipped to int16 outside F_EXT rows; needed when the table has such
+    rows.  Bit depths 8-16 outside bypass rows.  A table with F_EXT rows
+    (extended precision) has int32 coefficients and launches K1's wide
+    form (counted in _K1_EXT as well as _K1).
     """
     if not planes.is_cuda:
         return residual_table_plain(planes, table, mats, res_l)
@@ -292,7 +358,8 @@ def residual_table(planes, table, mats=None, res_l=None):
     if ccp:
         check(res_l, "res_l", torch.int32, 3, dev)
     check(table.rows, "rows", torch.uint8, 2, dev)
-    check(table.coeffs, "coeffs", torch.int16, 1, dev)
+    wide = bool(table.flags & F_EXT)
+    check(table.coeffs, "coeffs", coeff_dtype(table.flags), 1, dev)
     counts = tuple(int(c) for c in table.counts)
     N = table.rows.shape[0]
     if table.rows.shape[1] != TU_DTYPE.itemsize or len(counts) != 4 or \
@@ -316,13 +383,15 @@ def residual_table(planes, table, mats=None, res_l=None):
     if N == 0:
         return planes
     _K1(ptr(table.rows), ptr(table.coeffs), *mp, *counts, ptr(planes),
-        ptr(res_l) if ccp else None, Bp, H, W)
+        ptr(res_l) if ccp else None, Bp, H, W, int(wide))
     if table.flags & F_SCALED:
         _K1_SCAL.launches += 1
     if table.flags & F_BYPASS:
         _K1_BYPASS.launches += 1
     if ccp:
         _K1_CCP.launches += 1
+    if wide:
+        _K1_EXT.launches += 1
     return planes
 
 
@@ -397,7 +466,7 @@ def residual_scatter(planes, coeffs, qp, bsel, ysel, xsel, *, n, use_dst,
     unused, the coefficients are the residual).  `rotate`: the bucket's
     transform-skip rotation; `rdpcm`: [P] int8 RDPCM direction per TU
     (0 off, 1 horizontal, 2 vertical) or None.  Non-extended precision
-    only (max_dyn_range 15).
+    (max_dyn_range 15): residual_table takes F_EXT rows.
     """
     table, m = _bucket_table(planes, coeffs, qp, bsel, ysel, xsel, n,
                              use_dst, tskip, bd, bypass, mats, midx, rotate,

@@ -42,14 +42,17 @@ def residual_tables(items):
     here), which only serves XLA's compile cache.  Returns (tables, lists):
     tables[c] = (rows, coeffs, counts, flags) with rows a numpy TU_DTYPE
     array sorted stably by size, coeffs the packed int16 coefficients in
-    row order (each TU's offset a multiple of 16), counts the rows of each
-    size of TK.SIZES and flags the OR of the rows' flags; lists the
+    row order (each TU's offset a multiple of 16; int32 in a table with
+    an F_EXT row), counts the rows of each size of TK.SIZES and flags the
+    OR of the rows' flags; lists the
     level's distinct scaling lists in the order of their matrix-table rows
     (a scaled row's midx is 6 * list + matrixId), keyed by object as the
     JAX package caches them (a PPS list overrides the SPS one).  A 4:4:4
     chroma TU with a cross-component alpha (coded residual or not: the
     parser lists CCP-only TUs with zero coefficients) gets F_CCP and the
-    alpha in its rdpcm byte (TK.ccp_bits).
+    alpha in its rdpcm byte (TK.ccp_bits).  A TU of a picture whose SPS
+    sets extended_precision_processing_flag, at a bit depth where it
+    matters (bd + 6 > 15), gets F_EXT.
     """
     from ..hostdec.tables import build_scaling_matrices
     if len(items) > 32767:
@@ -74,8 +77,6 @@ def residual_tables(items):
         for tu in pic.tu_list:
             c = tu.comp
             bd = sps.bit_depth_luma if c == 0 else sps.bit_depth_chroma
-            if sps.extended_precision and bd + 6 > 15:
-                raise NotImplementedError("not ported: extended precision")
             sx = sps.chroma_shift_x() if c else 0
             sy = sps.chroma_shift_y() if c else 0
             bypass, tskip = bool(tu.tq_bypass), bool(tu.transform_skip)
@@ -87,6 +88,8 @@ def residual_tables(items):
                                  f"use_dst={tu.use_dst} bd={bd}")
             else:
                 flags = TK.F_TSKIP if tskip else TK.F_DST * bool(tu.use_dst)
+            if sps.extended_precision and bd + 6 > 15:
+                flags |= TK.F_EXT
             rotatable = rotation and tu.w == 4 and (bypass or tskip)
             scaled = scal_mats is not None and not bypass and \
                 not (tskip and tu.w > 4)
@@ -115,27 +118,33 @@ def residual_tables(items):
         row_list = [r for rows, _ in parts[c] for r in rows]
         rows = np.zeros(len(row_list), TK.TU_DTYPE)
         coeffs = np.zeros(0, np.int16)
+        flags = 0
         if row_list:
             a = np.asarray(row_list, np.int64)
             for j, name in enumerate(_ROW_FIELDS[:-1]):
                 rows[name] = a[:, j]
             rows["rdpcm"] |= TK.ccp_bits(a[:, -1])
+            flags = int(np.bitwise_or.reduce(rows["flags"]))
             sizes = np.left_shift(1, 2 * a[:, 3])
             rows["off"] = np.cumsum(sizes) - sizes
             c32 = np.concatenate([blk.reshape(-1) for _, blocks in parts[c]
-                                  for blk in blocks])
-            if c32.min() < -32768 or c32.max() > 32767:
+                                  for blk in blocks]).astype(np.int32)
+            if flags & TK.F_EXT:
+                coeffs = c32
+            elif c32.min() < -32768 or c32.max() > 32767:
                 raise ValueError("coefficient level outside the int16 range")
-            coeffs = c32.astype(np.int16)
+            else:
+                coeffs = c32.astype(np.int16)
         tables.append((rows, coeffs, tuple(len(r) for r, _ in parts[c]),
-                       int(np.bitwise_or.reduce(rows["flags"], initial=0))))
+                       flags))
     return tables, [m for _, m in sorted(lists.values(), key=lambda v: v[0])]
 
 
 def upload_tables(tables, device):
     """The TK.TuTable of each component of residual_tables' tables, from
     ONE upload of every component's rows and coefficients (each part at a
-    16-byte boundary of the buffer)."""
+    16-byte boundary of the buffer; int16 coefficients, or int32 where the
+    table has an F_EXT row)."""
     parts, spans, o = [], [], 0
     for rows, coeffs, _, _ in tables:
         for a in (rows.view(np.uint8).reshape(-1), coeffs.view(np.uint8)):
@@ -150,8 +159,8 @@ def upload_tables(tables, device):
         # (a component with no TU: empty views of an empty buffer)
         src = buf if rn else buf.new_zeros(0)
         out.append(TK.TuTable(src[ro:ro + rn].view(-1, TK.TU_DTYPE.itemsize),
-                              src[co:co + cn].view(torch.int16), counts,
-                              flags))
+                              src[co:co + cn].view(TK.coeff_dtype(flags)),
+                              counts, flags))
     return out
 
 

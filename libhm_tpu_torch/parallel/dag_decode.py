@@ -78,8 +78,6 @@ def _check_slice(items):
     for it in items:
         sps = it["sps"]
         missing = []
-        if sps.extended_precision:
-            missing.append("extended precision")
         # the reference's CCP omits the luma bit-depth scale of H.265
         # 8.6.6, so it is right only when luma and chroma depths agree
         if it["pps"].cross_component_prediction and \

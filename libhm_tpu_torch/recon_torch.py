@@ -71,14 +71,14 @@ def _device_plane(dp, c, H, W, device):
     return cache[key]
 
 
-def _residual_fn(coeffs, qp, rdpcm, *, n, use_dst, path, bd, max_dyn,
-                 rotate=False, mat=None):
-    """Residual blocks [P, n, n] int32 of one TU bucket (plain torch);
-    `mat` [P, n, n] holds each TU's scaling matrix (the JAX `scaling`
-    closure flag is `mat is not None` here)."""
+def _residual_fn(coeffs, qp, rdpcm, *, n, use_dst, path, bd, rotate=False,
+                 mat=None):
+    """Residual blocks [P, n, n] int32 of one TU bucket (plain torch) at
+    the JAX function's max_dyn 15; `mat` [P, n, n] holds each TU's scaling
+    matrix (the JAX `scaling` closure flag is `mat is not None` here)."""
     if path == "bypass":
         res = TK.bypass_blocks(coeffs, rotate)
     else:
         res = TK.residual_blocks(coeffs, qp, n, use_dst, path == "tskip", bd,
-                                 max_dyn, rotate, mat=mat)
+                                 rotate, mat=mat)
     return TK.inverse_rdpcm_batch(res, rdpcm.to(torch.int32))

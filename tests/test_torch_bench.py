@@ -36,6 +36,7 @@ from libhm_tpu_torch.hostdec.decoder import Decoder
 from libhm_tpu_torch.ops import interp as MK
 from libhm_tpu_torch.ops import transform as TK
 from libhm_tpu_torch.parallel.dag_decode import cropped_checksum
+import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)

@@ -23,6 +23,7 @@ import torch
 
 from ccp_cases import ALPHAS, SIZES, ccp_level
 from libhm_tpu_torch.ops import transform as TK
+import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLD = json.load(open(os.path.join(ROOT, "testdata", "golden.json")))

@@ -18,6 +18,7 @@ import torch
 import jax.numpy as jnp
 
 from libhm_tpu_torch.ops import checksum as CK
+import torch_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("n", [1, 51, 64, 65, 130])

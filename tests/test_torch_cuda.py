@@ -14,6 +14,7 @@ import os
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLD = json.load(open(os.path.join(ROOT, "testdata", "golden.json")))
@@ -131,6 +132,44 @@ def test_residual_table_kernel(gpu):
         assert torch.equal(got, want), int((got != want).sum())
     assert (TK._K1.launches, TK._K1_SCAL.launches, TK._K1_BYPASS.launches) \
         == tuple(v + 20 for v in n0)
+
+
+@pytest.mark.parametrize("bd", [10, 12, 14, 16])
+@pytest.mark.parametrize("plain_share", [0.0, 0.5], ids=["ext", "mixed"])
+def test_residual_table_ext_kernel(gpu, bd, plain_share):
+    """K1's wide form (a table with F_EXT rows: int32 coefficients, 64-bit
+    sums) over a seeded table of every mode, levels over [-2^M, 2^M - 1]
+    (tests/ext_cases.py), CCP rows in a second launch, and the same with
+    half the rows without F_EXT == its plain version, 20 launches
+    bit-identical, each counted in _K1 and _K1_EXT."""
+    from ext_cases import ext_level
+    from libhm_tpu_torch.ops import transform as TK
+    from libhm_tpu_torch.parallel import batch_decode as TB
+    rng = np.random.default_rng(bd)
+    shape = (2, 136, 248)
+    for chroma in (False, True):
+        rows, coeffs, counts, flags, mats, _ = ext_level(
+            rng, bd, *shape, chroma=chroma, plain_share=plain_share)
+        table = TB.upload_tables([(rows, coeffs, counts, flags)], gpu)[0]
+        assert table.coeffs.dtype == torch.int32
+        m = {n: torch.from_numpy(v).to(gpu) for n, v in mats.items()}
+        res_l = torch.from_numpy(rng.integers(
+            -(1 << (bd + 5)), 1 << (bd + 5), shape).astype(np.int32)).to(gpu) \
+            if chroma else None
+        want = TK.residual_table_plain(
+            torch.zeros(shape, dtype=torch.int32, device=gpu), table, m,
+            res_l)
+        n0 = (TK._K1.launches, TK._K1_EXT.launches)
+        for _ in range(20):
+            got = TK.residual_table(
+                torch.zeros(shape, dtype=torch.int32, device=gpu), table, m,
+                res_l)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), int((got != want).sum())
+        assert (TK._K1.launches, TK._K1_EXT.launches) == \
+            (n0[0] + 20, n0[1] + 20)
+        if bd == 16:
+            assert want.abs().max() > 32767
 
 
 @pytest.mark.parametrize("name", ["randomaccess_main10_416x240",

@@ -2,8 +2,9 @@
 
 Each all-intra stream must match its HM golden MD5 and equal the JAX
 decode_batch plane by plane (exact).  The 1080p stream runs only under
-HEVC_SLOW_TESTS, as in test_dag_decode.py.  Streams outside the port
-(extended precision, at any bit depth up to 16) raise NotImplementedError
+HEVC_SLOW_TESTS, as in test_dag_decode.py.  A stream with extended
+precision forced decodes as the numpy decoder does under the flag; streams
+outside the port (CCP with unequal bit depths) raise NotImplementedError
 naming what is missing; the entry point runs on the card unless the CPU
 is asked for.
 """
@@ -17,6 +18,7 @@ import torch
 
 from libhm_tpu_torch.parallel import dag_decode as DD
 from libhm_tpu_torch.parallel.dag_decode import decode_batch
+import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLD = json.load(open(os.path.join(ROOT, "testdata", "golden.json")))
@@ -75,25 +77,47 @@ def _collected(name):
     return dec.collected
 
 
-def test_inter_stream_raises():
-    """4:2:2 inter streams are ported (tests/test_torch_rext_decode.py);
-    the refusal is held on one of their pictures marked for extended
-    precision, which no golden uses: named."""
-    items = _collected("rext422_noRdoq_160x96")
-    items[-1]["sps"].extended_precision = 1
-    with pytest.raises(NotImplementedError, match="extended precision"):
-        DD._recon_levels(items, [CPU])
+def _forced_extprec(monkeypatch):
+    """Every SPS the port's control plane parses reads
+    extended_precision_processing_flag = 1.  The native slice parse reads
+    its own SPS, so coefficients parse as coded, and the residuals of the
+    port and of the numpy decoder follow the flag."""
+    from libhm_tpu_torch.hostdec import decoder as D
+    real = D.parse_sps
+
+    def forced(rbsp):
+        sps = real(rbsp)
+        sps.extended_precision = 1
+        return sps
+    monkeypatch.setattr(D, "parse_sps", forced)
+
+
+def test_inter_stream_raises(monkeypatch):
+    """Extended precision was refused here by name; it is ported now.  The
+    10-bit 4:2:2 inter stream with the flag forced (max_dyn_range 16)
+    decodes through decode_batch to what the numpy decoder gives under the
+    same flag, which is not the golden."""
+    from libhm_tpu_torch.hostdec.decoder import Decoder
+    name = "rext422_noRdoq_160x96"
+    _forced_extprec(monkeypatch)
+    got = _md5(decode_batch(_data(name), device=CPU))
+    want = _md5(Decoder(parse="native", recon="numpy")
+                .decode_annexb(_data(name)))
+    assert got == want != GOLD[name]["decoded_yuv_md5"]
 
 
 def test_tiles_stream_raises():
-    """Tiles, cross-component prediction and bit depths up to 16 are
-    ported; the refusal is held on a picture set to 16 bits with extended
-    precision, which stays refused: named."""
+    """Tiles, cross-component prediction, bit depths up to 16 and extended
+    precision are ported; the refusal of CCP with unequal luma and chroma
+    bit depths (ROADMAP C4) stands, held on a picture set to 16-bit luma
+    and 12-bit chroma with extended precision: named."""
     items = _collected("ccp444_lowdelay_160x96")
     sps = items[0]["sps"]
-    sps.bit_depth_luma = sps.bit_depth_chroma = 16
+    sps.bit_depth_luma, sps.bit_depth_chroma = 16, 12
     sps.extended_precision = 1
-    with pytest.raises(NotImplementedError, match="extended precision"):
+    with pytest.raises(NotImplementedError,
+                       match="cross-component prediction with unequal bit "
+                             "depths"):
         DD._recon_levels(items, [CPU])
 
 

@@ -20,6 +20,7 @@ from libhm_tpu.ops import sao as JS
 from libhm_tpu_torch.ops import deblock as TD
 from libhm_tpu_torch.ops import pcm as PS
 from libhm_tpu_torch.ops import sao as TS
+import torch_threads  # noqa: F401
 
 
 def _eq(jax_out, torch_out):

@@ -14,6 +14,7 @@ import torch
 
 from libhm_tpu_torch.hostdec.decoder import Decoder
 from libhm_tpu_torch.parallel.dag_decode import decode_batch
+import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLD = json.load(open(os.path.join(ROOT, "testdata", "golden.json")))

@@ -51,6 +51,7 @@ from libhm_tpu_torch.parallel import dag_decode as DD
 from lf_cases import smooth_planes
 from mc_cases import block_table, pu_maps
 from pcm_cases import pcm_blocks, plane_shapes
+import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLD = json.load(open(os.path.join(ROOT, "testdata", "golden.json")))

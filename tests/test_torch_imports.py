@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from libhm_tpu_torch.ops import interp as MK
+import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "libhm_tpu_torch")
@@ -176,9 +177,11 @@ def _hostdec_copies():
 # recon="tpu" backend with recon="torch" (and its device argument),
 # native_bridge.py builds only the parser libraries, api.py and dec_app.py
 # default to recon="torch" on the card and take a device, trace.py's usage
-# line names the port's module
+# line names the port's module; refimpl.py and recon_np.py follow H.265's
+# residual under extended precision (no int16 clips, stage 1 clipped to
+# +-2^max_dyn_range), where the JAX package's copies clip to int16
 _EDITED = {"decoder.py", "native_bridge.py", "api.py", "dec_app.py",
-           "trace.py"}
+           "trace.py", "refimpl.py", "recon_np.py"}
 
 
 @pytest.mark.parametrize("rel,src,dst", list(_hostdec_copies()),

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 from libhm_tpu.parallel import dag_decode as JD
 from libhm_tpu_torch.ops import checksum as CK
 from libhm_tpu_torch.ops import interp as MK
+import torch_threads  # noqa: F401
 
 B, R = 2, 3
 HP = WP = 64                 # padded luma plane

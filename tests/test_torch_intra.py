@@ -17,6 +17,7 @@ import torch
 
 from libhm_tpu.ops import intra as JI
 from libhm_tpu_torch.ops import intra as TI
+import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLD = json.load(open(os.path.join(ROOT, "testdata", "golden.json")))

@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from lf_cases import level_case
+import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLD = json.load(open(os.path.join(ROOT, "testdata", "golden.json")))

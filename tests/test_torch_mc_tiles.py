@@ -17,6 +17,7 @@ import jax.numpy as jnp
 
 from libhm_tpu.parallel import dag_decode as JD
 from libhm_tpu_torch.ops import interp as MK
+import torch_threads  # noqa: F401
 
 B, R = 2, 3
 HP, WP, H, W = 64, 96, 56, 88          # luma: padded plane, picture

@@ -34,6 +34,7 @@ from libhm_tpu.parallel import dag_decode as JD
 from libhm_tpu_torch.ops import interp as MK
 
 from mc_cases import FAR, block_table, kernel_form, pu_maps
+import torch_threads  # noqa: F401
 
 B, R = 2, 3
 HP, WP, H, W = 64, 96, 60, 88          # luma: padded plane, picture

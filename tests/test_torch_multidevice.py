@@ -32,6 +32,7 @@ import torch
 from libhm_tpu_torch.parallel import batch_decode as BD
 from libhm_tpu_torch.parallel import dag_decode as DD
 from libhm_tpu_torch.utils import xfer
+import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLD = json.load(open(os.path.join(ROOT, "testdata", "golden.json")))

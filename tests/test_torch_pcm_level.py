@@ -25,6 +25,7 @@ import torch
 
 from libhm_tpu_torch.ops import pcm as PK
 from pcm_cases import FORMATS, pcm_blocks, plane_shapes
+import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORTS = json.load(open(os.path.join(ROOT, "testdata", "port_streams.json")))

@@ -9,8 +9,9 @@ torch versions of the kernels).
   plane was uploaded from the host;
 - the libHMDec push/re-feed protocol of libhm_tpu_torch.api, its SEI
   check and internal info;
-- decode_intra_batch, dec_app and the refusals: CUDA asked for on a host
-  without it, inter pictures in decode_intra_batch, extended precision.
+- decode_intra_batch, dec_app and the refusals (CUDA asked for on a host
+  without it, inter pictures in decode_intra_batch); a stream with
+  extended precision forced decodes as the numpy decoder does.
 """
 import hashlib
 import json
@@ -20,6 +21,7 @@ import pytest
 import torch
 
 from libhm_tpu_torch.utils import xfer
+import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLD = json.load(open(os.path.join(ROOT, "testdata", "golden.json")))
@@ -175,12 +177,21 @@ def test_cuda_requested_without_gpu_raises(monkeypatch):
     assert api.HmDecoder(recon="numpy")._core.recon == "numpy"
 
 
-def test_extended_precision_refused():
-    from libhm_tpu_torch.hostdec.decoder import Decoder
-    from libhm_tpu_torch.recon_torch import reconstruct_picture
-    dec = Decoder(parse="native", recon="collect")
-    dec.decode_annexb(_data("intra_64x64"))
-    item = dec.collected[0]
-    item["sps"].extended_precision = 1
-    with pytest.raises(NotImplementedError, match="extended precision"):
-        reconstruct_picture(item, CPU)
+def test_extended_precision_refused(monkeypatch):
+    """Extended precision was refused here by name; it is ported now.  The
+    per-picture path decodes the 10-bit 4:4:4 CCP stream with the flag
+    forced in every SPS (max_dyn_range 16, CCP unclipped) to what the
+    numpy decoder gives under the same flag, which is not the golden."""
+    from libhm_tpu_torch.hostdec import decoder as D
+    real = D.parse_sps
+
+    def forced(rbsp):
+        sps = real(rbsp)
+        sps.extended_precision = 1
+        return sps
+    monkeypatch.setattr(D, "parse_sps", forced)
+    name = "ccp444_lowdelay_160x96"
+    _, outs = _decode(name)
+    want = D.Decoder(parse="native", recon="numpy").decode_annexb(
+        _data(name))
+    assert _md5(outs) == _md5(want) != GOLD[name]["decoded_yuv_md5"]

@@ -31,6 +31,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLD = json.load(open(os.path.join(ROOT, "testdata", "golden.json")))

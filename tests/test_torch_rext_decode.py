@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from libhm_tpu_torch.parallel import dag_decode as DD
+import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLD = json.load(open(os.path.join(ROOT, "testdata", "golden.json")))

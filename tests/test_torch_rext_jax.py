@@ -25,6 +25,7 @@ import os
 import numpy as np
 import pytest
 import torch
+import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLD = json.load(open(os.path.join(ROOT, "testdata", "golden.json")))

@@ -18,6 +18,7 @@ import torch
 from libhm_tpu.ops import transform as JT
 from libhm_tpu_torch.ops import transform as TT
 from libhm_tpu_torch import recon_torch
+import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLD = json.load(open(os.path.join(ROOT, "testdata", "golden.json")))
@@ -95,8 +96,7 @@ def test_residual_fn_composition(n, use_dst, path):
         jnp.asarray(mat))
     got = recon_torch._residual_fn(
         torch.from_numpy(coeffs), torch.from_numpy(qp),
-        torch.from_numpy(rdpcm), n=n, use_dst=use_dst, path=path, bd=10,
-        max_dyn=15)
+        torch.from_numpy(rdpcm), n=n, use_dst=use_dst, path=path, bd=10)
     _eq(want, got)
 
 
@@ -178,7 +178,7 @@ def test_bypass_residual(n, rotate, bd):
     got = recon_torch._residual_fn(
         torch.from_numpy(coeffs), torch.from_numpy(qp),
         torch.from_numpy(rdpcm), n=n, use_dst=False, path="bypass", bd=bd,
-        max_dyn=15, rotate=rotate)
+        rotate=rotate)
     _eq(want, got)
     # K1's plain path on int16 levels, one TU per slot of a 2-picture plane
     c16 = np.clip(coeffs, -32768, 32767).astype(np.int16)
@@ -223,7 +223,7 @@ def test_residual_fn_scaling(n, use_dst, path, rotate):
     got = recon_torch._residual_fn(
         torch.from_numpy(coeffs), torch.from_numpy(qp),
         torch.from_numpy(rdpcm), n=n, use_dst=use_dst, path=path, bd=10,
-        max_dyn=15, rotate=rotate, mat=torch.from_numpy(mat))
+        rotate=rotate, mat=torch.from_numpy(mat))
     _eq(want, got)
     table = np.stack([mats[(n.bit_length() - 3, m)] for m in range(6)])
     planes = torch.zeros((1, 4 * n, 4 * n), dtype=torch.int32)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """A/B of the port's cross-component prediction (K1 + K10, or K1 with its
-CCP epilogue) and PCM level (K9) between two checkouts of the repo, on one
-GPU.
+CCP epilogue), PCM level (K9) and K1's int16 form between two checkouts of
+the repo, on one GPU.
 
     python3 tools/port_ab.py OLD_ROOT NEW_ROOT
 
@@ -21,6 +21,12 @@ NEW_ROOT/tests: ccp_cases.py, pcm_cases.py) and prints one JSON line:
   `pcm_scatter` per component, or one `pcm_level`), the host ms of the
   checkout's dag_decode._pcm_level (packing, uploads, launches; least of
   20 runs), its uploads, and the MD5 of the planes;
+- K1 on the TU tables of every level of randomaccess_main10_1080p (the
+  decode's own coefficients and modes, one table per component and
+  level): the device time and enqueue rate summed over the tables, and
+  the MD5 of the residual planes;
+- K1's build: the `-Xptxas -v` registers and spill bytes of each
+  instantiation of residual_table_kernel;
 - rext444_randomaccess_416x240 through decode_batch: K1 launches, the
   launches that carry CCP (K10, or K1 with CCP rows) and the H2D uploads;
   pcm_port_416x240 through decode_batch and through the per-picture
@@ -76,6 +82,21 @@ def md5(planes):
                                 for p in planes)).hexdigest()
 
 
+def k1_ptxas(log):
+    """K1's lines of an `nvcc -Xptxas -v` log: for each instantiation of
+    residual_table_kernel (by its mangled name from the kernel's name on),
+    its registers and its stack and spill bytes."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            m = line.split("'")[1]
+            name = m[m.index("residual_table_kernel"):] \
+                if "residual_table_kernel" in m else None
+        elif name and ("Used" in line or "spill" in line):
+            out.setdefault(name, []).append(line.split(":", 1)[-1].strip())
+    return out
+
+
 def child(root, cases):
     sys.path[:0] = [root, cases]
     import numpy as np
@@ -92,10 +113,12 @@ def child(root, cases):
     from libhm_tpu_torch.parallel import dag_decode as DD
     from libhm_tpu_torch.utils import xfer
     from pcm_cases import pcm_blocks, plane_shapes
+    ptxas = KB.build(verbose=True)
     KB.library()
     native_bridge.build()
     epilogue = hasattr(TK, "F_CCP")
-    out = {"root": root, "ccp": "K1 epilogue" if epilogue else "K1 + K10"}
+    out = {"root": root, "ccp": "K1 epilogue" if epilogue else "K1 + K10",
+           "k1_ptxas": k1_ptxas(ptxas)}
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(DEV)  # noqa
 
     # CCP on a seeded 1080p 4:4:4 chroma level
@@ -173,8 +196,32 @@ def child(root, cases):
     out["pcm_level_host_ms"] = min(spent) * 1e3
     out["pcm_level_uploads_bytes"] = dict(xfer.BY_TAG)
 
-    # launches and uploads on two decodes
+    # K1 on the RA 1080p stream's own tables, level by level
     gold = json.load(open(os.path.join(root, "testdata", "golden.json")))
+    dec = Decoder(parse="native", recon="collect")
+    dec.decode_annexb(open(os.path.join(root, "testdata", gold[
+        "randomaccess_main10_1080p"]["bitstream"]), "rb").read())
+    runs, res = [], []
+    for items in DD.reference_levels(dec.collected):
+        sps = items[0]["sps"]
+        Hp, Wp = sps.pic_height_ctbs << sps.log2_ctb, \
+            sps.pic_width_ctbs << sps.log2_ctb
+        tables, lists = TB.residual_tables(items)
+        mats = TB._MatrixTable(lists, DEV).tables
+        for c, table in enumerate(TB.upload_tables(tables, DEV)):
+            plane = torch.zeros((len(items), Hp >> (c > 0), Wp >> (c > 0)),
+                                dtype=torch.int32, device=DEV)
+            runs.append(lambda p=plane, tb=table, m=mats:
+                        TK.residual_table(p, tb, m))
+            res.append(plane)
+    for f in runs:
+        f()
+    out["k1_ra_tables"] = len(runs)
+    out["k1_ra_md5"] = md5(res)
+    out["k1_ra_device_ms"] = sum(device_ms(f) for f in runs)
+    out["k1_ra_enqueue_ms"] = sum(enqueue_ms(f) for f in runs)
+
+    # launches and uploads on two decodes
     ports = json.load(open(os.path.join(root, "testdata",
                                         "port_streams.json")))
     copies = {}

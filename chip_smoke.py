@@ -158,6 +158,21 @@ libhm_tpu_torch/utils/timing.py int32_ops_per_s).
       crossing devices as counted peer copies; on a host with several
       cards the same over one entry per card and dryrun_multidevice;
       decode_batch fps with one entry and with each list, in turn;
+    - the encoder (encoder_phase), its in-loop filter on the card:
+      testdata/rext444_16b_intra_160x96 re-encoded through enc_app
+      --device cuda from its cfg's recipe (tests/enc_cases.py) to the
+      committed bytes; a picture coded partly as PCM with
+      pcm_loop_filter_disabled (K8 on the encoder's path) to the bytes of
+      the same encode on the CPU; the first two pictures of the RA 1080p
+      stream (Main10) encoded lowdelayP with SAO, the stream decoded by
+      decode_batch on the card with every hash SEI OK and to the
+      encoder's reconstructions, each picture's filter equal to the
+      port's numpy one (hostdec/loopfilter_np, which the encode itself
+      may not call) and both timed; encode fps, the host split (the CTU
+      pass, _estimate_sao, the filter, _emit_slices) and the filter's
+      launches, device time and H2D / D2H bytes; every loop-filter
+      launch (2 a picture: deblocking, then SAO) and K8 launch held
+      against its plain version on CPU copies of its inputs;
  5. timed runs of the RA stream, of the tool stream and of the 4:2:2
     stream (every picture's hash SEI checked OK for the last two), and a
     breakdown (cProfile, torch.profiler) of the RA stream, with the intra
@@ -171,7 +186,8 @@ libhm_tpu_torch/utils/timing.py int32_ops_per_s).
     equal to the native CPU decode's, every MD5 golden, every line
     present) and tools/bench_kernels_torch.py's K1 and K6 rows at the
     JAX harness's shapes (exact, at most 100% of their bound);
- 6. one JSON line of per-kernel results, then the result line
+ 6. one JSON line of per-kernel results (the encoder's loop-filter and
+    K8 launches in rows of their own), then the result line
     {"ok": true, "device": {...}}.
 """
 import hashlib
@@ -258,6 +274,16 @@ ROWS = (("row14", "_scan_fn per picture: intra_wavefront (K2), luma and "
          "(K6), loop_filter_level (K3 V + K4, one launch), plane_checksum "
          "(K7)",
          "libhm_tpu_torch/entry.py", "__graft_entry__.py:22"))
+# the encoder's rows of the kernel table (encoder_phase): key, the kernel
+# and the work it was timed on, source, replaces
+ENC_ROWS = (("enc_lf", "encoder in-loop filter: loop_filter_level (K3 + "
+             "K4), the deblocking and the SAO launch of one 1080p Main10 "
+             "picture", "libhm_tpu_torch/csrc/loopfilter.cu",
+             "libhm_tpu/parallel/device_filters.py:102"),
+            ("enc_k8", "encoder PCM restore: restore_unfiltered (K8), the "
+             "three components of a 128x64 picture",
+             "libhm_tpu_torch/csrc/pcm.cu",
+             "libhm_tpu/parallel/device_filters.py:191"))
 # the main path whose launches the kernel table reports, for the modes
 # that the tool stream does not run
 LAUNCHES_FROM = {"residual_bypass": "lossless_intra_416x240",
@@ -2337,6 +2363,300 @@ def bench_phase(data, card):
         f"{time.monotonic() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# the encoder phase
+ENC16 = "rext444_16b_intra_160x96"   # re-encoded on the card from its recipe
+ENC_PICS = 2                      # pictures of STREAM that the encode takes
+
+
+class EncoderCapture:
+    """While installed: every launch an encode makes of the loop-filter
+    kernel (its inputs and a copy of its output) and of K8 (a copy of its
+    planes before the restore), the host planes before and after each
+    picture's in-loop filter, and the wall seconds of the encoder's phases
+    ("filter": PictureFilter's uploads, maps, launches and downloads); the
+    port's numpy loop filter (hostdec/loopfilter_np) raises, so the encode
+    cannot reach it."""
+
+    PHASES = ("_native_compress", "_estimate_sao", "_emit_slices")
+
+    def __init__(self):
+        from libhm_tpu_torch.encoder import encoder as EN
+        from libhm_tpu_torch.hostdec import loopfilter_np as NP
+        from libhm_tpu_torch.ops import loopfilter as LF
+        from libhm_tpu_torch.ops import pcm as PK
+        from libhm_tpu_torch.parallel.device_filters import PictureFilter
+        self.lf, self.k8, self.pictures = [], [], []
+        self.secs = dict.fromkeys(self.PHASES + ("filter",), 0.0)
+        lf, k8, pictures, secs = self.lf, self.k8, self.pictures, self.secs
+
+        def lf_spy(planes, maps, **kw):
+            out = real_lf(planes, maps, **kw)
+            # (a copy: K8 restores the last launch's output in place)
+            lf.append((planes, maps, kw, [o.clone() for o in out]))
+            return out
+
+        def k8_spy(planes, pre, rmask, **kw):
+            before = planes.clone()
+            out = real_k8(planes, pre, rmask, **kw)
+            k8.append((before, pre, rmask, kw, out.clone()))
+            return out
+
+        def filter_spy(enc, poc, *a, **k):
+            pre = [p.copy() for p in enc.recon]
+            real_filter(enc, poc, *a, **k)
+            pictures.append((pre, [p.copy() for p in enc.recon], enc.pic,
+                             enc.sps, enc.pps))
+
+        def timed(name, fn):
+            def run(*a, **k):
+                t0 = time.monotonic()
+                try:
+                    return fn(*a, **k)
+                finally:
+                    secs[name] += time.monotonic() - t0
+            return run
+
+        def refused(*a, **k):
+            raise AssertionError("the encoder ran hostdec/loopfilter_np")
+        real_lf, real_k8 = LF.loop_filter_level, PK.restore_unfiltered
+        real_filter = EN.IntraEncoder._loop_filter
+        self._undo = [(LF, "loop_filter_level", real_lf),
+                      (PK, "restore_unfiltered", real_k8),
+                      (EN.IntraEncoder, "_loop_filter", real_filter),
+                      (NP, "deblock_picture", NP.deblock_picture),
+                      (NP, "sao_picture", NP.sao_picture)]
+        self._undo += [(EN.IntraEncoder, n, getattr(EN.IntraEncoder, n))
+                       for n in self.PHASES]
+        self._undo += [(PictureFilter, n, getattr(PictureFilter, n))
+                       for n in ("__init__", "run", "restore")]
+        LF.loop_filter_level, PK.restore_unfiltered = lf_spy, k8_spy
+        EN.IntraEncoder._loop_filter = filter_spy
+        NP.deblock_picture = NP.sao_picture = refused
+        for n in self.PHASES:
+            setattr(EN.IntraEncoder, n, timed(n, getattr(EN.IntraEncoder, n)))
+        for n in ("__init__", "run", "restore"):
+            setattr(PictureFilter, n, timed("filter",
+                                            getattr(PictureFilter, n)))
+
+    def remove(self):
+        for owner, name, fn in self._undo:
+            setattr(owner, name, fn)
+
+    def check(self, label, card):
+        """Each captured launch against the plain version on CPU copies of
+        its inputs: raises on a mismatch; returns (loop-filter Result,
+        K8 Result)."""
+        import torch
+        from libhm_tpu_torch.ops import loopfilter as LF
+        from libhm_tpu_torch.ops import pcm as PK
+        torch.cuda.synchronize()
+        r_lf, r_k8 = Result(), Result()
+        for planes, maps, kw, out in self.lf:
+            want = LF.loop_filter_level_plain(
+                [p.cpu() for p in planes],
+                {k: v.cpu() for k, v in maps.items()}, **kw)
+            r_lf.err = max([r_lf.err] + [max_abs_err(o.cpu(), w)
+                                         for o, w in zip(out, want)])
+        for before, pre, rmask, kw, out in self.k8:
+            want = PK.restore_unfiltered_plain(before.cpu(), pre.cpu(),
+                                               rmask.cpu(), **kw)
+            r_k8.err = max(r_k8.err, max_abs_err(out.cpu(), want))
+        log(f"{label}: {len(self.lf)} loop_filter_level launches (masks "
+            f"{[kw['mask'] for _, _, kw, *_ in self.lf]}), {len(self.k8)} "
+            f"K8 launches, each against its plain version on CPU copies of "
+            f"its inputs: max_abs_err {r_lf.err} / {r_k8.err} ({card})")
+        if r_lf.err or r_k8.err:
+            raise AssertionError(f"{label}: the encoder's launches differ "
+                                 "from their plain versions")
+        return r_lf, r_k8
+
+    def time_first(self, r_lf=None, r_k8=None):
+        """Add to the kernels line's rows: the first picture's launches
+        (its deblocking and SAO launches; its three K8 launches), timed on
+        their own inputs (20 kernel runs, 2 plain runs on the card, CUDA
+        events), with their bytes and operations."""
+        from libhm_tpu_torch.ops import loopfilter as LF
+        from libhm_tpu_torch.ops import pcm as PK
+        for planes, maps, kw, _ in self.lf[:2] if r_lf else ():
+            ms = cuda_ms(lambda: LF.loop_filter_level(planes, maps, **kw), 20)
+            pms = cuda_ms(lambda: LF.loop_filter_level_plain(planes, maps,
+                                                            **kw), 2)
+            r_lf.add(0, ms, pms, *_lf_work(planes, maps, kw))
+        for before, pre, rmask, kw, _ in self.k8[:3] if r_k8 else ():
+            scratch = before.clone()
+            ms = cuda_ms(lambda: PK.restore_unfiltered(scratch, pre, rmask,
+                                                       **kw), 20)
+            pms = cuda_ms(lambda: PK.restore_unfiltered_plain(
+                scratch, pre, rmask, **kw), 2)
+            r_k8.add(0, ms, pms, 3 * before.nbytes + rmask.nbytes,
+                     before.numel())
+
+
+def _encode(cfg, pics, device):
+    """(stream, encoder, wall seconds) of IntraEncoder(cfg, device)."""
+    import torch
+    from libhm_tpu_torch.encoder.encoder import IntraEncoder
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    enc = IntraEncoder(cfg, device=device)
+    stream = enc.encode_stream(pics)
+    torch.cuda.synchronize()
+    return stream, enc, time.monotonic() - t0
+
+
+def encoder_phase(gold, card):
+    """The port's encoder with its in-loop filter on the card (the
+    loop-filter kernel, K8 where PCM is restored):
+    - the 16-bit 4:4:4 160x96 stream re-encoded from its cfg's recipe
+      through enc_app (--device cuda): the bytes of the committed stream;
+    - a picture coded partly as PCM with pcm_loop_filter_disabled (K8 on
+      the encoder's path): the bytes that the encode on the CPU writes;
+    - two pictures of STREAM (1920x1080 Main10, decoded by the port's
+      native recon) encoded lowdelayP with SAO: the stream decoded by
+      decode_batch on the card with every hash SEI OK and to the encoder's
+      reconstructions, each picture's in-loop filter equal to the port's
+      numpy one on the same inputs (both timed), fps and the host split;
+    each with the launch counters from 0 and every loop-filter and K8
+    launch held against its plain version.  Returns the kernels line's
+    rows (Results) and launches."""
+    import numpy as np
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from enc_cases import pcm_frames, recipe_source
+    from libhm_tpu_torch.apps import enc_app
+    from libhm_tpu_torch.encoder.encoder import EncoderConfig
+    from libhm_tpu_torch.hostdec import loopfilter_np as NP
+    from libhm_tpu_torch.hostdec.decoder import Decoder
+    from libhm_tpu_torch.kernels import build as KB
+    from libhm_tpu_torch.parallel import dag_decode as DD
+    from libhm_tpu_torch.utils import xfer
+    t_phase = time.monotonic()
+
+    # the 16-bit stream from its recipe, through the CLI
+    cfg_path = os.path.join("testdata", f"{ENC16}.cfg")
+    src, n16 = recipe_source(os.path.join(ROOT, cfg_path))
+    with tempfile.TemporaryDirectory(dir=KB.BUILD) as tmp:
+        yuv, out = os.path.join(tmp, "src.yuv"), os.path.join(tmp, "out.bin")
+        open(yuv, "wb").write(src)
+        cap = EncoderCapture()
+        try:
+            rc, counts = run_path(
+                f"{ENC16} enc_app --device cuda",
+                lambda: enc_app.main(["-c", cfg_path, "-i", yuv, "-b", out,
+                                      "--device", DEV]),
+                ["loop_filter_level"])
+        finally:
+            cap.remove()
+        stream = open(out, "rb").read()
+    want = open(os.path.join(ROOT, "testdata", f"{ENC16}.bin"), "rb").read()
+    if rc != 0 or stream != want or counts["loop_filter_level"] != 2 * n16:
+        raise AssertionError(f"{ENC16} on the card: exit {rc}, "
+                             f"{len(stream)} bytes (want {len(want)}, "
+                             f"equal {stream == want}), launches {counts}")
+    cap.check(f"{ENC16} enc_app", card)
+    log(f"{ENC16} re-encoded on the card from its recipe: {len(stream)} "
+        f"bytes, equal to testdata/{ENC16}.bin; loop-filter launches "
+        f"{counts['loop_filter_level']} (deblocking and SAO of {n16} "
+        "pictures)")
+
+    # PCM with pcm_loop_filter_disabled: the restore (K8)
+    pics = pcm_frames(128, 64)
+
+    def pcm_cfg():
+        cfg = EncoderConfig(128, 64, qp=16)
+        cfg.pcm_enabled = cfg.pcm_filter_disabled = True
+        return cfg
+    cap = EncoderCapture()
+    try:
+        (stream, enc, _), counts = run_path(
+            "PCM picture encode", lambda: _encode(pcm_cfg(), pics, DEV),
+            ["loop_filter_level", "restore_unfiltered"])
+    finally:
+        cap.remove()
+    want = _encode(pcm_cfg(), pics, "cpu")[0]
+    if stream != want or counts["loop_filter_level"] != 2 or \
+            counts["restore_unfiltered"] != 3:
+        raise AssertionError(f"PCM encode on the card: equal to the CPU's "
+                             f"{stream == want}, launches {counts}")
+    _, pcm_k8 = cap.check("PCM picture encode", card)
+    cap.time_first(r_k8=pcm_k8)
+    k8_launches = counts["restore_unfiltered"]
+    log(f"PCM picture (128x64, QP 16, {int(np.asarray(enc.pic.pcm).sum())} "
+        f"PCM 4x4 units) encoded on the card: {len(stream)} bytes, equal to "
+        f"the CPU encode; loop filter 2 launches, K8 {k8_launches}")
+
+    # full width: two pictures of STREAM, lowdelayP, SAO on
+    data = open(os.path.join(ROOT, "testdata", gold[STREAM]["bitstream"]),
+                "rb").read()
+    src = Decoder(parse="native", recon="native").decode_annexb(data)
+    pics = [tuple(np.asarray(p).astype(np.uint16) for p in pic)
+            for pic in src[:ENC_PICS]]
+    H, W = pics[0][0].shape
+    cfg = EncoderConfig(W, H, qp=32, bit_depth=10, gop="lowdelayP")
+    cap = EncoderCapture()
+    xfer.reset()
+    try:
+        ((stream, enc, secs), dev), counts = run_path(
+            f"{STREAM} {ENC_PICS} pictures encode",
+            lambda: device_events(lambda: _encode(cfg, pics, DEV)),
+            ["loop_filter_level"])
+    finally:
+        cap.remove()
+    up, down = dict(xfer.BY_TAG), xfer.D2H
+    if counts["loop_filter_level"] != 2 * ENC_PICS:
+        raise AssertionError(f"1080p encode: launches {counts}")
+    r_lf, _ = cap.check(f"{STREAM} encode", card)
+    (lf_ms, lf_n), (h2d_ms, h2d_n), (d2h_ms, d2h_n) = (
+        dev_sum(dev, k) for k in ("loop_filter_kernel", "HtoD", "DtoH"))
+    cap.time_first(r_lf=r_lf)
+    np_secs = 0.0
+    for pre, post, pic, sps, pps in cap.pictures:
+        planes = [p.copy() for p in pre]
+        t0 = time.monotonic()
+        NP.deblock_picture(planes, pic, sps, pps)
+        NP.sao_picture(planes, pic, sps, pps)
+        np_secs += time.monotonic() - t0
+        for c, (a, b) in enumerate(zip(planes, post)):
+            s = (sps.chroma_shift_x(), sps.chroma_shift_y()) if c else (0, 0)
+            if not np.array_equal(a[:H >> s[1], :W >> s[0]],
+                                  b[:H >> s[1], :W >> s[0]]):
+                raise AssertionError("1080p encode: the card's in-loop "
+                                     "filter differs from loopfilter_np")
+    (outs, statuses), _ = run_path(
+        f"{STREAM} encoded, decode_batch",
+        lambda: _with_statuses(lambda: DD.decode_batch(
+            stream, device=DEV, check_sei_hash=True)), K1_K4)
+    recon = {s[2]: s[3] for s in enc.stats}
+    same = len(outs) == ENC_PICS and all(
+        np.array_equal(np.asarray(a), b) for poc, pic in enumerate(outs)
+        for a, b in zip(pic, recon[poc]))
+    if statuses != ["OK"] * ENC_PICS or not same:
+        raise AssertionError(f"1080p encode decoded on the card: hash SEIs "
+                             f"{statuses}, equal to the reconstructions "
+                             f"{same}")
+    split = ", ".join(f"{k} {v:.3f} s" for k, v in cap.secs.items())
+    log(f"{STREAM}: {ENC_PICS} pictures ({W}x{H} Main10 4:2:0) encoded "
+        f"lowdelayP QP 32 with SAO on the card in {secs:.3f} s "
+        f"({ENC_PICS / secs:.4f} fps), {len(stream)} bytes; decoded by "
+        f"decode_batch on the card, every hash SEI OK, pictures equal to "
+        f"the encoder's reconstructions ({card})")
+    log(f"encoder host split (wall seconds of each method over the encode, "
+        f"timed by wrapping it; 'filter' is PictureFilter: maps, uploads, "
+        f"launches, downloads): {split}")
+    log(f"encoder in-loop filter on the card (device-side events of the "
+        f"encode under torch.profiler): {counts['loop_filter_level']} "
+        f"launches, {lf_ms:.4f} ms device ({lf_n} kernels seen); H2D "
+        f"{up} bytes by tag, {h2d_n} memcpys, {h2d_ms:.3f} ms device; D2H "
+        f"{down} bytes, {d2h_n} memcpys, {d2h_ms:.3f} ms device; "
+        f"PictureFilter {cap.secs['filter']:.3f} s on the host; the port's "
+        f"loopfilter_np on the same {ENC_PICS} pictures on the host "
+        f"(deblock_picture + sao_picture, equal output) {np_secs:.3f} s "
+        f"({card})")
+    log(f"encoder phase: {time.monotonic() - t_phase:.1f} s")
+    return {"enc_lf": (r_lf, counts["loop_filter_level"]),
+            "enc_k8": (pcm_k8, k8_launches)}
+
+
 def main():
     global CORE_OPS, cuda_ms, device_ms
     start = time.monotonic()
@@ -2704,6 +3024,7 @@ def main():
     hbd_phase(ports, card)
     launches["residual_table_ext"] = extprec_phase(ports, card)
     multidevice_phase(gold, card)
+    enc = encoder_phase(gold, card)
 
     # ---- timed runs: parse and device phases ----
     timed_run(STREAM, data, gold[STREAM]["decoded_yuv_md5"], card)
@@ -2755,27 +3076,20 @@ def main():
                                   "libhm_tpu/parallel/batch_decode.py:164"),
            "residual_table_ext": ("libhm_tpu_torch/csrc/residual.cu",
                                   "libhm_tpu/recon_tpu.py:60")}
-    rows = []
-    for name in kernels:
-        r = results[name]
+    def row(name, source, replaces, n, r):
         bound_ms, bound_by = r.bound()
-        rows.append({"name": name, "route": "cuda", "source": src[name][0],
-                     "replaces": src[name][1], "launches": launches[name],
-                     "max_abs_err": r.err, "ms": round(r.ms, 4),
-                     "plain_ms": round(r.plain_ms, 4),
-                     "bound_ms": float(f"{bound_ms:.4g}"),
-                     "bound_by": bound_by,
-                     "library_ms": None if r.library_ms is None
-                     else round(r.library_ms, 4)})
-    for key, name, source, replaces in ROWS:
-        r = results[key]
-        bound_ms, bound_by = r.bound()
-        rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches[key],
-                     "max_abs_err": r.err, "ms": round(r.ms, 4),
-                     "plain_ms": round(r.plain_ms, 4),
-                     "bound_ms": float(f"{bound_ms:.4g}"),
-                     "bound_by": bound_by, "library_ms": None})
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": n, "max_abs_err": r.err,
+                "ms": round(r.ms, 4), "plain_ms": round(r.plain_ms, 4),
+                "bound_ms": float(f"{bound_ms:.4g}"), "bound_by": bound_by,
+                "library_ms": None if r.library_ms is None
+                else round(r.library_ms, 4)}
+    rows = [row(name, *src[name], launches[name], results[name])
+            for name in kernels]
+    rows += [row(name, source, replaces, launches[key], results[key])
+             for key, name, source, replaces in ROWS]
+    rows += [row(name, source, replaces, enc[key][1], enc[key][0])
+             for key, name, source, replaces in ENC_ROWS]
     log(f"chip_smoke: {time.monotonic() - start:.1f} s from the start to "
         f"the result ({card})")
     print(json.dumps({"kernels": rows}))

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..hostdec.deblock_maps import compute_bs_maps
+from ..hostdec.loopfilter_np import _tile_map
 from ..hostdec.tables import CHROMA_QP_SCALE
 
 from ..ops import deblock as DK
@@ -69,10 +70,7 @@ def prepare_filter_maps(pic, sps, pps, tile_map):
                                     0).astype(ctc_dt))
             m[f"ctc_{tag}"] = np.stack(tcs)
     if sps.sao_enabled:
-        nctu = sps.pic_size_ctbs
-        m["sao_t"] = np.asarray(pic.sao_type).reshape(nctu, 3).astype(np.int8)
-        m["sao_b"] = np.asarray(pic.sao_band_pos).reshape(nctu, 3).astype(np.int8)
-        m["sao_o"] = np.asarray(pic.sao_offsets).reshape(nctu, 3, 4).astype(np.int8)
+        m.update(sao_maps(pic, sps))
     m["s4"] = np.asarray(pic.slice_idx).astype(np.int16)
     m["lf4"] = np.asarray(pic.loopfilter_across_slice).astype(bool)
     m["tm"] = np.asarray(tile_map).astype(np.int16).reshape(-1)
@@ -81,6 +79,17 @@ def prepare_filter_maps(pic, sps, pps, tile_map):
         mask4 |= np.asarray(pic.pcm).astype(bool)
     m["rmask"] = mask4.astype(np.uint8)
     return m
+
+
+def sao_maps(pic, sps):
+    """The per-CTB SAO maps of one picture (prepare_filter_maps' sao_t,
+    sao_b, sao_o)."""
+    nctu = sps.pic_size_ctbs
+    return {"sao_t": np.asarray(pic.sao_type).reshape(nctu, 3).astype(np.int8),
+            "sao_b": np.asarray(pic.sao_band_pos).reshape(nctu, 3)
+            .astype(np.int8),
+            "sao_o": np.asarray(pic.sao_offsets).reshape(nctu, 3, 4)
+            .astype(np.int8)}
 
 
 def picture_filter_flags(items):
@@ -210,3 +219,81 @@ def filter_level(items, stacked, sps, device):
                                   sx=kw["sx"] if c else 0,
                                   sy=kw["sy"] if c else 0)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the maps each pass of the loop-filter kernel reads
+_PASS_MAPS = {LF.PASS_V: ("bsn_v", "qp_v", "bo_v", "to_v", "ctc_v"),
+              LF.PASS_H: ("bsn_h", "qp_h", "bo_h", "to_h", "ctc_h"),
+              LF.PASS_SAO: ("sao_t", "sao_b", "sao_o", "s4", "lf4", "tm")}
+
+
+class PictureFilter:
+    """The in-loop filter of one picture that an encoder reconstructs in
+    host planes.
+
+    The host planes (per component [Hp >> sy, Wp >> sx] int32, padded to
+    whole CTBs) go up once.  Each `run(mask)` is one launch of the
+    loop-filter kernel (ops/loopfilter.py loop_filter_level: K3 + K4 on
+    CUDA planes, its plain version on CPU planes) with the passes `mask`
+    names, on the planes the previous run left on the device, reading
+    only the maps of those passes (one packed upload); the deblocking maps
+    are taken at the first run, the SAO maps from `pic` at each SAO run.
+    The result's picture area is written back into the host planes; the
+    padding is never written.  `restore(mask4)` (K8) gives the samples of
+    a luma-grid 4x4 mask back their value from before the first run.
+    """
+
+    def __init__(self, planes, pic, sps, pps, device):
+        self.host, self.pic, self.sps, self.pps = planes, pic, sps, pps
+        self.device = device
+        # a copy: on the CPU the upload would share the host planes' memory
+        self.pre = [xfer.up(np.array(p[None]), "recon", device)
+                    for p in planes]
+        self.cur = self.pre
+        self.maps = None
+        self.items = [{"pic": pic, "sps": sps, "pps": pps}]
+        multi, _, sao_on = picture_filter_flags(self.items)
+        self.multi = sao_on and multi
+        ncomp = len(planes)
+        self.kw = dict(bd_l=sps.bit_depth_luma, bd_c=sps.bit_depth_chroma,
+                       sx=sps.chroma_shift_x() if ncomp > 1 else 0,
+                       sy=sps.chroma_shift_y() if ncomp > 1 else 0,
+                       log2_ctb=sps.log2_ctb, hc=sps.pic_height_ctbs,
+                       wc=sps.pic_width_ctbs, W=sps.width, H=sps.height)
+
+    def run(self, mask):
+        if self.maps is None:
+            self.maps = prepare_filter_maps(
+                self.pic, self.sps, self.pps,
+                _tile_map(self.pic, self.sps, self.pps))
+        multi = self.multi and bool(mask & LF.PASS_SAO)
+        if mask & LF.PASS_SAO:
+            self.maps.update(sao_maps(self.pic, self.sps))
+        read = {k for bit, keys in _PASS_MAPS.items() if mask & bit
+                for k in keys}
+        if not multi:
+            read -= {"s4", "lf4", "tm"}
+        buf, layout = pack_filter_maps(self.items, [self.maps], 1,
+                                       set(self.maps) - read)
+        mb = unpack_filter_maps(xfer.up(buf, "filter", self.device), layout)
+        self.cur = LF.loop_filter_level(self.cur, mb, mask=mask, multi=multi,
+                                        **self.kw)
+        self._download()
+
+    def restore(self, mask4):
+        rmask = xfer.up(np.ascontiguousarray(mask4, np.uint8)[None],
+                        "filter", self.device)
+        for c in range(len(self.cur)):
+            PK.restore_unfiltered(self.cur[c], self.pre[c], rmask,
+                                  sx=self.kw["sx"] if c else 0,
+                                  sy=self.kw["sy"] if c else 0)
+        self._download()
+
+    def _download(self):
+        for c, (h, d) in enumerate(zip(self.host, self.cur)):
+            s = (self.kw["sx"], self.kw["sy"]) if c else (0, 0)
+            a = d[0, :self.kw["H"] >> s[1], :self.kw["W"] >> s[0]].cpu() \
+                .numpy()
+            xfer.count_d2h(a.nbytes)
+            h[:a.shape[0], :a.shape[1]] = a

@@ -1,0 +1,165 @@
+"""Seeded encoder inputs shared by the port's encoder tests and
+chip_smoke.py's encoder phase.
+
+- `recipe_source(cfg)`: the source YUV bytes that the header of a
+  testdata/*.cfg of the repo's 160x96 high-bit-depth streams describes
+  (rext444_16b_intra_160x96, main14_intra_160x96): the bit depth, the
+  chroma subsampling and the seed are read from the recipe, the formula is
+  the recipe's;
+- `frames(...)`: moving synthetic 4:2:0 / 4:2:2 pictures (the content of
+  tests/test_enc_native.py) as encode_stream takes them; `pcm_frames`:
+  one picture that the encoder codes partly as PCM;
+- `decode_statuses`: the port's decode_batch of a stream with every
+  checked hash SEI's status;
+- `CASES` and `encode`: the small encoder configurations that the port
+  is held on, each with what its in-loop filter must launch.
+"""
+import os
+import re
+
+import numpy as np
+
+from libhm_tpu_torch.ops import loopfilter as LF
+
+
+def recipe_source(cfg_path):
+    """(bytes of the source YUV, its frame count) of a cfg's recipe."""
+    text = open(cfg_path).read()
+    bd, sub = (int(v) for v in re.search(
+        r"#\s+bd, sub = (\d+), (\d+)", text).groups())
+    seed = int(re.search(r"default_rng\((\d+)\)", text).group(1))
+    n = int(re.search(r"for t in range\((\d+)\)", text).group(1))
+    W = int(re.search(r"^SourceWidth\s*:\s*(\d+)", text, re.M).group(1))
+    H = int(re.search(r"^SourceHeight\s*:\s*(\d+)", text, re.M).group(1))
+    rng = np.random.default_rng(seed)
+    out = []
+    for t in range(n):
+        for c in range(3):
+            h, w = (H, W) if c == 0 else (H // sub, W // sub)
+            y, x = np.mgrid[0:h, 0:w]
+            s = np.sin(x / (7 + 3 * c) + t) * np.cos(y / 11 - c)
+            p = (0.5 + 0.45 * s) * (1 << bd) + \
+                rng.normal(0, 1 << (bd - 7), (h, w))
+            p += (rng.random((h, w)) < 0.03) * (1 << (bd - 2))
+            p = np.clip(np.rint(p), 0, (1 << bd) - 1)
+            out.append(p.astype("<u2").tobytes())
+    return b"".join(out), n
+
+
+def frames(w, h, n, *, bd=8, chroma=1, seed=7, shift=2):
+    """n (Y, Cb, Cr) pictures of a ramp moving `shift` samples a picture
+    to the right, with seeded noise, at bit depth bd (4:2:0 or 4:2:2)."""
+    rng = np.random.default_rng(seed)
+    dt = np.uint8 if bd <= 8 else np.uint16
+    up = 1 << (bd - 8)
+    base = (np.linspace(0, 200, w, dtype=np.int32)[None, :] +
+            np.linspace(0, 40, h, dtype=np.int32)[:, None])
+    ch = h // 2 if chroma == 1 else h
+    out = []
+    for t in range(n):
+        y = np.clip(np.roll(base, shift * t, axis=1) +
+                    rng.integers(-8, 9, (h, w)), 0, 255) * up
+        u = np.clip(128 + base[::2 if chroma == 1 else 1, ::2] // 4, 0,
+                    255)[:ch] * up
+        v = np.full((ch, w // 2), 90 * up)
+        out.append((y.astype(dt), u.astype(dt), v.astype(dt)))
+    return out
+
+
+def pcm_frames(w, h):
+    """One 4:2:0 picture whose 32x32 luma blocks alternate between the
+    moving ramp and seeded salt-and-pepper noise (0 or 255): at QP 16 the
+    encoder codes the noise blocks as PCM, and deblocking changes samples
+    of theirs that the restore gives back."""
+    rng = np.random.default_rng(11)
+    y, u, v = [p.copy() for p in frames(w, h, 1)[0]]
+    for by in range(0, h, 32):
+        for bx in range(0, w, 32):
+            if (by + bx) // 32 % 2 == 0:
+                y[by:by + 32, bx:bx + 32] = rng.integers(0, 2, (32, 32)) * 255
+                for p in (u, v):
+                    p[by // 2:by // 2 + 16, bx // 2:bx // 2 + 16] = \
+                        rng.integers(0, 2, (16, 16)) * 255
+    return [(y, u, v)]
+
+
+def decode_statuses(data, device):
+    """(pictures, hash SEI statuses) of the port's decode_batch with the
+    hash check: the status of every picture whose hash SEI was checked,
+    in decode order."""
+    from libhm_tpu_torch.hostdec.decoder import Decoder
+    from libhm_tpu_torch.parallel.dag_decode import decode_batch
+    seen = []
+    real = Decoder._verify_hash
+
+    def spy(self, dp):
+        checked = self._pending_hash is not None
+        real(self, dp)
+        if checked:
+            seen.append(dp.hash_status)
+    Decoder._verify_hash = spy
+    try:
+        outs = decode_batch(data, device=device, check_sei_hash=True)
+    finally:
+        Decoder._verify_hash = real
+    return outs, seen
+
+
+# the encoder cases of tests/test_torch_encoder_jax.py (against the JAX
+# encoder) and tests/test_torch_cuda.py (the card against the CPU)
+DEBLOCK = LF.PASS_V | LF.PASS_H
+
+
+# name: (width, height, pictures, frames keywords (None: pcm_frames),
+# EncoderConfig keywords, config attributes, the native path, the masks of
+# each picture's launches, the masks whose launches change samples)
+LF_ALL = [DEBLOCK, LF.PASS_SAO]
+CASES = {
+    "intra": (64, 48, 2, {}, dict(gop="intra", qp=27), {}, True, LF_ALL,
+              LF_ALL),
+    "lowdelayP": (64, 48, 3, {}, dict(gop="lowdelayP", qp=27), {}, True,
+                  LF_ALL, LF_ALL),
+    "randomaccess": (64, 48, 3, {}, dict(gop="randomaccess", qp=27), {},
+                     True, LF_ALL, LF_ALL),
+    "slices_tiles": (512, 128, 2, {}, dict(gop="lowdelayP", qp=27),
+                     dict(tile_cols=2, slice_ctus=3, lf_cross_slices=False),
+                     True, LF_ALL, LF_ALL),
+    "sao_no_deblock": (64, 48, 2, {}, dict(gop="intra", qp=37),
+                       dict(deblock=False), True, [LF.PASS_SAO],
+                       [LF.PASS_SAO]),
+    "pcm_restore": (128, 64, 1, None, dict(gop="intra", qp=16),
+                    dict(pcm_enabled=True, pcm_filter_disabled=True,
+                         log2_min_ipcm=3, log2_max_ipcm=5), False, LF_ALL,
+                    [DEBLOCK]),
+    "rext422_10b": (64, 48, 2, dict(bd=10, chroma=2),
+                    dict(gop="intra", bit_depth=10, chroma_format_idc=2),
+                    {}, False, LF_ALL, LF_ALL),
+    # the one-pass debug path (HEVC_ENC_1PASS=1): deblocking only, as it
+    # writes no SAO syntax
+    "one_pass": (64, 48, 2, {}, dict(gop="intra", qp=27), dict(sao=0),
+                 False, [DEBLOCK], [DEBLOCK]),
+}
+# environment variables a case encodes under
+ENV = {"one_pass": {"HEVC_ENC_1PASS": "1"}}
+
+
+def encode(mod, name, **enc_kw):
+    """(stream, encoder) of CASES[name] through the encoder module `mod`
+    (the port's or the JAX package's libhm_tpu*.encoder.encoder)."""
+    w, h, n, fr_kw, cfg_kw, attrs = CASES[name][:6]
+    pics = pcm_frames(w, h) if fr_kw is None else frames(w, h, n, **fr_kw)
+    cfg = mod.EncoderConfig(w, h, **cfg_kw)
+    for k, v in attrs.items():
+        setattr(cfg, k, v)
+    env = ENV.get(name, {})
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        enc = mod.IntraEncoder(cfg, **enc_kw)
+        return enc.encode_stream(pics), enc
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v

@@ -939,3 +939,27 @@ def test_loop_filter_level_kernel(gpu, case):
     assert LF._LF.launches == n0 + 20
     assert all(torch.equal(p, k) for p, k in zip(planes, keep))
     assert any(not torch.equal(w, k) for w, k in zip(want, keep))
+
+
+@pytest.mark.parametrize("name", ["slices_tiles", "sao_no_deblock",
+                                  "pcm_restore", "rext422_10b", "one_pass"])
+def test_encoder_on_gpu(gpu, name):
+    """The encoder with its in-loop filter on the card writes the bytes and
+    reconstructions of the encode on the CPU, launching the loop-filter
+    kernel once per pass group of each picture (and K8 where PCM samples
+    are restored)."""
+    from enc_cases import CASES, encode
+    from libhm_tpu_torch.encoder import encoder as EN
+    from libhm_tpu_torch.ops import loopfilter as LF
+    from libhm_tpu_torch.ops import pcm as PK
+    n, attrs, masks = (CASES[name][k] for k in (2, 5, 7))
+    want, cenc = encode(EN, name, device="cpu")
+    LF._LF.launches = PK._K8.launches = 0
+    got, genc = encode(EN, name, device=gpu)
+    assert got == want
+    for a, b in zip(cenc.stats, genc.stats):
+        assert a[:3] == b[:3]
+        for p, q in zip(a[3], b[3]):
+            np.testing.assert_array_equal(q, p)
+    assert LF._LF.launches == len(masks) * n
+    assert PK._K8.launches == (3 if attrs.get("pcm_filter_disabled") else 0)

@@ -1,9 +1,10 @@
 """Port hygiene and shared state.
 
-- libhm_tpu_torch, chip_smoke.py and the port's harness (bench_torch.py,
-  tools/bench_kernels_torch.py) import neither JAX nor anything of the
-  JAX package (libhm_tpu), directly or indirectly: the port keeps its own
-  copy of the host half (libhm_tpu_torch.hostdec);
+- libhm_tpu_torch (the encoder included), chip_smoke.py and the port's
+  harness (bench_torch.py, tools/bench_kernels_torch.py) import neither
+  JAX nor anything of the JAX package (libhm_tpu), directly or
+  indirectly: the port keeps its own copy of the host half
+  (libhm_tpu_torch.hostdec) and of the encoder;
 - the port's constant tables (state.tables_from_numpy) equal the JAX
   package's jnp tables element by element, and the literal tables in the
   CUDA sources equal the numpy ones;
@@ -50,6 +51,15 @@ def _imports(path):
             else:
                 mod = node.module
             yield mod
+
+
+def test_scan_sees_the_encoder():
+    """The import scan below covers the encoder's modules and its CLI."""
+    rels = {os.path.relpath(p, PKG) for p in _py_files()}
+    src = os.path.join(ROOT, "libhm_tpu", "encoder")
+    want = {os.path.join("encoder", f) for f in os.listdir(src)
+            if f.endswith(".py")} | {os.path.join("apps", "enc_app.py")}
+    assert want <= rels, want - rels
 
 
 @pytest.mark.parametrize("path", sorted(_py_files()),
@@ -169,8 +179,15 @@ def _hostdec_copies():
                 if rel != "__init__.py":
                     yield rel, src, dst
     for rel, sub in (("envvar.py", "utils"), ("trace.py", "utils"),
-                     ("api.py", ""), ("dec_app.py", "apps")):
+                     ("api.py", ""), ("dec_app.py", "apps"),
+                     ("enc_app.py", "apps")):
         yield rel, os.path.join(ROOT, "libhm_tpu", sub), os.path.join(PKG, sub)
+    # the encoder: every module of libhm_tpu/encoder but its empty
+    # __init__.py
+    src = os.path.join(ROOT, "libhm_tpu", "encoder")
+    for f in sorted(os.listdir(src)):
+        if f.endswith(".py") and f != "__init__.py":
+            yield f, src, os.path.join(PKG, "encoder")
 
 
 # the copies that were changed: decoder.py replaces the JAX package's
@@ -179,9 +196,14 @@ def _hostdec_copies():
 # default to recon="torch" on the card and take a device, trace.py's usage
 # line names the port's module; refimpl.py and recon_np.py follow H.265's
 # residual under extended precision (no int16 clips, stage 1 clipped to
-# +-2^max_dyn_range), where the JAX package's copies clip to int16
+# +-2^max_dyn_range), where the JAX package's copies clip to int16;
+# encoder.py takes a device and runs its in-loop deblocking and SAO through
+# the loop-filter kernel (parallel/device_filters.py PictureFilter) where
+# the JAX package's runs hostdec/loopfilter_np, and enc_app.py takes
+# --device (default cuda) and names the port's module
 _EDITED = {"decoder.py", "native_bridge.py", "api.py", "dec_app.py",
-           "trace.py", "refimpl.py", "recon_np.py"}
+           "trace.py", "refimpl.py", "recon_np.py", "encoder.py",
+           "enc_app.py"}
 
 
 @pytest.mark.parametrize("rel,src,dst", list(_hostdec_copies()),

@@ -12,8 +12,9 @@ lanes an SM x 2 for a multiply-add x SMs x the maximum SM clock,
 libhm_tpu_torch/utils/timing.py int32_ops_per_s).
 
  1. card name and power limit (nvidia-smi); CUDA must be available;
- 2. build the port's native host parser (libhm_tpu_torch/hostdec/native)
-    and every kernel of csrc/ (one nvcc per source), all at once, timed;
+ 2. build the port's native host parser (libhm_tpu_torch/hostdec/native),
+    its libHMDec C ABI (libhmdec.so) and every kernel of csrc/ (one nvcc
+    per source), all at once, timed;
  3. K1-K9 and K1's CCP epilogue (row 11, which was K10) against their
     plain torch versions on the card, at the shapes
     of the 1080p main paths, on seeded inputs: exact equality, with both
@@ -172,7 +173,17 @@ libhm_tpu_torch/utils/timing.py int32_ops_per_s).
       pass, _estimate_sao, the filter, _emit_slices) and the filter's
       launches, device time and H2D / D2H bytes; every loop-filter
       launch (2 a picture: deblocking, then SAO) and K8 launch held
-      against its plain version on CPU copies of its inputs;
+      against its plain version on CPU copies of its inputs; the picture
+      of ROADMAP C3 (tests/enc_cases.py C3_CASES, a rejected PCM trial
+      whose marks the encoder rolls back) encoded on the card to the
+      bytes of the CPU encode and decoded by decode_batch on the card
+      with its hash SEI OK, with K8's launches, the share of the picture
+      under PCM marks and the samples K8 restored;
+    - the host phase (host_phase): the port's annexb_bytecount,
+      hostdec/stats.py collect_bits, convert_bitdepth and
+      bitrate_targeting on the card's host, and the libHMDec C ABI
+      (libhmdec.so, built alongside the kernels) pushing a golden to its
+      MD5;
  5. timed runs of the RA stream, of the tool stream and of the 4:2:2
     stream (every picture's hash SEI checked OK for the last two), and a
     breakdown (cProfile, torch.profiler) of the RA stream, with the intra
@@ -2367,6 +2378,7 @@ def bench_phase(data, card):
 # the encoder phase
 ENC16 = "rext444_16b_intra_160x96"   # re-encoded on the card from its recipe
 ENC_PICS = 2                      # pictures of STREAM that the encode takes
+C3 = "mixed_qp16"                 # tests/enc_cases.py C3_CASES
 
 
 class EncoderCapture:
@@ -2522,8 +2534,10 @@ def encoder_phase(gold, card):
     rows (Results) and launches."""
     import numpy as np
     sys.path.insert(0, os.path.join(ROOT, "tests"))
-    from enc_cases import pcm_frames, recipe_source
+    from enc_cases import (C3_CASES, c3_config, noise_picture, pcm_frames,
+                           recipe_source)
     from libhm_tpu_torch.apps import enc_app
+    from libhm_tpu_torch.encoder import encoder as EN
     from libhm_tpu_torch.encoder.encoder import EncoderConfig
     from libhm_tpu_torch.hostdec import loopfilter_np as NP
     from libhm_tpu_torch.hostdec.decoder import Decoder
@@ -2584,6 +2598,47 @@ def encoder_phase(gold, card):
     log(f"PCM picture (128x64, QP 16, {int(np.asarray(enc.pic.pcm).sum())} "
         f"PCM 4x4 units) encoded on the card: {len(stream)} bytes, equal to "
         f"the CPU encode; loop filter 2 launches, K8 {k8_launches}")
+
+    # the picture of ROADMAP C3, on which a rejected PCM trial of the RDO
+    # quadtree left its pcm marks for K8 (the encoder rolls them back)
+    kind, seed, qp = C3_CASES[C3]
+    pics = noise_picture(128, 64, kind, seed)
+    cap = EncoderCapture()
+    try:
+        (stream, enc, _), counts = run_path(
+            f"C3 picture ({C3}) encode",
+            lambda: _encode(c3_config(EN, qp), pics, DEV),
+            ["loop_filter_level", "restore_unfiltered"])
+    finally:
+        cap.remove()
+    want = _encode(c3_config(EN, qp), pics, "cpu")[0]
+    if stream != want or counts["loop_filter_level"] != 2 or \
+            counts["restore_unfiltered"] != 3:
+        raise AssertionError(f"C3 picture on the card: equal to the CPU's "
+                             f"encode {stream == want}, launches {counts}")
+    restored = sum(int((out != before).sum())
+                   for before, _, _, _, out in cap.k8)
+    _, r_c3 = cap.check(f"C3 picture ({C3}) encode", card)
+    marked = float(np.asarray(enc.pic.pcm).astype(bool).mean())
+    (outs, statuses), _ = run_path(
+        f"C3 picture ({C3}) decode_batch",
+        lambda: _with_statuses(lambda: DD.decode_batch(
+            stream, device=DEV, check_sei_hash=True)),
+        K1_K4 + ["pcm_level", "restore_unfiltered"])
+    same = len(outs) == 1 and all(np.array_equal(np.asarray(a), b)
+                                  for a, b in zip(outs[0], enc.stats[0][3]))
+    if statuses != ["OK"] or not same:
+        raise AssertionError(f"C3 picture decoded on the card: hash SEIs "
+                             f"{statuses}, equal to the reconstruction "
+                             f"{same}")
+    log(f"C3 picture ({C3}: 128x64 {kind} noise, seed {seed}, QP {qp}, "
+        f"pcm_loop_filter_disabled) encoded on the card: {len(stream)} "
+        f"bytes, equal to the CPU encode; K8 {counts['restore_unfiltered']} "
+        f"launches, max_abs_err {r_c3.err} against the plain version; PCM "
+        f"marks on {marked:.2%} of the picture, {restored} samples restored "
+        f"({restored / (128 * 64 * 3 // 2):.2%} of the picture's "
+        f"{128 * 64 * 3 // 2}); decode_batch on the card: hash SEI "
+        f"{statuses[0]}, picture equal to the encoder's reconstruction")
 
     # full width: two pictures of STREAM, lowdelayP, SAO on
     data = open(os.path.join(ROOT, "testdata", gold[STREAM]["bitstream"]),
@@ -2657,6 +2712,105 @@ def encoder_phase(gold, card):
             "enc_k8": (pcm_k8, k8_launches)}
 
 
+HOST_LOG = ("POC    0 TId: 0 ( I-SLICE, nQP 32 QP 32 ) 100000 bits\n"
+            "POC    1 TId: 0 ( P-SLICE, nQP 33 QP 33 ) 4000 bits\n"
+            "POC    2 TId: 0 ( P-SLICE, nQP 34 QP 34 ) 2000 bits\n"
+            "POC    3 TId: 0 ( P-SLICE, nQP 33 QP 33 ) 6000 bits\n")
+
+
+def host_phase(gold):
+    """The port's host-only modules on the card's host, where JAX need not
+    be installed, each checked: annexb_bytecount's rows of a golden (SPS
+    and PPS among them, the bytes short of the stream by its start codes
+    only); collect_bits of the same golden summing to its bits exactly;
+    convert_bitdepth 8 -> 10 -> 8 on seeded samples back to the input;
+    bitrate_targeting extract on an encoder log fed on its stdin; and the
+    libHMDec C ABI (libhmdec.so, built alongside the kernels) pushing the
+    10-bit RA golden to its MD5 with its own MD5 SEI check passing."""
+    import contextlib
+    import io
+    import numpy as np
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import libhmdec_abi as ABI
+    from libhm_tpu_torch.apps import annexb_bytecount, convert_bitdepth
+    from libhm_tpu_torch.hostdec import nal as N
+    from libhm_tpu_torch.hostdec import stats
+    from libhm_tpu_torch.kernels import build as KB
+    t_phase = time.monotonic()
+    name = "tids4_ra_160x96"
+    path = os.path.join(ROOT, "testdata", gold[name]["bitstream"])
+    data = open(path, "rb").read()
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = annexb_bytecount.main([path])
+    rows = out.getvalue().splitlines()
+    nbytes = sum(int(r.split()[-1]) for r in rows)
+    starts = len(data) - sum(len(e) for e in N.split_annexb(data))
+    if rc or not any(" SPS " in r for r in rows) or \
+            not any(" PPS " in r for r in rows) or nbytes + starts != \
+            len(data):
+        raise AssertionError(f"annexb_bytecount {name}: exit {rc}, rows "
+                             f"{rows}")
+    log(f"host: annexb_bytecount {name}: {len(rows)} NAL unit types, "
+        f"{nbytes} bytes + {starts} start-code bytes = {len(data)}")
+    for r in rows:
+        log("  " + r)
+
+    t = stats.collect_bits(data, per_component=True, per_tu_size=True)
+    total, n_eng = t.pop("__total__"), t.pop("__n_engines__")
+    if total != len(data) * 8 or sum(t.values()) != total:
+        raise AssertionError(f"collect_bits {name}: total {total}, sum "
+                             f"{sum(t.values())}, stream {len(data) * 8}")
+    top = sorted(t.items(), key=lambda kv: -kv[1])[:3]
+    log(f"host: collect_bits {name}: {len(t)} categories over {n_eng} "
+        f"CABAC engines sum to {total} bits, the stream's bytes x 8; "
+        f"largest {', '.join(f'{k} {v:.0f}' for k, v in top)}")
+
+    rng = np.random.default_rng(16)
+    x = rng.integers(0, 256, 3 * 416 * 240 // 2).astype(np.uint8)
+    with tempfile.TemporaryDirectory(dir=KB.BUILD) as tmp:
+        src, up, back = (os.path.join(tmp, f) for f in ("8.yuv", "10.yuv",
+                                                         "back.yuv"))
+        x.tofile(src)
+        rcs = [convert_bitdepth.main(["-i", a, "-o", b, "--in-depth", d_in,
+                                      "--out-depth", d_out])
+               for a, b, d_in, d_out in ((src, up, "8", "10"),
+                                         (up, back, "10", "8"))]
+        ten, eight = np.fromfile(up, np.uint16), np.fromfile(back, np.uint8)
+    if rcs != [0, 0] or not np.array_equal(ten, x.astype(np.uint16) << 2) \
+            or not np.array_equal(eight, x):
+        raise AssertionError(f"convert_bitdepth round trip: exits {rcs}")
+    log(f"host: convert_bitdepth {x.size} seeded 8-bit samples to 10 bits "
+        f"(each x 4) and back, equal to the input")
+
+    r = subprocess.run([sys.executable, "-m",
+                        "libhm_tpu_torch.apps.bitrate_targeting", "extract"],
+                       input=HOST_LOG, capture_output=True, text=True,
+                       cwd=ROOT, timeout=60)
+    if r.returncode or r.stdout.split() != ["5000", "2000"]:
+        raise AssertionError(f"bitrate_targeting extract: exit "
+                             f"{r.returncode}, {r.stdout!r} {r.stderr!r}")
+    log(f"host: bitrate_targeting extract on a 4-picture log on its stdin: "
+        f"{r.stdout.strip()} bits per temporal layer (the I picture left "
+        f"out)")
+
+    ra = "randomaccess_main10_416x240"
+    lib = ABI.load(os.path.join(ABI.NATIVE, "libhmdec.so"))
+    pics, hash_ok = ABI.decode(lib, open(os.path.join(
+        ROOT, "testdata", gold[ra]["bitstream"]), "rb").read())
+    md5 = ABI.md5_of(pics, gold[ra].get("bitdepth", 8))
+    if md5 != gold[ra]["decoded_yuv_md5"] or hash_ok != 1 or \
+            len(pics) != gold[ra]["frames"]:
+        raise AssertionError(f"libhmdec.so {ra}: {len(pics)} pictures, MD5 "
+                             f"{md5}, hash check {hash_ok}")
+    log(f"host: libhmdec.so (libHMDec_get_version "
+        f"{lib.libHMDec_get_version().decode()}) pushed {ra} NAL by NAL: "
+        f"{len(pics)} "
+        f"pictures, MD5 matches golden, its MD5 SEI check OK")
+    log(f"host phase: {time.monotonic() - t_phase:.1f} s")
+
+
 def main():
     global CORE_OPS, cuda_ms, device_ms
     start = time.monotonic()
@@ -2688,6 +2842,9 @@ def main():
         [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]);"
          " from libhm_tpu_torch.hostdec import native_bridge as nb;"
          " nb.build()", ROOT])
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import libhmdec_abi as ABI
+    abi_build = subprocess.Popen(ABI.build_cmd())
     ptxas = KB.build(verbose=True)
     KB.library()
     log(f"kernel build (nvcc, {len(KB._sources())} sources in parallel): "
@@ -2699,6 +2856,10 @@ def main():
         raise RuntimeError("native host parser build failed")
     native_bridge.build()
     log(f"native host parser build (alongside): "
+        f"{time.monotonic() - t0:.1f} s")
+    if abi_build.wait() != 0:
+        raise RuntimeError("libhmdec.so build failed")
+    log(f"libhmdec.so build, the port's libHMDec C ABI (alongside): "
         f"{time.monotonic() - t0:.1f} s")
 
     # ---- kernels vs plain versions at main-path shapes ----
@@ -3025,6 +3186,7 @@ def main():
     launches["residual_table_ext"] = extprec_phase(ports, card)
     multidevice_phase(gold, card)
     enc = encoder_phase(gold, card)
+    host_phase(gold)
 
     # ---- timed runs: parse and device phases ----
     timed_run(STREAM, data, gold[STREAM]["decoded_yuv_md5"], card)

@@ -4443,7 +4443,9 @@ class IntraEncoder:
         self._intra_tt_emit(tree, min_tu, (0, 0), (0, 0), 0, None)
         self._finish_cu_qp(x, y, size)
 
-    _CU_MAPS = ("depth", "pred_mode", "part_size", "skip", "intra_y",
+    # "pcm" too: a PCM trial that loses must not leave its mark, which
+    # pcm_loop_filter_disabled's restore (_loop_filter) reads
+    _CU_MAPS = ("depth", "pred_mode", "part_size", "skip", "pcm", "intra_y",
                 "intra_c", "chroma_dm", "qp", "cbf_y", "edge_flags",
                 "inter_dir", "mv", "ref_idx", "ref_poc", "ref_is_lt")
 

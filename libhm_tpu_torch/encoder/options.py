@@ -338,6 +338,7 @@ class HmConfig:
             cfg.scaling_list_data = read_scaling_list_file(
                 v["scaling_list_file"])
         cfg.pcm_enabled = v.get("pcm_enabled", False)
+        cfg.pcm_filter_disabled = v.get("pcm_filter_disabled", False)
         cfg.log2_min_ipcm = v.get("log2_min_ipcm", 3)
         cfg.log2_max_ipcm = v.get("log2_max_ipcm", 5)
         cfg.lossless = v.get("lossless", False)

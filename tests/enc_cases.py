@@ -8,7 +8,9 @@ chip_smoke.py's encoder phase.
   the recipe's;
 - `frames(...)`: moving synthetic 4:2:0 / 4:2:2 pictures (the content of
   tests/test_enc_native.py) as encode_stream takes them; `pcm_frames`:
-  one picture that the encoder codes partly as PCM;
+  one picture that the encoder codes partly as PCM; `noise_picture`,
+  `C3_CASES` and `c3_config`: the pictures on which a rejected PCM trial
+  left its marks (ROADMAP C3);
 - `decode_statuses`: the port's decode_batch of a stream with every
   checked hash SEI's status;
 - `CASES` and `encode`: the small encoder configurations that the port
@@ -81,6 +83,44 @@ def pcm_frames(w, h):
                     p[by // 2:by // 2 + 16, bx // 2:bx // 2 + 16] = \
                         rng.integers(0, 2, (16, 16)) * 255
     return [(y, u, v)]
+
+
+def noise_picture(w, h, kind, seed):
+    """One 4:2:0 picture of seeded noise from numpy's default_rng(seed),
+    drawn per plane (luma, then Cb, then Cr): "binary" each sample 0 or
+    255, "uniform" each 0..255, "mixed" uniform with its left half drawn
+    again as binary."""
+    rng = np.random.default_rng(seed)
+    planes = []
+    for ph, pw in ((h, w), (h // 2, w // 2), (h // 2, w // 2)):
+        if kind == "binary":
+            p = rng.integers(0, 2, (ph, pw)) * 255
+        else:
+            p = rng.integers(0, 256, (ph, pw))
+            if kind == "mixed":
+                p[:, :pw // 2] = rng.integers(0, 2, (ph, pw // 2)) * 255
+        planes.append(p.astype(np.uint8))
+    return [tuple(planes)]
+
+
+# the 128x64 pictures of ROADMAP C3 (kind, seed, QP): intra, PCM 8x8 to
+# 32x32 with pcm_loop_filter_disabled.  On each, a PCM trial of the RDO
+# quadtree wins a leaf that the split then replaces; an encoder that keeps
+# that trial's pcm marks restores deblocked samples of non-PCM CUs
+# (K8) and writes a hash SEI that the decoders report as MISMATCH.  On
+# "mixed" the binary half stays PCM, so the restore has samples to put
+# back.
+C3_CASES = {"mixed_qp16": ("mixed", 0, 16),
+            "uniform_qp16": ("uniform", 1, 16),
+            "binary_qp22": ("binary", 0, 22)}
+
+
+def c3_config(mod, qp):
+    """The EncoderConfig of the C3 pictures in the encoder module mod."""
+    cfg = mod.EncoderConfig(128, 64, gop="intra", qp=qp)
+    cfg.pcm_enabled = cfg.pcm_filter_disabled = True
+    cfg.log2_min_ipcm, cfg.log2_max_ipcm = 3, 5
+    return cfg
 
 
 def decode_statuses(data, device):

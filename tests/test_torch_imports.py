@@ -180,7 +180,9 @@ def _hostdec_copies():
                     yield rel, src, dst
     for rel, sub in (("envvar.py", "utils"), ("trace.py", "utils"),
                      ("api.py", ""), ("dec_app.py", "apps"),
-                     ("enc_app.py", "apps")):
+                     ("enc_app.py", "apps"), ("annexb_bytecount.py", "apps"),
+                     ("bitrate_targeting.py", "apps"),
+                     ("convert_bitdepth.py", "apps")):
         yield rel, os.path.join(ROOT, "libhm_tpu", sub), os.path.join(PKG, sub)
     # the encoder: every module of libhm_tpu/encoder but its empty
     # __init__.py
@@ -199,11 +201,42 @@ def _hostdec_copies():
 # +-2^max_dyn_range), where the JAX package's copies clip to int16;
 # encoder.py takes a device and runs its in-loop deblocking and SAO through
 # the loop-filter kernel (parallel/device_filters.py PictureFilter) where
-# the JAX package's runs hostdec/loopfilter_np, and enc_app.py takes
-# --device (default cuda) and names the port's module
+# the JAX package's runs hostdec/loopfilter_np, and rolls back a rejected
+# PCM trial's pcm marks with the other CU maps (the JAX package's leaves
+# them, and pcm_loop_filter_disabled's restore then puts deblocked samples
+# of non-PCM CUs back); options.py carries PCMFilterDisableFlag from a cfg
+# into pcm_filter_disabled, which the JAX package's config build drops;
+# enc_app.py takes --device (default cuda) and names the port's module;
+# stats.py's usage text, which its main prints, names the port's module
 _EDITED = {"decoder.py", "native_bridge.py", "api.py", "dec_app.py",
            "trace.py", "refimpl.py", "recon_np.py", "encoder.py",
-           "enc_app.py"}
+           "enc_app.py", "options.py", "stats.py"}
+
+# modules of the JAX package whose counterpart in the port has another name
+_RENAMED = {os.path.join("libhm_tpu", "recon_tpu.py"):
+            os.path.join("libhm_tpu_torch", "recon_torch.py")}
+
+
+def _modules(top):
+    """The Python modules under ROOT/top, as paths relative to ROOT."""
+    for d, _, files in os.walk(os.path.join(ROOT, top)):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.relpath(os.path.join(d, f), ROOT)
+
+
+def test_every_module_has_a_counterpart():
+    """The file-list diff of libhm_tpu/ against libhm_tpu_torch/: every
+    module of the JAX package has a module of the same name in the port,
+    or the one named in _RENAMED."""
+    port = set(_modules("libhm_tpu_torch"))
+    missing = []
+    for rel in sorted(_modules("libhm_tpu")):
+        want = _RENAMED.get(rel, "libhm_tpu_torch" + rel[len("libhm_tpu"):])
+        if want not in port:
+            missing.append(rel)
+    assert not missing, missing
+    assert all(r in port for r in _RENAMED.values())
 
 
 @pytest.mark.parametrize("rel,src,dst", list(_hostdec_copies()),

@@ -44,7 +44,10 @@ libhm_tpu_torch/utils/timing.py int32_ops_per_s).
     every 32x32 cell tiled with TUs of every mode, an alpha on 30% of them;
     tests/ccp_cases.py), 20 launches bit-identical, against
     residual_table_plain and against the table without alphas followed by
-    ccp_apply_plain, timed with and without its alphas; then K3 chroma, K4
+    ccp_apply_plain, timed with and without its alphas, and at luma 8 /
+    chroma 12 and luma 12 / chroma 8 bits (the luma residual scaled by
+    H.265 8.6.6), timed beside the same table at equal depths; then K3
+    chroma, K4
     and K5 chroma again at the RExt chroma
     geometries, 4:2:2 (960x1088, 32x64 chroma CTBs, 2x4 MC blocks) and
     4:4:4 (1920x1088), their errors joining those kernels' results (K3
@@ -63,7 +66,9 @@ libhm_tpu_torch/utils/timing.py int32_ops_per_s).
     1080p 4:2:0 level, each timed beside the same shapes at 10 bits; the
     level kernel on the 16-bit stream's own level (int16 chroma tc, band
     shift 11, SAO offset scale 6); K3 chroma's int16-tc form, K4, K5 and
-    K6 (weighted and plain epilogues; K5 and K6 also at 14 bits), K7, K8,
+    K6 (weighted and plain epilogues, and weighted with the offsets of
+    high_precision_offsets_enabled_flag, +-2^15; K5 and K6 also at 14
+    bits), K7, K8,
     and K9 with 16-bit PCM samples of 2^15 and more; and K1's wide form
     (extended precision, check_ext): seeded 1080p 4:4:4 tables at 10, 12,
     14 and 16 bits (tests/ext_cases.py: every mode, levels over
@@ -179,6 +184,10 @@ libhm_tpu_torch/utils/timing.py int32_ops_per_s).
       bytes of the CPU encode and decoded by decode_batch on the card
       with its hash SEI OK, with K8's launches, the share of the picture
       under PCM marks and the samples K8 restored;
+    - the C13 picture (pcm_flush_phase): pcm_frames(128, 64) at QP 8 with
+      PCM, encoded on the card to the CPU encode's bytes, one of its
+      flushes after pcm_flag ending on a byte boundary, decoded by
+      decode_batch on the card with its hash SEI OK (K9 launched);
     - the host phase (host_phase): the port's annexb_bytecount,
       hostdec/stats.py collect_bits, convert_bitdepth and
       bitrate_targeting on the card's host, and the libHMDec C ABI
@@ -701,7 +710,7 @@ def check_k3(card, rng, bd=10, sx=1, sy=1, with_luma=True):
     return out
 
 
-def check_k10(card, rng, B=2, H=1088, W=1920):
+def check_k10(card, rng, B=2, H=1088, W=1920, depths=((8, 12), (12, 8))):
     """Row 11, K1's CCP epilogue, on a 1080p 4:4:4 chroma level
     (tests/ccp_cases.py): two 1920x1088 pictures, every 32x32 cell tiled
     with TUs of one size (flat, transform skip, bypass with RDPCM, CCP-only
@@ -710,7 +719,10 @@ def check_k10(card, rng, B=2, H=1088, W=1920):
     the clip acts.  One launch, 20 times bit-identical, against
     residual_table_plain and against the table without alphas followed by
     ccp_apply_plain (what the parent's K1 + K10 computed); timed with and
-    without its alphas."""
+    without its alphas.  Then, at each (BitDepthY, BitDepthC) of `depths`,
+    a level of the same kind at the chroma depth, its luma residual scaled
+    by H.265 8.6.6: 20 launches bit-identical to the plain version, timed
+    beside the same table launched at equal depths; the errors join."""
     import numpy as np
     import torch
     sys.path.insert(0, os.path.join(ROOT, "tests"))
@@ -779,7 +791,62 @@ def check_k10(card, rng, B=2, H=1088, W=1920):
         f"3.35 TB/s); plain {pms:.4f} ms ({card})")
     r = Result()
     r.add(e, bms, pms, nbytes, ops)
+    for bdy, bdc in depths:
+        r.err = max(r.err, _k10_depths(card, rng, B, H, W, bdy, bdc))
     return r
+
+
+def _k10_depths(card, rng, B, H, W, bdy, bdc):
+    """K1's CCP epilogue at luma bdy / chroma bdc bits (check_k10)."""
+    import numpy as np
+    import torch
+    from ccp_cases import ccp_level
+    from libhm_tpu_torch.ops import ccp as CK
+    from libhm_tpu_torch.ops import transform as TK
+    from libhm_tpu_torch.parallel import batch_decode as TB
+    lv = ccp_level(rng, TK.TU_DTYPE, B, H, W, share=0.3, bd=bdc)
+    rows = lv["rows"].copy()
+    rows["rdpcm"] |= TK.ccp_bits(lv["alpha"])
+    rows["flags"] |= np.where(lv["alpha"] != 0, TK.F_CCP, 0).astype(np.uint8)
+    table, bare = TB.upload_tables(
+        [(rows, lv["coeffs"], lv["counts"],
+          int(np.bitwise_or.reduce(rows["flags"]))),
+         (lv["rows"], lv["coeffs"], lv["counts"], lv["flags"])], DEV)
+    res_l = torch.from_numpy(lv["res_l"]).to(DEV)
+    tus = torch.from_numpy(lv["tus"]).to(DEV)
+    bd = (bdy, bdc)
+
+    def zeros():
+        return torch.zeros((B, H, W), dtype=torch.int32, device=DEV)
+    want = TK.residual_table_plain(zeros(), table, res_l=res_l, ccp_bd=bd)
+    two = CK.ccp_apply_plain(TK.residual_table_plain(zeros(), bare), res_l,
+                             tus, ccp_bd=bd)
+    e = max_abs_err(want, two)
+    scaled = int((want != TK.residual_table_plain(zeros(), table,
+                                                  res_l=res_l)).sum())
+    if not scaled:
+        raise AssertionError(f"K1 CCP at {bd}: the scale changes nothing")
+    got = zeros()
+    for _ in range(20):
+        got.zero_()
+        TK.residual_table(got, table, res_l=res_l, ccp_bd=bd)
+        torch.cuda.synchronize()
+        e = max(e, max_abs_err(got, want))
+
+    def at(depths):
+        return lambda: TK.residual_table(got, table, res_l=res_l,
+                                         ccp_bd=depths)
+    # the same table at unequal and at equal depths, in turns
+    dms, ems, ems2, dms2 = (device_ms(at(d), 20)
+                            for d in (bd, (bdc, bdc), (bdc, bdc), bd))
+    log(f"K1 CCP epilogue at luma {bdy} / chroma {bdc} bits {(B, H, W)}: "
+        f"{len(rows)} TUs, {int((lv['alpha'] != 0).sum())} with an alpha: "
+        f"20 launches, max abs err {e} against residual_table_plain and "
+        f"ccp_apply_plain ({scaled} samples differ from the unscaled "
+        f"formula); device time (queued behind a sleep) {dms:.4f} / "
+        f"{dms2:.4f} ms, the same table at equal depths {ems:.4f} / "
+        f"{ems2:.4f} ms ({card})")
+    return e
 
 
 def check_k4(card, rng, bd=10, sx=1, sy=1, with_luma=True):
@@ -1257,11 +1324,14 @@ def _k6_case(label, blk, planes, kw, card):
     return err, bms, pms, nbytes, ops
 
 
-def check_k6(card, rng, bd=10, denom=6, wp=True):
+def check_k6(card, rng, bd=10, denom=6, wp=True, hpo=False):
     """K6 (weighted epilogue, or with wp=False the plain uni / bi one) on
     every inter 4x4 of a 1080p level of random per-4x4 MVs (row 8), then
     on a PU-shaped 1080p level of 8x8 to 64x64 PUs (tests/mc_cases.py
-    pu_maps), whose error joins the row's."""
+    pu_maps), whose error joins the row's.  hpo: the per-4x4 level's
+    offsets over the range of high_precision_offsets_enabled_flag,
+    +-2^(bd - 1) unshifted (H.265 7.4.7.3), where they are else 8-bit
+    offsets shifted by bd - 8."""
     import numpy as np
     import torch
     from libhm_tpu_torch.ops import interp as MK
@@ -1281,10 +1351,15 @@ def check_k6(card, rng, bd=10, denom=6, wp=True):
         blk[:, 4:8] = mv.cpu().numpy()[b, ys4, xs4].reshape(N, 4)
         blk[:, 8:10] = sel.cpu().numpy()[b, ys4, xs4]
         blk[:, 10:12] = rng.integers(-128, 256, (N, 2))
-        blk[:, 12:14] = rng.integers(-128, 128, (N, 2)) << (bd - 8)
+        if hpo:
+            half = 1 << (bd - 1)
+            blk[:, 12:14] = rng.integers(-half, half, (N, 2))
+        else:
+            blk[:, 12:14] = rng.integers(-128, 128, (N, 2)) << (bd - 8)
         kw = dict(is_luma=is_luma, sx=sx, sy=sy, bd=bd, wp=wp, denom=denom,
                   W=W, H=H)
-        comp = f"{'luma' if is_luma else 'chroma'} {(Hp, Wp)}"
+        comp = f"{'luma' if is_luma else 'chroma'} {(Hp, Wp)}" + \
+            (", high-precision offsets" if hpo else "")
         r.add(*_k6_case(f"{comp} per-4x4 MVs",
                         torch.from_numpy(blk).to(DEV), (stacked, res, refs),
                         kw, card))
@@ -1593,14 +1668,14 @@ class LevelCapture:
         self.best = {"B": 0, "res": [], "mc": []}
         TK.residual_table, MK.mc_grid = self._k1, self._k5
 
-    def _k1(self, planes, table, mats=None, res_l=None):
+    def _k1(self, planes, table, mats=None, res_l=None, ccp_bd=None):
         if self.cur is None or len(self.cur["res"]) == 3:
             self.cur = {"B": planes.shape[0], "res": [], "mc": []}
             if self.cur["B"] > self.best["B"]:
                 self.best = self.cur
         # (the RA stream is 4:2:0: no CCP rows, res_l is None)
         self.cur["res"].append((planes.shape, table, mats))
-        return self.k1(planes, table, mats, res_l)
+        return self.k1(planes, table, mats, res_l, ccp_bd)
 
     def _k5(self, stacked, res, refs, mv, dirm, sel, **kw):
         if self.cur is self.best:
@@ -2055,6 +2130,7 @@ def check_hbd(results, ra_levels, tool_levels, intra_items, hbd_items, card,
         join("mc_grid", check_k5(card, rng, bd=bd))
         join("mc_weighted", check_k6(card, rng, bd=bd))
     join("mc_weighted", check_k6(card, rng, bd=16, wp=False))
+    join("mc_weighted", check_k6(card, rng, bd=16, hpo=True))
     join("plane_checksum", check_k7(card, rng, bd=16))
     join("restore_unfiltered", check_k8(card, rng, bd=16))
     join("pcm_level", check_k9(card, rng, bd=16, shifts=(0, 2)))
@@ -2718,6 +2794,64 @@ HOST_LOG = ("POC    0 TId: 0 ( I-SLICE, nQP 32 QP 32 ) 100000 bits\n"
             "POC    3 TId: 0 ( P-SLICE, nQP 33 QP 33 ) 6000 bits\n")
 
 
+def pcm_flush_phase(card):
+    """ROADMAP C13 on the card: pcm_frames(128, 64) encoded intra at QP 8
+    with PCM (no pcm_loop_filter_disabled) by IntraEncoder on the card,
+    the bit offset within its byte at which the flush after each PCM CU's
+    pcm_flag ended recorded (CabacEncoder.pcm_payload watched), one of
+    them 0 (no pcm_alignment_zero_bit); its bytes equal to the CPU
+    encode's; decode_batch on the card with the hash SEI check: OK, the
+    encoder's reconstruction, K9 and the loop-filter kernel launched."""
+    import numpy as np
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from enc_cases import pcm_frames
+    from libhm_tpu_torch.encoder import cabac_enc as CE
+    from libhm_tpu_torch.encoder.encoder import EncoderConfig
+    from libhm_tpu_torch.parallel import dag_decode as DD
+    offsets, real = [], CE.CabacEncoder.pcm_payload
+
+    def spy(self, bits):
+        offsets.append(self.bw.nbits)
+        return real(self, bits)
+
+    def cfg():
+        c = EncoderConfig(128, 64, gop="intra", qp=8)
+        c.pcm_enabled = True
+        c.log2_min_ipcm, c.log2_max_ipcm = 3, 5
+        return c
+    pics = pcm_frames(128, 64)
+    CE.CabacEncoder.pcm_payload = spy
+    try:
+        (stream, enc, secs), _ = run_path(
+            "C13 PCM picture encode", lambda: _encode(cfg(), pics, DEV),
+            ["loop_filter_level"])
+    finally:
+        CE.CabacEncoder.pcm_payload = real
+    if 0 not in offsets or stream != _encode(cfg(), pics, "cpu")[0]:
+        raise AssertionError(f"C13 picture: flush offsets {offsets}, equal "
+                             "to the CPU encode "
+                             f"{stream == _encode(cfg(), pics, 'cpu')[0]}")
+    (outs, statuses), counts = run_path(
+        "C13 PCM picture decode_batch",
+        lambda: _with_statuses(lambda: DD.decode_batch(
+            stream, device=DEV, check_sei_hash=True)),
+        ["pcm_level", "loop_filter_level", "intra_wavefront"])
+    same = len(outs) == 1 and all(
+        np.array_equal(np.asarray(a), b)
+        for a, b in zip(outs[0], enc.stats[0][3]))
+    if statuses != ["OK"] or not same:
+        raise AssertionError(f"C13 picture on the card: hash SEIs "
+                             f"{statuses}, the encoder's reconstruction "
+                             f"{same}")
+    log(f"C13: PCM picture (128x64, QP 8) encoded on the card in "
+        f"{secs:.3f} s, {len(stream)} bytes equal to the CPU encode, flush "
+        f"offsets after its {len(offsets)} pcm_flags {offsets}; "
+        f"decode_batch on the card: hash SEI {statuses[0]}, the encoder's "
+        f"reconstruction; launches K9 {counts['pcm_level']}, loop filter "
+        f"{counts['loop_filter_level']}, K2 {counts['intra_wavefront']}, K1 "
+        f"{counts['residual_scatter']} ({card})")
+
+
 def host_phase(gold):
     """The port's host-only modules on the card's host, where JAX need not
     be installed, each checked: annexb_bytecount's rows of a golden (SPS
@@ -3186,6 +3320,7 @@ def main():
     launches["residual_table_ext"] = extprec_phase(ports, card)
     multidevice_phase(gold, card)
     enc = encoder_phase(gold, card)
+    pcm_flush_phase(card)
     host_phase(gold)
 
     # ---- timed runs: parse and device phases ----

@@ -443,7 +443,12 @@ __device__ __forceinline__ bool uses(int d, int l) {
 }
 
 // the plain (uni_round / bi_average) or weighted (ops/interp.py
-// weighted_uni / weighted_bi) epilogue of one sample of row q
+// weighted_uni / weighted_bi) epilogue of one sample of row q.  int32
+// holds the weighted sums at 8-16 bits, also with the offsets of
+// high_precision_offsets_enabled_flag (up to +-2^(bd - 1), unshifted):
+// |w| <= 255 and |p + kIfOffs| < 2^19 give |w0 p0 + w1 p1| < 2^28, and
+// shift <= 7 + 1 + max(2, 14 - bd) gives |(o0 + o1) << (shift - 1)| <= 2^25
+// at 16 bits (2^21 with 8-bit offsets shifted to 8-12 bits)
 __device__ __forceinline__ int epilogue(const int* q, const int p[2],
                                         int headroom, int maxs, int wp,
                                         int denom) {

@@ -46,11 +46,13 @@
 // Cross-component prediction, an epilogue of the chroma launch.
 // Replaces: libhm_tpu/parallel/batch_decode.py _ccp_fn (lines 164-178), run
 //   after every TU of the level is scattered (lines 239-260): for each 4:4:4
-//   chroma TU with an alpha, res_c = clip16(res_c + ((alpha * res_l) >> 3))
-//   with the shift on the signed product.  The luma residual is used as it
-//   is, without the (rY << BitDepthC) >> BitDepthY scale of H.265 8.6.6, as
-//   the JAX and numpy decoders do (they agree with the spec when the two
-//   bit depths are equal; the decode refuses unequal ones).
+//   chroma TU with an alpha, res_c = clip16(res_c + ((alpha * rY) >> 3))
+//   with the shift on the signed product, where rY is the luma residual
+//   scaled as H.265 8.6.6 says, (res_l << BitDepthC) >> BitDepthY: here
+//   res_l << (bdc - bdy), or res_l >> (bdy - bdc) (arithmetic), with the two
+//   depths launch parameters, so no 16-bit shift overflows int32.  At equal
+//   depths that is res_l, as the JAX package's _ccp_fn uses it; the JAX
+//   package omits the scale, and so is wrong at unequal depths (ROADMAP C4).
 // What bounds it: bytes.  A pass of its own reads the chroma residual that
 //   this kernel has just stored, reads the luma residual and stores the
 //   chroma residual again: 12 bytes a CCP sample, one more launch and one
@@ -256,7 +258,7 @@ residual_table_kernel(const TuRow* __restrict__ rows,
                       const C* __restrict__ coeffs, Mats mats,
                       Counts counts, int32_t* __restrict__ planes,
                       const int32_t* __restrict__ res_l, int Bp, int H,
-                      int W) {
+                      int W, int bdy, int bdc) {
   constexpr bool kWide = sizeof(C) == 4;
   __shared__ int s_a[kBuf];
   __shared__ int s_b[kBuf];
@@ -435,8 +437,10 @@ residual_table_kernel(const TuRow* __restrict__ rows,
         if (x + k < W) rl[k] = __ldg(src + k);
     }
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
-      v[k] = clip3(lo2, hi2, v[k] + ((alpha * rl[k]) >> 3));
+    for (int k = 0; k < 4; ++k) {
+      const int ry = bdc >= bdy ? rl[k] << (bdc - bdy) : rl[k] >> (bdy - bdc);
+      v[k] = clip3(lo2, hi2, v[k] + ((alpha * ry) >> 3));
+    }
   }
   if (vec) {
     *reinterpret_cast<int4*>(dst) = make_int4(v[0], v[1], v[2], v[3]);
@@ -453,12 +457,14 @@ residual_table_kernel(const TuRow* __restrict__ rows,
 // coeffs: the packed coefficients, int16, or int32 when `wide` (a table
 // with F_EXT rows); m4 .. m32: the scaling-matrix tables per size (NULL
 // where no row of that size is scaled); res_l: the luma residual planes of
-// the planes' shape that kCcp rows read (NULL when no row has the flag).
+// the planes' shape that kCcp rows read (NULL when no row has the flag);
+// bdy, bdc: the luma and chroma bit depths that scale it (H.265 8.6.6).
 extern "C" int residual_table(const void* rows, const void* coeffs,
                               const void* m4, const void* m8, const void* m16,
                               const void* m32, int c4, int c8, int c16,
                               int c32, void* planes, const void* res_l,
-                              int Bp, int H, int W, int wide, void* stream) {
+                              int Bp, int H, int W, int wide, int bdy,
+                              int bdc, void* stream) {
   const Counts counts = {{c4, c8, c16, c32}};
   const Mats mats = {{(const uint8_t*)m4, (const uint8_t*)m8,
                       (const uint8_t*)m16, (const uint8_t*)m32}};
@@ -470,15 +476,17 @@ extern "C" int residual_table(const void* rows, const void* coeffs,
   }
   if (ctas == 0) return 0;
   if (ctas > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  if (res_l && (bdy < 8 || bdy > 16 || bdc < 8 || bdc > 16))
+    return (int)cudaErrorInvalidValue;
   if (wide)
     residual_table_kernel<int32_t, long long>
         <<<(unsigned)ctas, kThreads, 0, (cudaStream_t)stream>>>(
             (const TuRow*)rows, (const int32_t*)coeffs, mats, counts,
-            (int32_t*)planes, (const int32_t*)res_l, Bp, H, W);
+            (int32_t*)planes, (const int32_t*)res_l, Bp, H, W, bdy, bdc);
   else
     residual_table_kernel<int16_t, int>
         <<<(unsigned)ctas, kThreads, 0, (cudaStream_t)stream>>>(
             (const TuRow*)rows, (const int16_t*)coeffs, mats, counts,
-            (int32_t*)planes, (const int32_t*)res_l, Bp, H, W);
+            (int32_t*)planes, (const int32_t*)res_l, Bp, H, W, bdy, bdc);
   return (int)cudaGetLastError();
 }

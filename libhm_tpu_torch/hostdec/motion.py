@@ -677,7 +677,7 @@ def motion_compensate_np_vec(recon, ref_pics_unused, residuals):
                 off = (1 << (shift - 1)) + 2 * IF_OFFS
                 final[mb] = np.clip((p0[mb] + p1[mb] + off) >> shift, 0, maxv)
             if has_wp:
-                scale = 1 << (bd - 8)
+                scale = 1 << wp_offset_shift(sps, bd)
                 wv = np.zeros((n, 2), np.int64)
                 ov = np.zeros((n, 2), np.int64)
                 denoms = np.zeros(n, np.int64)
@@ -772,7 +772,8 @@ def motion_compensate_np(recon, ref_pics_unused, residuals):
                                      is_last=(not bi and not use_wp)))
             if bi:
                 if use_wp:
-                    pred = _weighted_bi(preds[0], preds[1], pu, c, bd)
+                    pred = _weighted_bi(preds[0], preds[1], pu, c, bd,
+                                        wp_offset_shift(sps, bd))
                 else:
                     shift = IF_INTERNAL_PREC + 1 - bd
                     off = (1 << (shift - 1)) + 2 * IF_OFFS
@@ -782,7 +783,8 @@ def motion_compensate_np(recon, ref_pics_unused, residuals):
                 p = preds[0] if preds[0] is not None else preds[1]
                 l = 0 if preds[0] is not None else 1
                 if use_wp:
-                    pred = _weighted_uni(p, pu, l, c, bd)
+                    pred = _weighted_uni(p, pu, l, c, bd,
+                                         wp_offset_shift(sps, bd))
                 else:
                     pred = p
             recon.planes[c][y:y + h, x:x + w] = pred
@@ -801,25 +803,32 @@ def motion_compensate_np(recon, ref_pics_unused, residuals):
         pl[tu.y:tu.y + tu.h, tu.x:tu.x + tu.w] = np.clip(blk, 0, (1 << bd) - 1)
 
 
+def wp_offset_shift(sps, bd):
+    """WpOffsetBdShiftY / WpOffsetBdShiftC (H.265 7.4.7.3) of a component
+    at bit depth bd: 0 under high_precision_offsets_enabled_flag, whose
+    offsets are coded at the sample's own scale, else bd - 8."""
+    return 0 if sps.high_precision_offsets else bd - 8
+
+
 def _wp_params(pu, l, c):
     wp = pu.wp
     denom = wp["denom_l"] if c == 0 else wp["denom_c"]
     return wp["w"][l][c], wp["o"][l][c], denom
 
 
-def _weighted_uni(p, pu, l, c, bd):
+def _weighted_uni(p, pu, l, c, bd, oshift):
     w, o, log2d = _wp_params(pu, l, c)
-    o = o * (1 << (bd - 8))
+    o = o * (1 << oshift)
     shift = log2d + max(2, IF_INTERNAL_PREC - bd)
     rnd = (1 << (shift - 1)) if shift > 0 else 0
     val = ((w * (p + IF_OFFS) + rnd) >> shift) + o
     return np.clip(val, 0, (1 << bd) - 1)
 
 
-def _weighted_bi(p0, p1, pu, c, bd):
+def _weighted_bi(p0, p1, pu, c, bd, oshift):
     w0, o0, log2d = _wp_params(pu, 0, c)
     w1, o1, _ = _wp_params(pu, 1, c)
-    scale = 1 << (bd - 8)
+    scale = 1 << oshift
     o0, o1 = o0 * scale, o1 * scale
     shift = (log2d + 1) + max(2, IF_INTERNAL_PREC - bd)
     rnd = 1 << (shift - 1)

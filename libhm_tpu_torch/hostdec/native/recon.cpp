@@ -808,8 +808,13 @@ struct ReconCtx {
           const int16_t* lr = &resPool[pic->tu_list[it->second].coeff_off];
           int16_t* r = &resPool[t.coeff_off];
           size_t nn = size_t(t.w) * t.h;
+          // the luma residual scaled as H.265 8.6.6 says,
+          // (rY << BitDepthC) >> BitDepthY
+          const int up = sps->bit_depth_chroma - sps->bit_depth_luma;
           for (size_t k = 0; k < nn; k++) {
-            int64_t v = r[k] + ((int64_t(t.alpha) * lr[k]) >> 3);
+            int64_t ry = up >= 0 ? int64_t(lr[k]) << up
+                                 : int64_t(lr[k]) >> -up;
+            int64_t v = r[k] + ((int64_t(t.alpha) * ry) >> 3);
             r[k] = int16_t(v < I16MIN ? I16MIN : (v > I16MAX ? I16MAX : v));
           }
         }
@@ -1120,7 +1125,9 @@ struct ReconCtx {
           // single-list prediction already written straight into the plane
         } else {
           int denom = c == 0 ? pu.wp_denom_l : pu.wp_denom_c;
-          int scale = 1 << (bd - 8);
+          // WpOffsetBdShift (H.265 7.4.7.3): none under
+          // high_precision_offsets_enabled_flag
+          int scale = sps->high_precision_offsets ? 1 : 1 << (bd - 8);
           if (bi) {
             int w0 = pu.wp_w[0][c], w1 = pu.wp_w[1][c];
             int64_t o0 = int64_t(pu.wp_o[0][c]) * scale;

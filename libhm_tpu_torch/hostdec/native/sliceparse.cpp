@@ -834,7 +834,11 @@ void SliceParser::parsePcm(int x, int y, int log2size) {
   setRect8(pic->pcm, x, y, size, size, 1);
   setRect8(pic->intra_y, x, y, size, size, DC);
   setRect8(pic->intra_c, x, y, size, size, DC);
-  d.seekBit((d.bitPos() | 7) + 1);  // skip stop bit, byte-align
+  // bitPos() is just past the flush's last bit (9 bits read at start, one
+  // per renormalising shift); pcm_alignment_zero_bits follow only while it
+  // is not byte-aligned, so the samples start at the next byte boundary at
+  // or after it
+  d.seekBit((d.bitPos() + 7) & ~size_t(7));
   int ncomp = sps->chroma_format_idc ? 3 : 1;
   for (int c = 0; c < ncomp; c++) {
     int sx = c ? sps->ssx() : 0, sy = c ? sps->ssy() : 0;

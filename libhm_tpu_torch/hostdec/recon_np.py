@@ -145,7 +145,11 @@ class PictureRecon:
                 j = luma_res.get((tu.x, tu.y, tu.w))
                 if j is None:
                     continue
+                # the luma residual scaled as H.265 8.6.6 says,
+                # (rY << BitDepthC) >> BitDepthY
                 lr = residuals[j].astype(np.int64)
+                up = self.sps.bit_depth_chroma - self.sps.bit_depth_luma
+                lr = lr << up if up >= 0 else lr >> -up
                 r = residuals[i].astype(np.int64)
                 r += (tu.cross_comp_alpha * lr) >> 3
                 # no clip under extended precision (H.265 8.6.6)

@@ -745,11 +745,13 @@ class SliceDecoder:
         pic.set_rect(pic.pcm, x, y, size, size, 1)
         pic.set_rect(pic.intra_y, x, y, size, size, DC_IDX)
         pic.set_rect(pic.intra_c, x, y, size, size, DC_IDX)
-        # skip the arithmetic-codeword stop bit, then byte-align; PCM samples
-        # start at the next byte boundary strictly after the current position
-        # (equivalent to the reference's byte-oriented lookahead unwinding,
-        # TDecBinCoderCABAC.cpp decodeBinTrm + xReadPCMCode)
-        d.pos = (d.pos | 7) + 1
+        # the engine has read 9 bits at its start and one a renormalising
+        # shift, so after pcm_flag's terminate bin its position is just past
+        # the last bit of the encoder's flush (the 1 of H.265 9.3.4.3.5's
+        # WriteBits(((ivlLow >> 7) & 3) | 1, 2)); pcm_alignment_zero_bits
+        # follow only while that is not byte-aligned, so the samples start
+        # at the next byte boundary at or after the position
+        d.pos = (d.pos + 7) & ~7
         ncomp = 3 if sps.chroma_format_idc else 1
         for c in range(ncomp):
             sx = sps.chroma_shift_x() if c else 0

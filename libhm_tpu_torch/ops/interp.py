@@ -133,8 +133,9 @@ def bi_average(p0, p1, bd):
 
 
 def weighted_uni(p, w, o, log2d, bd):
-    """p: 14-bit samples; w, o broadcast against p (o already scaled by
-    1 << (bd - 8))."""
+    """p: 14-bit samples; w, o broadcast against p (o already at the
+    sample's scale: shifted left by WpOffsetBdShift, bd - 8 or 0 under
+    high_precision_offsets_enabled_flag)."""
     shift = log2d + _headroom(bd)
     rnd = (1 << (shift - 1)) if shift > 0 else 0
     val = ((w * (p + IF_OFFS) + rnd) >> shift) + o
@@ -337,15 +338,15 @@ def mc_weighted(stacked, res, refs, blk, *, is_luma, sx, sy, bd, wp, denom,
     stacked, res: [B, Hp, Wp] int32; refs: [R, H, W] int32; blk: [N, 14]
     int32 rows of BLK_FIELDS (picture, block position in the component,
     direction, MVs, reference indices, WP weights and offsets, the offsets
-    already scaled by 1 << (bd - 8)).  wp: weighted epilogue with log2
-    denominator `denom`, else the default one.  The component picks the
-    kernel: luma takes its rows in runs (groups: int32 starts of runs of
-    consecutive rows, then N; any partition of the rows is right, and runs
-    of one 16x16 tile each, as tile_groups makes them, are what its
-    shared-memory forms need; None groups the rows by tile here, on their
-    device); chroma takes one thread a sample of the rows in any order and
-    reads no groups.  _ctas > 0 caps the luma kernel's grid (a test of its
-    grid-stride walk).
+    already at the sample's scale, << WpOffsetBdShift).  wp: weighted
+    epilogue with log2 denominator `denom`, else the default one.  The
+    component picks the kernel: luma takes its rows in runs (groups: int32
+    starts of runs of consecutive rows, then N; any partition of the rows is
+    right, and runs of one 16x16 tile each, as tile_groups makes them, are
+    what its shared-memory forms need; None groups the rows by tile here, on
+    their device); chroma takes one thread a sample of the rows in any order
+    and reads no groups.  _ctas > 0 caps the luma kernel's grid (a test of
+    its grid-stride walk).
     """
     if not stacked.is_cuda:
         return mc_weighted_plain(stacked, res, refs, blk, is_luma=is_luma,

@@ -256,16 +256,19 @@ def _fields(rows):
             "bd": w[:, 3] >> 24}
 
 
-def _check_ccp(planes, table, res_l):
+def _check_ccp(planes, table, res_l, ccp_bd):
     if table.flags & F_CCP and (res_l is None or
                                 res_l.shape != planes.shape):
         raise ValueError("residual_table: CCP rows need the luma residual "
                          "res_l, of the chroma planes' shape (4:4:4)")
+    if ccp_bd is not None and not all(8 <= int(d) <= 16 for d in ccp_bd):
+        raise ValueError(f"residual_table: CCP bit depths {ccp_bd} outside "
+                         "8-16")
 
 
-def residual_table_plain(planes, table, mats=None, res_l=None):
+def residual_table_plain(planes, table, mats=None, res_l=None, ccp_bd=None):
     """Plain torch version of residual_table (any device), in place."""
-    _check_ccp(planes, table, res_l)
+    _check_ccp(planes, table, res_l, ccp_bd)
     f = _fields(table.rows)
     dev = planes.device
     want = torch.repeat_interleave(
@@ -306,14 +309,15 @@ def residual_table_plain(planes, table, mats=None, res_l=None):
         planes[b[:, None, None].expand(res.shape)[m], iy[m], ix[m]] = res[m]
     # cross-component prediction once every row's residual is in place, as
     # the JAX package runs _ccp_fn after its scatters (TUs never overlap);
-    # F_EXT rows unclipped (H.265 8.6.6)
+    # F_EXT rows unclipped; the luma residual scaled by the bit depths
+    # (H.265 8.6.6)
     for ext in (0, F_EXT):
         i = torch.nonzero((f["flags"] & (F_CCP | F_EXT)) ==
                           F_CCP | ext).squeeze(1)
         if len(i):
             ccp_apply_plain(planes, res_l, torch.stack(
                 [f["b"][i], f["y"][i], f["x"][i], 1 << f["log2n"][i],
-                 f["alpha"][i]], 1), clip=not ext)
+                 f["alpha"][i]], 1), clip=not ext, ccp_bd=ccp_bd)
     return planes
 
 
@@ -326,14 +330,14 @@ class _ModeCount:
         self.launches = 0
 
 
-_K1 = Kernel("residual_table", [P] * 6 + [I] * 4 + [P, P] + [I] * 4)
+_K1 = Kernel("residual_table", [P] * 6 + [I] * 4 + [P, P] + [I] * 6)
 _K1_SCAL = _ModeCount("residual_table with scaled rows")
 _K1_BYPASS = _ModeCount("residual_table with bypass rows")
 _K1_CCP = _ModeCount("residual_table with CCP rows")
 _K1_EXT = _ModeCount("residual_table, wide form (F_EXT rows)")
 
 
-def residual_table(planes, table, mats=None, res_l=None):
+def residual_table(planes, table, mats=None, res_l=None, ccp_bd=None):
     """Residuals of every TU of `table` written into the stacked planes,
     in place: one K1 launch.
 
@@ -343,17 +347,19 @@ def residual_table(planes, table, mats=None, res_l=None):
     {n: uint8 [M, n, n]} the level's scaling matrices per size, which the
     scaled rows index by their `midx`.  res_l: the level's finished luma
     residual planes, of the shape of `planes` (4:4:4), which F_CCP rows
-    (cross-component prediction) read: res += (alpha * res_l) >> 3,
-    clipped to int16 outside F_EXT rows; needed when the table has such
-    rows.  Bit depths 8-16 outside bypass rows.  A table with F_EXT rows
+    (cross-component prediction) read: res += (alpha * rY) >> 3, clipped
+    to int16 outside F_EXT rows, rY = (res_l << BitDepthC) >> BitDepthY
+    (H.265 8.6.6); needed when the table has such rows.  ccp_bd:
+    (BitDepthY, BitDepthC), None when the two are equal (rY = res_l).  Bit
+    depths 8-16 outside bypass rows.  A table with F_EXT rows
     (extended precision) has int32 coefficients and launches K1's wide
     form (counted in _K1_EXT as well as _K1).
     """
     if not planes.is_cuda:
-        return residual_table_plain(planes, table, mats, res_l)
+        return residual_table_plain(planes, table, mats, res_l, ccp_bd)
     dev = planes.device
     check(planes, "planes", torch.int32, 3)
-    _check_ccp(planes, table, res_l)
+    _check_ccp(planes, table, res_l, ccp_bd)
     ccp = bool(table.flags & F_CCP)
     if ccp:
         check(res_l, "res_l", torch.int32, 3, dev)
@@ -383,7 +389,8 @@ def residual_table(planes, table, mats=None, res_l=None):
     if N == 0:
         return planes
     _K1(ptr(table.rows), ptr(table.coeffs), *mp, *counts, ptr(planes),
-        ptr(res_l) if ccp else None, Bp, H, W, int(wide))
+        ptr(res_l) if ccp else None, Bp, H, W, int(wide),
+        *(map(int, ccp_bd) if ccp_bd is not None else (8, 8)))
     if table.flags & F_SCALED:
         _K1_SCAL.launches += 1
     if table.flags & F_BYPASS:

@@ -210,10 +210,13 @@ def _residual_planes_batch_device(items, Bp, device):
                                        dtype=torch.int32, device=device))
     tables, lists = residual_tables(items)
     mats = _MatrixTable(lists, device).tables
-    # luma first: the chroma launches' CCP rows read its finished residual
+    # luma first: the chroma launches' CCP rows read its finished residual,
+    # scaled by the two bit depths (H.265 8.6.6)
+    ccp = dict(res_l=res_stacked[0],
+               ccp_bd=(sps0.bit_depth_luma, sps0.bit_depth_chroma))
     for c, table in enumerate(upload_tables(tables, device)):
         TK.residual_table(res_stacked[c], table, mats,
-                          res_stacked[0] if table.flags & TK.F_CCP else None)
+                          **(ccp if table.flags & TK.F_CCP else {}))
     return res_stacked
 
 

@@ -26,17 +26,18 @@ one geometry into the same launches.  With a `devices=` list, each level's
 pictures split into contiguous shards over the listed devices (the picture
 axis of the JAX `mesh=`), and each device runs the whole pipeline above on
 its shard; a reference made on another device comes over as a counted
-peer copy (xfer.peer).  Streams outside the slice (extended
-precision; and, where the reference itself is wrong, cross-component
-prediction with unequal bit depths and weighted prediction with
-high-precision offsets) raise NotImplementedError naming the missing
-piece; nothing falls back to another backend.
+peer copy (xfer.peer).  Where the JAX package departs from H.265 the
+port follows H.265: cross-component prediction scales the luma residual
+by the two bit depths (8.6.6), and weighted prediction under
+high_precision_offsets_enabled_flag takes its offsets unshifted
+(7.4.7.3).  Nothing falls back to another backend.
 """
 import contextlib
 
 import numpy as np
 import torch
 
+from ..hostdec.motion import wp_offset_shift
 from ..hostdec.picture import MODE_INTER
 from ..ops import checksum as CK
 from ..ops import interp as IK
@@ -71,31 +72,6 @@ def reference_levels(items):
             levels.append([])
         levels[lv].append(it)
     return levels
-
-
-def _check_slice(items):
-    """Raise NotImplementedError for coding tools the port lacks."""
-    for it in items:
-        sps = it["sps"]
-        missing = []
-        # the reference's CCP omits the luma bit-depth scale of H.265
-        # 8.6.6, so it is right only when luma and chroma depths agree
-        if it["pps"].cross_component_prediction and \
-                sps.bit_depth_luma != sps.bit_depth_chroma:
-            missing.append("cross-component prediction with unequal bit "
-                           "depths")
-        # H.265 7.4.7.3 drops the offsets' bit-depth shift under
-        # high_precision_offsets_enabled_flag; the reference always applies
-        # it (_inter_level_gathered copies it)
-        if sps.high_precision_offsets and any(
-                getattr(pu, "wp", None) is not None
-                for pu in it["pic"].inter_list):
-            missing.append("weighted prediction with "
-                           "high_precision_offsets_enabled_flag")
-        if missing:
-            raise NotImplementedError(
-                "libhm_tpu_torch decode_batch: not ported: " +
-                ", ".join(missing))
 
 
 def _check_geometry(items, what):
@@ -309,10 +285,12 @@ def _inter_level_gathered(items, stacked_all, res_all, device):
                     [per_pic[b]["wpw"][per_pic[b]["ys4"],
                                        per_pic[b]["xs4"]][:, :, c]
                      for b in bs])
+                # offsets at the sample's scale: << WpOffsetBdShift
+                # (H.265 7.4.7.3), 0 under high_precision_offsets
                 blk[:, 12:14] = np.concatenate(
                     [per_pic[b]["wpo"][per_pic[b]["ys4"],
                                        per_pic[b]["xs4"]][:, :, c]
-                     for b in bs]) * (1 << (bd - 8))
+                     << wp_offset_shift(items[b]["sps"], bd) for b in bs])
             if c == 0:
                 # luma's kernel reads the rows in tile runs; chroma's takes
                 # them in any order
@@ -381,7 +359,6 @@ def _recon_levels(items, devices, download=True):
     through dp._device_planes.
     """
     devices = [_as_device(d) for d in devices]
-    _check_slice(items)
     sps0 = items[0]["sps"]
     pending = []
     for lv_items in reference_levels(items):

@@ -676,6 +676,39 @@ def test_ccp_kernel(gpu):
         CK.ccp_apply(zeros(), res_l, t(lv["tus"]))
 
 
+@pytest.mark.parametrize("bdy,bdc", [(8, 10), (10, 8), (8, 12), (12, 8),
+                                     (16, 8), (8, 16)])
+def test_ccp_kernel_unequal_depths(gpu, bdy, bdc):
+    """K1's CCP epilogue with the luma residual scaled by H.265 8.6.6,
+    (rY << BitDepthC) >> BitDepthY: equal to its plain version, 20
+    launches bit-identical, and unlike the unscaled formula."""
+    from ccp_cases import ccp_level
+    from libhm_tpu_torch.ops import transform as TK
+    B, H, W = 2, 136, 248
+    lv = ccp_level(np.random.default_rng(bdy + 3 * bdc), TK.TU_DTYPE, B, H,
+                   W, share=0.5, bd=bdc)
+    rows = lv["rows"].copy()
+    rows["rdpcm"] |= TK.ccp_bits(lv["alpha"])
+    rows["flags"] |= np.where(lv["alpha"] != 0, TK.F_CCP, 0).astype(np.uint8)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(gpu)  # noqa
+    table = TK.TuTable(t(rows.view(np.uint8).reshape(-1, 16)),
+                       t(lv["coeffs"]), lv["counts"],
+                       int(np.bitwise_or.reduce(rows["flags"])))
+    res_l = t(lv["res_l"])
+
+    def zeros():
+        return torch.zeros((B, H, W), dtype=torch.int32, device=gpu)
+    want = TK.residual_table_plain(zeros(), table, res_l=res_l,
+                                   ccp_bd=(bdy, bdc))
+    assert not torch.equal(want, TK.residual_table_plain(zeros(), table,
+                                                         res_l=res_l))
+    for _ in range(20):
+        got = TK.residual_table(zeros(), table, res_l=res_l,
+                                ccp_bd=(bdy, bdc))
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), int((got != want).sum())
+
+
 @pytest.mark.parametrize("bd,ssx,ssy", [(12, 1, 1), (12, 1, 0), (12, 0, 0),
                                          (10, 1, 0), (10, 0, 0)])
 def test_deblock_chroma_kernel(gpu, bd, ssx, ssy):

@@ -3,10 +3,9 @@
 Each all-intra stream must match its HM golden MD5 and equal the JAX
 decode_batch plane by plane (exact).  The 1080p stream runs only under
 HEVC_SLOW_TESTS, as in test_dag_decode.py.  A stream with extended
-precision forced decodes as the numpy decoder does under the flag; streams
-outside the port (CCP with unequal bit depths) raise NotImplementedError
-naming what is missing; the entry point runs on the card unless the CPU
-is asked for.
+precision forced, and a CCP stream read at unequal luma and chroma bit
+depths, decode as the numpy decoder does under the same SPS; the entry
+point runs on the card unless the CPU is asked for.
 """
 import hashlib
 import json
@@ -70,26 +69,25 @@ def test_sei_hash_check():
     assert statuses and all(s == "OK" for s in statuses), statuses
 
 
-def _collected(name):
-    from libhm_tpu_torch.hostdec.decoder import Decoder
-    dec = Decoder(parse="native", recon="collect")
-    dec.decode_annexb(_data(name))
-    return dec.collected
-
-
-def _forced_extprec(monkeypatch):
-    """Every SPS the port's control plane parses reads
-    extended_precision_processing_flag = 1.  The native slice parse reads
-    its own SPS, so coefficients parse as coded, and the residuals of the
-    port and of the numpy decoder follow the flag."""
+def _forced_sps(monkeypatch, **fields):
+    """Every SPS the port's control plane parses reads `fields`.  The
+    native slice parse reads its own SPS, so coefficients parse as coded,
+    and the reconstructions of the port and of the numpy decoder follow
+    the fields."""
     from libhm_tpu_torch.hostdec import decoder as D
     real = D.parse_sps
 
     def forced(rbsp):
         sps = real(rbsp)
-        sps.extended_precision = 1
+        for k, v in fields.items():
+            setattr(sps, k, v)
         return sps
     monkeypatch.setattr(D, "parse_sps", forced)
+
+
+def _forced_extprec(monkeypatch):
+    """Every SPS reads extended_precision_processing_flag = 1."""
+    _forced_sps(monkeypatch, extended_precision=1)
 
 
 def test_inter_stream_raises(monkeypatch):
@@ -106,19 +104,23 @@ def test_inter_stream_raises(monkeypatch):
     assert got == want != GOLD[name]["decoded_yuv_md5"]
 
 
-def test_tiles_stream_raises():
+def test_tiles_stream_raises(monkeypatch):
     """Tiles, cross-component prediction, bit depths up to 16 and extended
-    precision are ported; the refusal of CCP with unequal luma and chroma
-    bit depths (ROADMAP C4) stands, held on a picture set to 16-bit luma
-    and 12-bit chroma with extended precision: named."""
-    items = _collected("ccp444_lowdelay_160x96")
-    sps = items[0]["sps"]
-    sps.bit_depth_luma, sps.bit_depth_chroma = 16, 12
-    sps.extended_precision = 1
-    with pytest.raises(NotImplementedError,
-                       match="cross-component prediction with unequal bit "
-                             "depths"):
-        DD._recon_levels(items, [CPU])
+    precision are ported, and since CCP scales the luma residual by the
+    two bit depths (H.265 8.6.6, ROADMAP C4) nothing is refused: the CCP
+    stream (low-delay B) with every SPS read as 8-bit luma, 12-bit chroma
+    and extended precision decodes through decode_batch to what the numpy
+    decoder gives under the same SPS, which is not the golden.  (Above 12
+    bits the numpy decoder's bi-prediction average has a negative shift,
+    ROADMAP C11.)"""
+    from libhm_tpu_torch.hostdec.decoder import Decoder
+    name = "ccp444_lowdelay_160x96"
+    _forced_sps(monkeypatch, bit_depth_luma=8, bit_depth_chroma=12,
+                extended_precision=1)
+    got = _md5(decode_batch(_data(name), device=CPU))
+    want = _md5(Decoder(parse="native", recon="numpy")
+                .decode_annexb(_data(name)))
+    assert got == want != GOLD[name]["decoded_yuv_md5"]
 
 
 def test_cuda_without_gpu_raises():

@@ -26,9 +26,9 @@ Then the download (16-bit samples of 2^15 and more come back as they
 are), the two CPU proxies of testdata/port_streams.json (Main 4:4:4 16
 Intra 160x96 and 14-bit 4:2:0) through decode_batch (planes equal to the
 JAX decode_batch), decode_intra_batch, decode_batch_device (checksum) and
-Decoder(recon="torch"), each at its MD5 with every hash SEI OK, the 1080p
-16-bit stream under HEVC_SLOW_TESTS, and the refusal of weighted
-prediction with high_precision_offsets_enabled_flag.
+Decoder(recon="torch"), each at its MD5 with every hash SEI OK, and the
+1080p 16-bit stream under HEVC_SLOW_TESTS.  Weighted prediction with
+high_precision_offsets_enabled_flag is in test_torch_conformance.py.
 """
 import hashlib
 import json
@@ -54,14 +54,13 @@ from pcm_cases import pcm_blocks, plane_shapes
 import torch_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-GOLD = json.load(open(os.path.join(ROOT, "testdata", "golden.json")))
 PORT = json.load(open(os.path.join(ROOT, "testdata", "port_streams.json")))
 CPU = torch.device("cpu")
 PROXIES = ["rext444_16b_intra_160x96", "main14_intra_160x96"]
 
 
-def _data(name, table=PORT):
-    return open(os.path.join(ROOT, "testdata", table[name]["bitstream"]),
+def _data(name):
+    return open(os.path.join(ROOT, "testdata", PORT[name]["bitstream"]),
                 "rb").read()
 
 
@@ -404,22 +403,3 @@ def test_1080p_16bit_stream():
     assert _md5(outs) == PORT[name]["decoded_yuv_md5"]
     _, _, csum, _ = DD.decode_batch_device(data, device=CPU)
     assert csum == DD.cropped_checksum(outs)
-
-
-def test_wp_high_precision_offsets_refused():
-    """Both packages scale weighted-prediction offsets by 1 << (bd - 8);
-    with high_precision_offsets_enabled_flag H.265 7.4.7.3 takes no shift,
-    so such a picture is refused by name rather than decoded wrong."""
-    from libhm_tpu_torch.hostdec.decoder import Decoder
-    dec = Decoder(parse="native", recon="collect")
-    dec.decode_annexb(_data("wp_lowdelayP_416x240", GOLD))
-    items = dec.collected
-    assert any(pu.wp is not None for it in items
-               for pu in it["pic"].inter_list)
-    DD._check_slice(items)
-    for it in items:
-        it["sps"].high_precision_offsets = 1
-    with pytest.raises(NotImplementedError,
-                       match="weighted prediction with "
-                             "high_precision_offsets_enabled_flag"):
-        DD._recon_levels(items, [CPU])

@@ -207,10 +207,19 @@ def _hostdec_copies():
 # of non-PCM CUs back); options.py carries PCMFilterDisableFlag from a cfg
 # into pcm_filter_disabled, which the JAX package's config build drops;
 # enc_app.py takes --device (default cuda) and names the port's module;
-# stats.py's usage text, which its main prints, names the port's module
+# stats.py's usage text, which its main prints, names the port's module;
+# slicedec.py and native/sliceparse.cpp start PCM samples at the next byte
+# boundary at or after the position after pcm_flag's flush, where the JAX
+# package's skip a byte more when the flush ends on a boundary (ROADMAP
+# C13); recon_np.py and native/recon.cpp scale the luma residual of
+# cross-component prediction by the two bit depths (H.265 8.6.6, ROADMAP
+# C4), and with motion.py take weighted-prediction offsets unshifted under
+# high_precision_offsets_enabled_flag (H.265 7.4.7.3, ROADMAP C10)
 _EDITED = {"decoder.py", "native_bridge.py", "api.py", "dec_app.py",
            "trace.py", "refimpl.py", "recon_np.py", "encoder.py",
-           "enc_app.py", "options.py", "stats.py"}
+           "enc_app.py", "options.py", "stats.py", "slicedec.py",
+           "motion.py", os.path.join("native", "sliceparse.cpp"),
+           os.path.join("native", "recon.cpp")}
 
 # modules of the JAX package whose counterpart in the port has another name
 _RENAMED = {os.path.join("libhm_tpu", "recon_tpu.py"):

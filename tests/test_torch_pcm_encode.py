@@ -150,14 +150,12 @@ def test_cfg_driven_pcm_encode(kind, qp, tmp_path, monkeypatch):
     assert joined == open(rec, "rb").read()
 
 
-@pytest.mark.xfail(strict=True, reason=(
-    "ROADMAP C13: the decoders start PCM samples a byte late when the "
-    "arithmetic coder's flush after pcm_flag ends on a byte boundary"))
 def test_pcm_after_byte_aligned_flush():
     """pcm_frames at QP 8 without pcm_loop_filter_disabled: the flush after
     its last PCM CU's pcm_flag ends on a byte boundary, so the stream has
-    no pcm_alignment_zero_bit there, and the port's decoders (like the
-    JAX package's) skip one byte more before the PCM samples."""
+    no pcm_alignment_zero_bit there, and the samples start right after the
+    flush (ROADMAP C13: the JAX package's decoders skip one byte more; the
+    port's start at the next byte boundary at or after the position)."""
     cfg = TE.EncoderConfig(128, 64, gop="intra", qp=8)
     cfg.pcm_enabled = True
     cfg.log2_min_ipcm, cfg.log2_max_ipcm = 3, 5

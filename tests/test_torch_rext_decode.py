@@ -7,8 +7,6 @@
   plane, and a conformance window cropped per axis);
 - decode_streams merges independent streams of one geometry into shared
   launches and hands each its own pictures;
-- cross-component prediction with unequal luma and chroma bit depths is
-  refused by name (the reference omits the spec's scale there);
 - testdata/port_streams.json's Main 4:2:2 10 1080p stream (the repo's own
   encoder) runs only under HEVC_SLOW_TESTS, as the other 1080p tests.
 
@@ -82,20 +80,6 @@ def test_decode_streams_multi():
         assert _md5(o) == GOLD[n]["decoded_yuv_md5"]
 
 
-def test_ccp_unequal_bit_depths_raises():
-    """The reference's cross-component prediction omits the spec's luma
-    bit-depth scale, so a CCP picture whose luma and chroma bit depths
-    differ is refused by name rather than decoded wrong."""
-    from libhm_tpu_torch.hostdec.decoder import Decoder
-    dec = Decoder(parse="native", recon="collect")
-    dec.decode_annexb(_data("ccp444_lowdelay_160x96"))
-    items = dec.collected
-    assert items[0]["pps"].cross_component_prediction
-    items[0]["sps"].bit_depth_chroma = items[0]["sps"].bit_depth_luma + 2
-    with pytest.raises(NotImplementedError,
-                       match="cross-component prediction with unequal bit "
-                             "depths"):
-        DD._recon_levels(items, [CPU])
 
 
 def test_decode_streams_cuda_without_gpu_raises():

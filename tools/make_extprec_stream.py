@@ -63,28 +63,33 @@ def add_emulation_prevention(rbsp):
     return bytes(out)
 
 
-# sps_extension_present_flag = 1, sps_range_extension_flag = 1, no other
-# extension (multilayer, 3d, 5 bits), then sps_range_extension() with only
-# extended_precision_processing_flag (the fifth of its nine flags) set
-_RANGE_EXTENSION = [1, 1, 0, 0, 0, 0, 0, 0, 0] + [0, 0, 0, 0, 1, 0, 0, 0, 0]
+# the flags of sps_range_extension() in syntax order (H.265 7.3.2.2.2),
+# as the SPS attributes they parse into
+RANGE_FLAGS = ("transform_skip_rotation", "transform_skip_context",
+               "implicit_rdpcm", "explicit_rdpcm", "extended_precision",
+               "intra_smoothing_disabled", "high_precision_offsets",
+               "persistent_rice_adaptation", "cabac_bypass_alignment")
 
 
-def set_extended_precision(rbsp):
-    """The SPS RBSP with extended_precision_processing_flag set: the fifth
-    bit before the rbsp_stop_one_bit where the SPS ends with
-    sps_range_extension(), else, where it has no extension (its last bit
-    sps_extension_present_flag = 0), a range extension with that flag
-    alone in place of that bit.  Raises unless the result parses back
-    with the flag and every other field unchanged."""
+def set_range_flag(rbsp, name):
+    """The SPS RBSP with the range-extension flag `name` (of RANGE_FLAGS)
+    set: its bit among the nine before the rbsp_stop_one_bit where the SPS
+    ends with sps_range_extension(), else, where it has no extension (its
+    last bit sps_extension_present_flag = 0), in place of that bit
+    sps_extension_present_flag = 1, sps_range_extension_flag = 1, no other
+    extension (multilayer, 3d, 5 bits) and a range extension with that
+    flag alone.  Raises unless the result parses back with the flag and
+    every other field unchanged."""
     before = parse_sps(rbsp)
-    if before.extended_precision:
-        raise ValueError("the SPS sets extended_precision_processing_flag "
-                         "already")
+    if getattr(before, name):
+        raise ValueError(f"the SPS sets {name} already")
+    i = RANGE_FLAGS.index(name)
     bits = np.unpackbits(np.frombuffer(rbsp, np.uint8))
     stop = int(np.nonzero(bits)[0][-1])           # rbsp_stop_one_bit
     flipped = bits[:stop + 1].copy()
-    flipped[stop - 5] = 1
-    inserted = np.concatenate([bits[:stop - 1], _RANGE_EXTENSION, [1]])
+    flipped[stop - 9 + i] = 1
+    ext = [1, 1] + [0] * 7 + [int(j == i) for j in range(9)]
+    inserted = np.concatenate([bits[:stop - 1], ext, [1]])
     tried = []
     for cand in (flipped, inserted):
         out = np.packbits(cand.astype(np.uint8)).tobytes()
@@ -95,30 +100,39 @@ def set_extended_precision(rbsp):
             continue
         changed = {k for k, v in vars(before).items()
                    if getattr(after, k) != v}
-        if changed == {"extended_precision"}:
+        if changed == {name}:
             return out
         tried.append(f"changes {sorted(changed)}")
-    raise ValueError("neither a range extension's flag nor a new range "
-                     "extension ends the SPS: " + "; ".join(tried))
+    raise ValueError(f"neither a range extension's flag nor a new range "
+                     f"extension sets {name}: " + "; ".join(tried))
 
 
-def with_extended_precision(data):
-    """The Annex-B stream `data` with every SPS NAL rebuilt by
-    set_extended_precision."""
+def set_extended_precision(rbsp):
+    """The SPS RBSP with extended_precision_processing_flag set."""
+    return set_range_flag(rbsp, "extended_precision")
+
+
+def rewrite_sps(data, edit):
+    """The Annex-B stream `data` with every SPS NAL unit's RBSP rebuilt by
+    edit(rbsp), with emulation prevention."""
     out, n = data, 0
     for ebsp in {e for e in N.split_annexb(data)
                  if N.parse_nal(e).nal_type == N.NAL_SPS}:
-        rbsp = strip_emulation_prevention(ebsp[2:])
-        new = ebsp[:2] + add_emulation_prevention(
-            set_extended_precision(rbsp))
-        if strip_emulation_prevention(new[2:]) != set_extended_precision(
-                rbsp):
+        rbsp = edit(strip_emulation_prevention(ebsp[2:]))
+        new = ebsp[:2] + add_emulation_prevention(rbsp)
+        if strip_emulation_prevention(new[2:]) != rbsp:
             raise AssertionError("emulation prevention did not round-trip")
         n += out.count(ebsp)
         out = out.replace(ebsp, new)
     if not n:
         raise ValueError("no SPS NAL in the stream")
     return out
+
+
+def with_extended_precision(data):
+    """The Annex-B stream `data` with every SPS NAL rebuilt by
+    set_extended_precision."""
+    return rewrite_sps(data, set_extended_precision)
 
 
 def _tus(data):

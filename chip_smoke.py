@@ -144,7 +144,13 @@ libhm_tpu_torch/utils/timing.py int32_ops_per_s).
       proxies rext444_16b_intra_160x96 and main14_intra_160x96 through
       decode_intra_batch, decode_batch and HmDecoder (MD5 and every hash
       SEI OK) and decode_batch_device (checksum equal to cropped_checksum),
-      with the 1080p stream's fps through each;
+      with the 1080p stream's fps through each; then the inter streams at
+      13-16 bits, testdata/mono16_ra_1080p (Monochrome 16 random access,
+      the port's encoder), its proxy mono16_ra_160x96 and the 14-bit 4:2:0
+      main14_ra_160x96 (explicit weighted prediction in its first coded
+      video sequence), through decode_batch, HmDecoder and
+      decode_batch_device the same way, mc_grid launched on every path and
+      mc_weighted on main14_ra_160x96's, with each path's fps;
     - the extprec phase: testdata/rext444_16b_intra_1080p_extprec (that
       stream with extended_precision_processing_flag set;
       tools/make_extprec_stream.py, port_streams.json) through
@@ -191,8 +197,10 @@ libhm_tpu_torch/utils/timing.py int32_ops_per_s).
     - the host phase (host_phase): the port's annexb_bytecount,
       hostdec/stats.py collect_bits, convert_bitdepth and
       bitrate_targeting on the card's host, and the libHMDec C ABI
-      (libhmdec.so, built alongside the kernels) pushing a golden to its
-      MD5;
+      (libhmdec.so, built alongside the kernels) pushing a golden and the
+      16-bit and 14-bit streams mono16_ra_160x96,
+      rext444_16b_intra_160x96 and main14_ra_160x96 to their MD5s with its
+      MD5 SEI check passing;
  5. timed runs of the RA stream, of the tool stream and of the 4:2:2
     stream (every picture's hash SEI checked OK for the last two), and a
     breakdown (cProfile, torch.profiler) of the RA stream, with the intra
@@ -2071,6 +2079,12 @@ def timed_run(name, data, md5, card, check_sei_hash=False):
 # 14-bit 4:2:0), all in testdata/port_streams.json
 HBD = "rext444_16b_intra_1080p"
 HBD_SMALL = ("rext444_16b_intra_160x96", "main14_intra_160x96")
+# inter pictures above 12 bits: Monochrome 16 random access at 1080p and
+# its 160x96 proxy, and 14-bit 4:2:0 random access whose first coded video
+# sequence has explicit weighted prediction (K6) and whose second has none
+# (K5)
+HBD_RA = ("mono16_ra_1080p", "mono16_ra_160x96", "main14_ra_160x96")
+HBD_WP = "main14_ra_160x96"
 # extended precision (the extprec phase): HBD with the flag set
 EXT = HBD + "_extprec"
 
@@ -2165,21 +2179,26 @@ def _with_statuses(fn):
 
 
 def hbd_phase(ports, card):
-    """Bit depths 13-16 end to end: the 16-bit 1080p stream and both
-    proxies through decode_intra_batch, decode_batch and HmDecoder (MD5
-    of port_streams.json, every hash SEI OK: the native C++ recon is no
-    oracle above 15 bits) and decode_batch_device (its checksum against
-    cropped_checksum of the decoded pictures), each path with the launch
-    counters from 0; fps of each path on the 1080p stream."""
+    """Bit depths 13-16 end to end: the 16-bit 1080p intra stream and both
+    intra proxies through decode_intra_batch, then those and the three
+    random-access streams (HBD_RA) through decode_batch and HmDecoder (MD5
+    of port_streams.json, every hash SEI OK) and decode_batch_device (its
+    checksum against cropped_checksum of the decoded pictures), each path
+    with the launch counters from 0: the random-access streams launch
+    mc_grid on every path, and HBD_WP mc_weighted too; fps of each path."""
     import torch
     from libhm_tpu_torch.parallel import dag_decode as DD
     from libhm_tpu_torch.parallel.batch_decode import decode_intra_batch
-    for name in (HBD,) + HBD_SMALL:
+    for name in (HBD,) + HBD_SMALL + HBD_RA:
         data = open(os.path.join(ROOT, "testdata", ports[name]["bitstream"]),
                     "rb").read()
         want, frames = ports[name]["decoded_yuv_md5"], ports[name]["frames"]
         ok = ["OK"] * frames
-        fps = {}
+        needed = list(K1_K4)
+        if name in HBD_RA:
+            needed += ["mc_grid"] + (["mc_weighted"] if name == HBD_WP
+                                     else [])
+        fps, mc = {}, {}
 
         def timed(fn):
             torch.cuda.synchronize()
@@ -2187,48 +2206,56 @@ def hbd_phase(ports, card):
             out = fn()
             torch.cuda.synchronize()
             return out, time.monotonic() - t0
-        (dps, secs), _ = run_path(
-            f"{name} decode_intra_batch",
-            lambda: timed(lambda: decode_intra_batch(data,
-                                                     check_sei_hash=True)),
-            K1_K4)
-        md5 = hashlib.md5(b"".join(p.tobytes() for dp in dps
-                                   for p in dp.cropped())).hexdigest()
-        statuses = [dp.hash_status for dp in dps]
-        if md5 != want or statuses != ok:
-            raise AssertionError(f"{name} decode_intra_batch: MD5 {md5}, "
-                                 f"hash SEIs {statuses}")
-        fps["decode_intra_batch"] = frames / secs
-        del dps
-        ((outs, statuses), secs), _ = run_path(
+        if name not in HBD_RA:
+            (dps, secs), _ = run_path(
+                f"{name} decode_intra_batch",
+                lambda: timed(lambda: decode_intra_batch(
+                    data, check_sei_hash=True)), needed)
+            md5 = hashlib.md5(b"".join(p.tobytes() for dp in dps
+                                       for p in dp.cropped())).hexdigest()
+            statuses = [dp.hash_status for dp in dps]
+            if md5 != want or statuses != ok:
+                raise AssertionError(f"{name} decode_intra_batch: MD5 {md5}"
+                                     f", hash SEIs {statuses}")
+            fps["decode_intra_batch"] = frames / secs
+            del dps
+        ((outs, statuses), secs), counts = run_path(
             f"{name} decode_batch",
             lambda: timed(lambda: _with_statuses(lambda: DD.decode_batch(
-                data, device="cuda", check_sei_hash=True))), K1_K4)
+                data, device="cuda", check_sei_hash=True))), needed)
         if outs_md5(outs) != want or statuses != ok:
             raise AssertionError(f"{name} decode_batch: MD5 "
                                  f"{outs_md5(outs)}, hash SEIs {statuses}")
         fps["decode_batch"] = frames / secs
-        (_, pics, first, secs), _ = run_path(
+        mc["decode_batch"] = (counts["mc_grid"], counts["mc_weighted"])
+        (_, pics, first, secs), counts = run_path(
             f"{name} HmDecoder", lambda: push_decode(data, sei_check=True),
-            K1_K4)
+            needed)
         statuses = [p.hash_status for p in pics]
         if pics_md5(pics) != want or statuses != ok:
             raise AssertionError(f"{name} HmDecoder: {len(pics)} pictures, "
                                  f"hash SEIs {statuses}")
         fps["HmDecoder"] = frames / secs
-        ((_, _, csum, n), secs), _ = run_path(
+        mc["HmDecoder"] = (counts["mc_grid"], counts["mc_weighted"])
+        ((_, _, csum, n), secs), counts = run_path(
             f"{name} decode_batch_device",
             lambda: timed(lambda: DD.decode_batch_device(data,
                                                          device="cuda")),
-            K1_K4 + ["plane_checksum"])
+            needed + ["plane_checksum"])
         if csum != DD.cropped_checksum(outs) or n != frames:
             raise AssertionError(f"{name} decode_batch_device: checksum "
                                  f"{csum}, {n} pictures")
         fps["decode_batch_device"] = frames / secs
-        log(f"hbd {name}: MD5 matches port_streams.json and every hash SEI "
-            f"OK through decode_intra_batch, decode_batch and HmDecoder; "
-            f"decode_batch_device's checksum {csum} equals cropped_checksum;"
-            f" fps with the parse ({card}): "
+        mc["decode_batch_device"] = (counts["mc_grid"],
+                                     counts["mc_weighted"])
+        paths = "decode_batch and HmDecoder" if name in HBD_RA else \
+            "decode_intra_batch, decode_batch and HmDecoder"
+        log(f"hbd {name} ({ports[name]['bitdepth']} bits, "
+            f"{ports[name]['chroma']}, {frames} pictures): MD5 {want} "
+            f"matches port_streams.json and every hash SEI ({frames}) OK "
+            f"through {paths}; decode_batch_device's checksum {csum} equals "
+            f"cropped_checksum; (mc_grid, mc_weighted) launches by path "
+            f"{mc}; fps with the parse ({card}): "
             f"{ {k: round(v, 3) for k, v in fps.items()} }, HmDecoder's "
             f"first picture after {first:.3f} s")
         del outs, pics
@@ -2852,7 +2879,7 @@ def pcm_flush_phase(card):
         f"{counts['residual_scatter']} ({card})")
 
 
-def host_phase(gold):
+def host_phase(gold, ports):
     """The port's host-only modules on the card's host, where JAX need not
     be installed, each checked: annexb_bytecount's rows of a golden (SPS
     and PPS among them, the bytes short of the stream by its start codes
@@ -2860,7 +2887,11 @@ def host_phase(gold):
     convert_bitdepth 8 -> 10 -> 8 on seeded samples back to the input;
     bitrate_targeting extract on an encoder log fed on its stdin; and the
     libHMDec C ABI (libhmdec.so, built alongside the kernels) pushing the
-    10-bit RA golden to its MD5 with its own MD5 SEI check passing."""
+    10-bit RA golden to its MD5 with its own MD5 SEI check passing, and
+    the 16-bit streams mono16_ra_160x96 (Monochrome 16 random access) and
+    rext444_16b_intra_160x96 and the two-sequence main14_ra_160x96 to their
+    MD5s in port_streams.json (the short* planes read back as uint16),
+    each with its MD5 SEI check passing."""
     import contextlib
     import io
     import numpy as np
@@ -2942,6 +2973,22 @@ def host_phase(gold):
         f"{lib.libHMDec_get_version().decode()}) pushed {ra} NAL by NAL: "
         f"{len(pics)} "
         f"pictures, MD5 matches golden, its MD5 SEI check OK")
+    for name in ("mono16_ra_160x96", "rext444_16b_intra_160x96", HBD_WP):
+        e = ports[name]
+        t0 = time.monotonic()
+        pics, hash_ok = ABI.decode(lib, open(os.path.join(
+            ROOT, "testdata", e["bitstream"]), "rb").read())
+        secs = time.monotonic() - t0
+        md5 = ABI.md5_of(pics, e["bitdepth"])
+        top = max(int(p.max()) for _, pl in pics for p in pl)
+        if md5 != e["decoded_yuv_md5"] or hash_ok != 1 or \
+                len(pics) != e["frames"]:
+            raise AssertionError(f"libhmdec.so {name}: {len(pics)} pictures"
+                                 f", MD5 {md5}, hash check {hash_ok}")
+        log(f"host: libhmdec.so pushed {name} ({e['bitdepth']} bits, "
+            f"{e['chroma']}) NAL by NAL: {len(pics)} pictures in "
+            f"{secs:.3f} s, MD5 matches port_streams.json, its MD5 SEI check"
+            f" OK, largest sample {top}")
     log(f"host phase: {time.monotonic() - t_phase:.1f} s")
 
 
@@ -3321,7 +3368,7 @@ def main():
     multidevice_phase(gold, card)
     enc = encoder_phase(gold, card)
     pcm_flush_phase(card)
-    host_phase(gold)
+    host_phase(gold, ports)
 
     # ---- timed runs: parse and device phases ----
     timed_run(STREAM, data, gold[STREAM]["decoded_yuv_md5"], card)

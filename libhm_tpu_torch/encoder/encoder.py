@@ -39,7 +39,8 @@ from ..hostdec.slicedec import (pu_partitions, EDGE_PU_LEFT, EDGE_PU_TOP,
 from ..hostdec.tables import (SCAN_DIAG, SCAN_HOR, SCAN_VER,
                               build_scaling_matrices)
 from ..hostdec.motion import (_interp, LUMA_FILTER, CHROMA_FILTER,
-                              MotionDeriver, IF_INTERNAL_PREC, IF_OFFS)
+                              MotionDeriver, IF_OFFS, bi_average,
+                              mc_headroom)
 _SD, _SH, _SV = SCAN_DIAG, SCAN_HOR, SCAN_VER
 
 
@@ -1666,7 +1667,7 @@ class IntraEncoder:
                            int(mvs[l][0]), int(mvs[l][1]),
                            fbx, fby, taps, ftab, bd, is_last=False)
             wgt, off = wp["w"][comp], wp["o"][comp] * (1 << (bd - 8))
-            shift = wp["denom"] + max(2, IF_INTERNAL_PREC - bd)
+            shift = wp["denom"] + mc_headroom(bd)
             rnd = (1 << (shift - 1)) if shift > 0 else 0
             return np.clip(((wgt * (pred + IF_OFFS) + rnd) >> shift) + off,
                            0, (1 << bd) - 1)
@@ -1691,16 +1692,13 @@ class IntraEncoder:
             scale = 1 << (bd - 8)
             o0 = wp0["o"][comp] * scale
             o1 = wp1["o"][comp] * scale
-            shift = (wp0["denom"] + 1) + max(2, IF_INTERNAL_PREC - bd)
+            shift = (wp0["denom"] + 1) + mc_headroom(bd)
             rnd = 1 << (shift - 1)
             val = (wp0["w"][comp] * (preds[0] + IF_OFFS) +
                    wp1["w"][comp] * (preds[1] + IF_OFFS) + rnd +
                    ((o0 + o1) << (shift - 1))) >> shift
             return np.clip(val, 0, (1 << bd) - 1)
-        shift = IF_INTERNAL_PREC + 1 - bd
-        off = (1 << (shift - 1)) + 2 * IF_OFFS
-        return np.clip((preds[0] + preds[1] + off) >> shift,
-                       0, (1 << bd) - 1)
+        return bi_average(preds[0], preds[1], bd)
 
     def _inter_pred(self, comp, x, y, w, h, mv):
         """Uni-L0 MC prediction block (final samples)."""

@@ -39,6 +39,26 @@ CHROMA_FILTER = np.array([
     [-2, 10, 58, -2]], np.int64)
 
 
+def mc_headroom(bd):
+    """shift3 of H.265 8.5.3.3.3.1, Max(2, 14 - bitDepth): the left shift
+    of a full-sample prediction onto the 14-bit intermediate scale, and
+    the right shift of the default uni-prediction epilogue.  The default
+    bi-prediction average shifts by one more, Max(3, 15 - bitDepth)
+    (8.5.3.3.4.2), and the first filter pass by 6 - mc_headroom(bd),
+    Min(4, bitDepth - 8).  Version 1's 14 - bitDepth is the same up to
+    12 bits."""
+    return max(2, IF_INTERNAL_PREC - bd)
+
+
+def bi_average(p0, p1, bd):
+    """Default weighted prediction of two lists (8.5.3.3.4.2): the 14-bit
+    intermediates summed, shifted by shift2 = Max(3, 15 - bitDepth) and
+    clipped to the sample range."""
+    shift = mc_headroom(bd) + 1
+    off = (1 << (shift - 1)) + 2 * IF_OFFS
+    return np.clip((p0 + p1 + off) >> shift, 0, (1 << bd) - 1)
+
+
 def _clip3(lo, hi, v):
     return max(lo, min(hi, v))
 
@@ -452,7 +472,7 @@ def _interp(plane, x, y, w, h, mvx, mvy, frac_bits_x, frac_bits_y, taps,
     fy = (mvy & ((1 << frac_bits_y) - 1)) << ts_y
     ix = x + (mvx >> frac_bits_x)
     iy = y + (mvy >> frac_bits_y)
-    headroom = IF_INTERNAL_PREC - bd
+    headroom = mc_headroom(bd)
     half = taps // 2 - 1
     if fx == 0 and fy == 0:
         blk = _fetch_block(plane, ix, iy, w, h)
@@ -471,7 +491,7 @@ def _interp(plane, x, y, w, h, mvx, mvy, frac_bits_x, frac_bits_y, taps,
 
 
 def _filt_params(bd, is_first, is_last):
-    headroom = max(2, IF_INTERNAL_PREC - bd)
+    headroom = mc_headroom(bd)
     shift = 6
     if is_last:
         shift += 0 if is_first else headroom
@@ -589,8 +609,7 @@ def motion_compensate_np_vec(recon, ref_pics_unused, residuals):
             refs = ref_stack(c, Hc, Wc)
             bx = px >> ssx
             by = py >> ssy
-            headroom = IF_INTERNAL_PREC - bd
-            hr = max(2, headroom)
+            hr = mc_headroom(bd)
             maxv = (1 << bd) - 1
             preds = np.zeros((n, 2, blky, blkx), np.int32)
             chunk = max(1, (1 << 22) // ((blky + taps) * (blkx + taps)))
@@ -630,7 +649,7 @@ def motion_compensate_np_vec(recon, ref_pics_unused, residuals):
                                            0, Wc - 1)
                             W = refs[sel[ii, l][:, None, None],
                                      rows[:, :, None], cols[:, None, :]]
-                            t = (W << hr) - IF_OFFS   # int32; |t| < 2**16
+                            t = (W << hr) - IF_OFFS   # int32; |t| < 2**18
                             sh2 = 6 + hr
                             off2 = (1 << (sh2 - 1)) + (IF_OFFS << 6)
                             acc = ch[:, 0, None, None] * t[:, :, 0:blkx]
@@ -651,7 +670,7 @@ def motion_compensate_np_vec(recon, ref_pics_unused, residuals):
                             acc = ch[:, 0, None, None] * W[:, :, 0:blkx]
                             for k in range(1, taps):
                                 acc += ch[:, k, None, None] * W[:, :, k:k + blkx]
-                            t = (acc + off1) >> sh1   # int32; |t| < 2**16
+                            t = (acc + off1) >> sh1   # int32; |t| < 2**19
                             if last:
                                 sh2 = 6 + hr
                                 off2 = (1 << (sh2 - 1)) + (IF_OFFS << 6)
@@ -660,7 +679,7 @@ def motion_compensate_np_vec(recon, ref_pics_unused, residuals):
                             acc2 = cv[:, 0, None, None] * t[:, 0:blky, :]
                             for k in range(1, taps):
                                 acc2 += cv[:, k, None, None] * t[:, k:k + blky, :]
-                            out = (acc2 + off2) >> sh2  # |acc2| < 2**23
+                            out = (acc2 + off2) >> sh2  # |acc2| < 2**26
                             if last:
                                 out = np.clip(out, 0, maxv)
                         preds[ii, l] = out
@@ -673,9 +692,7 @@ def motion_compensate_np_vec(recon, ref_pics_unused, residuals):
             final[m & ~uni_l & uni] = p1[m & ~uni_l & uni]
             mb = bi & ~wp_blk
             if mb.any():
-                shift = IF_INTERNAL_PREC + 1 - bd
-                off = (1 << (shift - 1)) + 2 * IF_OFFS
-                final[mb] = np.clip((p0[mb] + p1[mb] + off) >> shift, 0, maxv)
+                final[mb] = bi_average(p0[mb], p1[mb], bd)
             if has_wp:
                 scale = 1 << wp_offset_shift(sps, bd)
                 wv = np.zeros((n, 2), np.int64)
@@ -694,7 +711,7 @@ def motion_compensate_np_vec(recon, ref_pics_unused, residuals):
                     l_arr = np.where(uni_l, 0, 1)
                     wl = np.take_along_axis(wv, l_arr[:, None], 1)[:, 0]
                     ol = np.take_along_axis(ov, l_arr[:, None], 1)[:, 0]
-                    shift = denoms + max(2, IF_INTERNAL_PREC - bd)
+                    shift = denoms + hr
                     rnd = np.where(shift > 0, 1 << np.maximum(shift - 1, 0), 0)
                     val = ((wl[:, None, None] * (pv + IF_OFFS) +
                             rnd[:, None, None]) >> shift[:, None, None]) + \
@@ -702,7 +719,7 @@ def motion_compensate_np_vec(recon, ref_pics_unused, residuals):
                     final[wu] = np.clip(val, 0, maxv)[wu]
                 wb = wp_blk & bi
                 if wb.any():
-                    shift = (denoms + 1) + max(2, IF_INTERNAL_PREC - bd)
+                    shift = (denoms + 1) + hr
                     rnd = (1 << np.maximum(shift - 1, 0))
                     offv = (ov[:, 0] + ov[:, 1])[:, None, None]
                     sh3 = shift[:, None, None]
@@ -775,10 +792,7 @@ def motion_compensate_np(recon, ref_pics_unused, residuals):
                     pred = _weighted_bi(preds[0], preds[1], pu, c, bd,
                                         wp_offset_shift(sps, bd))
                 else:
-                    shift = IF_INTERNAL_PREC + 1 - bd
-                    off = (1 << (shift - 1)) + 2 * IF_OFFS
-                    pred = np.clip((preds[0] + preds[1] + off) >> shift,
-                                   0, (1 << bd) - 1)
+                    pred = bi_average(preds[0], preds[1], bd)
             else:
                 p = preds[0] if preds[0] is not None else preds[1]
                 l = 0 if preds[0] is not None else 1
@@ -819,7 +833,7 @@ def _wp_params(pu, l, c):
 def _weighted_uni(p, pu, l, c, bd, oshift):
     w, o, log2d = _wp_params(pu, l, c)
     o = o * (1 << oshift)
-    shift = log2d + max(2, IF_INTERNAL_PREC - bd)
+    shift = log2d + mc_headroom(bd)
     rnd = (1 << (shift - 1)) if shift > 0 else 0
     val = ((w * (p + IF_OFFS) + rnd) >> shift) + o
     return np.clip(val, 0, (1 << bd) - 1)
@@ -830,7 +844,7 @@ def _weighted_bi(p0, p1, pu, c, bd, oshift):
     w1, o1, _ = _wp_params(pu, 1, c)
     scale = 1 << oshift
     o0, o1 = o0 * scale, o1 * scale
-    shift = (log2d + 1) + max(2, IF_INTERNAL_PREC - bd)
+    shift = (log2d + 1) + mc_headroom(bd)
     rnd = 1 << (shift - 1)
     off = o0 + o1
     val = (w0 * (p0 + IF_OFFS) + w1 * (p1 + IF_OFFS) + rnd +

@@ -947,9 +947,8 @@ void hevcdec_output_info(void* h, int idx, int comp, int32_t* out) {
   out[0] = w; out[1] = hh; out[2] = bd <= 8 ? 1 : 2;
 }
 // zero-copy variant for >8-bit output: the conformance-cropped picture is
-// a strided view straight into the Picture's int16 plane (samples are
-// non-negative, bit-identical to uint16; libHMDecoder.h exposes plane
-// pointers the same way).  out: [ptr, stride_in_samples].
+// a strided view straight into the Picture's uint16 plane (libHMDecoder.h
+// exposes plane pointers the same way).  out: [ptr, stride_in_samples].
 // The view stays valid until hevcdec_destroy — planes are never freed
 // before that (see Picture::shrinkAtRetirement).
 void hevcdec_output_view(void* h, int idx, int comp, int64_t* out) {
@@ -989,8 +988,7 @@ void hevcdec_get_output(void* h, int idx, int comp, uint8_t* dst) {
   } else {
     uint16_t* o16 = reinterpret_cast<uint16_t*>(dst);
     for (int y = 0; y < hh; y++) {
-      // Pel is int16 with non-negative sample values: bitwise-identical
-      // to the uint16 output rows
+      // Pel is uint16, as the output rows are
       memcpy(o16 + int64_t(y) * w, src + (int64_t(y0) + y) * stride + x0,
              size_t(w) * 2);
     }

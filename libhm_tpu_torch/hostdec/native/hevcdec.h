@@ -21,11 +21,13 @@
 
 namespace hevc {
 
-// Sample type: int16 like the reference's Pel (bit depths <= 14; the 16-bit
-// RExt profiles would need the Int build the reference gates behind
-// RExt__HIGH_BIT_DEPTH_SUPPORT, TypeDef.h:260).  Half the memory traffic and
-// twice the SIMD lanes of the round-1 int32 planes.
-using Pel = int16_t;
+// Sample type: unsigned 16 bits, so samples of every bit depth up to 16
+// fit (the reference widens its Pel to Int under
+// RExt__HIGH_BIT_DEPTH_SUPPORT, TypeDef.h:260).  Arithmetic on samples is
+// int32; recon.cpp's AVX2 paths, which read the planes as int16 lanes, run
+// at 12 bits and below, where those lanes hold the same values.  Half the
+// memory traffic and twice the SIMD lanes of int32 planes.
+using Pel = uint16_t;
 
 // Vector whose elements are NOT value-initialized on resize.  Picture
 // planes are fully written by reconstruction (every real-area sample is

@@ -169,6 +169,11 @@ struct HmDecCtx {
   size_t nextOutputScan = 0;
   std::vector<libHMDec_BlockValue> internals;
   int md5Mismatch = 0;
+  // pictures of an earlier coded video sequence still to be output: an
+  // IRAP picture with NoRaslOutputFlag bumps them all before any of its
+  // own sequence (Rec. C.5.2.2)
+  std::vector<hevc::Picture*> prior;
+  bool newSequence = true;   // at the start and after an end of sequence
 
   HmDecCtx() { dec.reconEnabled = true; }
 };
@@ -272,6 +277,20 @@ libHMDec_error libHMDec_push_nal_unit(void* h, const void* data8, int length,
         checkOutputPictures = true;
         return LIBHMDEC_OK;
       }
+      if (firstSlice && nalType >= 16 && nalType <= 21) {
+        // NoRaslOutputFlag: IDR, BLA, or a CRA that starts a sequence;
+        // NoOutputOfPriorPicsFlag is no_output_of_prior_pics_flag (the bit
+        // after first_slice_segment_in_pic_flag), inferred 1 for a CRA
+        bool noRasl = nalType != 21 || c->newSequence;
+        bool noOutput = nalType == 21 || ((p[2] >> 6) & 1);
+        c->newSequence = false;
+        if (noRasl)
+          for (auto& q : c->dec.dpb)
+            if (q->needed_for_output) {
+              if (noOutput) q->needed_for_output = false;
+              else c->prior.push_back(q.get());
+            }
+      }
       c->dec.decodeNal(p, size_t(n));
       noteDpb(c);
       // IRAP starts may bump prior pictures
@@ -299,7 +318,10 @@ libHMDec_error libHMDec_push_nal_unit(void* h, const void* data8, int length,
       }
     } else {
       c->dec.decodeNal(p, size_t(n));  // VPS/SPS/PPS/EOS
-      if (nalType == 36) checkOutputPictures = true;  // EOS flushes
+      if (nalType == 36) {  // EOS flushes
+        checkOutputPictures = true;
+        c->newSequence = true;
+      }
     }
   }
   if (eof) {
@@ -316,6 +338,18 @@ libHMDec_error libHMDec_push_nal_unit(void* h, const void* data8, int length,
 void* libHMDec_get_picture(void* h) {
   HmDecCtx* c = static_cast<HmDecCtx*>(h);
   hevc::Decoder& d = c->dec;
+  if (!c->prior.empty()) {
+    // the earlier sequence first, in POC order (the native DPB keeps every
+    // picture until the decoder is freed, so the pointers hold)
+    auto it = std::min_element(
+        c->prior.begin(), c->prior.end(),
+        [](hevc::Picture* a, hevc::Picture* b) { return a->poc < b->poc; });
+    hevc::Picture* pic = *it;
+    c->prior.erase(it);
+    pic->needed_for_output = false;
+    d.waitReconPic(pic);
+    return pic;
+  }
   int notDisplayed = 0, live = 0;
   hevc::Picture* minPic = nullptr;
   for (auto& q : d.dpb) {
@@ -369,10 +403,12 @@ int libHMDEC_get_picture_stride(void* pic, libHMDec_ColorComponent comp) {
   return int((int64_t(s->picWCtbs()) << s->log2_ctb) >> sx);
 }
 
+// libHMDecoder.h's planes are short*: a sample of 2^15 and up (bit depths
+// above 15) travels as its 16-bit pattern, to be read back as unsigned
 short* libHMDEC_get_image_plane(void* pic, libHMDec_ColorComponent comp) {
   auto* p = static_cast<hevc::Picture*>(pic);
   if (comp >= 1 && p->plane[comp].empty()) return nullptr;
-  return p->plane[comp].data();
+  return reinterpret_cast<short*>(p->plane[comp].data());
 }
 
 libHMDec_ChromaFormat libHMDEC_get_chroma_format(void* pic) {

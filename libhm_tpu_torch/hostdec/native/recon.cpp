@@ -163,6 +163,17 @@ static inline int clip3(int lo, int hi, int v) {
   return v < lo ? lo : (v > hi ? hi : v);
 }
 
+// Pel is uint16_t; simd.h's AVX2 helpers take int16 lanes, which hold the
+// same bit patterns below 2^15.  They run at bit depths up to kNarrowBd,
+// where the MC intermediates fit int16 too; above it (the first filter
+// pass shifts by Min(4, bitDepth - 8), H.265 8.5.3.3.3.1) samples, MC
+// intermediates and sums take the scalar int32 paths.
+static const int kNarrowBd = 12;
+static inline const int16_t* s16(const Pel* p) {
+  return reinterpret_cast<const int16_t*>(p);
+}
+static inline int16_t* s16(Pel* p) { return reinterpret_cast<int16_t*>(p); }
+
 
 // ---------------------------------------------------------------------------
 struct ReconCtx {
@@ -196,6 +207,10 @@ struct ReconCtx {
       std::vector<int16_t>((64 + 8) * 64);              // interpBlockT 2-stage
   std::vector<int16_t> s_p0 = std::vector<int16_t>(64 * 64);   // interStage
   std::vector<int16_t> s_p1 = std::vector<int16_t>(64 * 64);
+  std::vector<int32_t> s_wtmp =
+      std::vector<int32_t>((64 + 8) * 64);              // interpWide 2-stage
+  std::vector<int32_t> s_w0 = std::vector<int32_t>(64 * 64);   // above
+  std::vector<int32_t> s_w1 = std::vector<int32_t>(64 * 64);   // kNarrowBd
   int32_t s_vals[4 * 64 + 1] = {};                      // reconIntraBlock
   uint8_t s_av[4 * 64 + 1] = {};
   int32_t s_leftBuf[2 * 64 + 1] = {}, s_topBuf[2 * 64 + 1] = {};
@@ -862,7 +877,7 @@ struct ReconCtx {
     int fy = (mvy & ((1 << fby) - 1)) << phaseShift(taps, fby);
     int ix = x + (mvx >> fbx);
     int iy = y + (mvy >> fby);
-    int headroom = kIfPrec - bd;
+    int hr = std::max(2, kIfPrec - bd);
     int half = taps / 2 - 1;
     int maxv = (1 << bd) - 1;
     auto S = [&](int yy, int xx) -> int {
@@ -886,11 +901,10 @@ struct ReconCtx {
         for (int i = 0; i < w; i++) {
           int v = S(iy + j, ix + i);
           dst[int64_t(j) * dstStride + i] =
-              int16_t(isLast ? v : (v << headroom) - kIfOffs);
+              int16_t(isLast ? v : (v << hr) - kIfOffs);
         }
       return;
     }
-    int hr = std::max(2, headroom);
     int32_t* acc32 = s_acc32;
     if (fy == 0) {
       // single horizontal stage
@@ -901,7 +915,7 @@ struct ReconCtx {
         if (interior) {
           const Pel* row = ref + int64_t(iy + j) * stride + ix - half;
 #if defined(__AVX2__)
-          simd::hfilt<taps>(row, w, fh, acc32);
+          simd::hfilt<taps>(s16(row), w, fh, acc32);
 #else
           for (int i = 0; i < w; i++) {
             int32_t s = 0;
@@ -940,7 +954,7 @@ struct ReconCtx {
         if (interior) {
           const Pel* col = ref + int64_t(iy + j - half) * stride + ix;
 #if defined(__AVX2__)
-          simd::vfilt<taps>(col, stride, w, fv, acc32);
+          simd::vfilt<taps>(s16(col), stride, w, fv, acc32);
 #else
           for (int i = 0; i < w; i++) {
             int32_t s = 0;
@@ -981,7 +995,7 @@ struct ReconCtx {
       if (interior) {
         const Pel* row = ref + int64_t(iy + j - half) * stride + ix - half;
 #if defined(__AVX2__)
-        simd::hfilt<taps>(row, w, fh, acc32);
+        simd::hfilt<taps>(s16(row), w, fh, acc32);
         simd::shiftNarrow(acc32, w, off1, sh1, &tmp[size_t(j) * w]);
 #else
         for (int i = 0; i < w; i++) {
@@ -1028,6 +1042,114 @@ struct ReconCtx {
     }
   }
 
+  // interpBlock above kNarrowBd: the same arithmetic (H.265 8.5.3.3.3.1:
+  // shift1 = 6 - hr = Min(4, bd - 8), shift2 = 6, shift3 = hr =
+  // Max(2, 14 - bd)) on int32 intermediates, each tap's coordinate
+  // clamped into the plane.  dst is w x h, row-major.
+  void interpWide(const Pel* ref, int refW, int refH, int64_t stride,
+                  int x, int y, int w, int h, int mvx, int mvy, int fbx,
+                  int fby, int taps, bool isLuma, int bd, bool isLast,
+                  int32_t* dst) {
+    int fx = (mvx & ((1 << fbx) - 1)) << phaseShift(taps, fbx);
+    int fy = (mvy & ((1 << fby) - 1)) << phaseShift(taps, fby);
+    int ix = x + (mvx >> fbx);
+    int iy = y + (mvy >> fby);
+    int hr = std::max(2, kIfPrec - bd);
+    int half = taps / 2 - 1;
+    int maxv = (1 << bd) - 1;
+    auto S = [&](int yy, int xx) -> int32_t {
+      return ref[int64_t(clip3(0, refH - 1, yy)) * stride +
+                 clip3(0, refW - 1, xx)];
+    };
+    const int* fh = isLuma ? kLumaF[fx] : kChromaF[fx];
+    const int* fv = isLuma ? kLumaF[fy] : kChromaF[fy];
+    if (fx == 0 && fy == 0) {
+      for (int j = 0; j < h; j++)
+        for (int i = 0; i < w; i++) {
+          int32_t v = S(iy + j, ix + i);
+          dst[j * w + i] = isLast ? v : (v << hr) - kIfOffs;
+        }
+      return;
+    }
+    if (fx == 0 || fy == 0) {
+      // one stage, along the axis with a fractional phase
+      const int* f = fx ? fh : fv;
+      int dx = fx ? 1 : 0, dy = fx ? 0 : 1;
+      int shift = isLast ? 6 : 6 - hr;
+      int32_t offset = isLast ? 1 << (shift - 1) : -(kIfOffs << shift);
+      for (int j = 0; j < h; j++)
+        for (int i = 0; i < w; i++) {
+          int32_t acc = 0;
+          for (int k = 0; k < taps; k++)
+            acc += f[k] * S(iy + j + dy * (k - half), ix + i + dx * (k - half));
+          int32_t v = (acc + offset) >> shift;
+          dst[j * w + i] = isLast ? clip3(0, maxv, v) : v;
+        }
+      return;
+    }
+    int sh1 = 6 - hr;
+    int32_t off1 = -(kIfOffs << sh1);
+    int32_t* tmp = s_wtmp.data();
+    for (int j = 0; j < h + taps - 1; j++)
+      for (int i = 0; i < w; i++) {
+        int32_t acc = 0;
+        for (int k = 0; k < taps; k++)
+          acc += fh[k] * S(iy + j - half, ix + i + k - half);
+        tmp[j * w + i] = (acc + off1) >> sh1;
+      }
+    int sh2 = isLast ? 6 + hr : 6;
+    int32_t off2 = isLast ? (1 << (sh2 - 1)) + (kIfOffs << 6) : 0;
+    for (int j = 0; j < h; j++)
+      for (int i = 0; i < w; i++) {
+        int32_t acc = 0;
+        for (int k = 0; k < taps; k++) acc += fv[k] * tmp[(j + k) * w + i];
+        int32_t v = (acc + off2) >> sh2;
+        dst[j * w + i] = isLast ? clip3(0, maxv, v) : v;
+      }
+  }
+
+  // explicit weighted prediction of one PU component (H.265 8.5.3.3.4.3)
+  // from its 14-bit intermediates q[l] (w x h, row-major; int16 or int32)
+  template <class T>
+  void weightedPred(const PuMeta& pu, int c, int bd, const T* const q[2],
+                    const bool have[2], int w, int h, Pel* out,
+                    int64_t ostride) {
+    int maxv = (1 << bd) - 1;
+    int hr = std::max(2, kIfPrec - bd);
+    int denom = c == 0 ? pu.wp_denom_l : pu.wp_denom_c;
+    // WpOffsetBdShift (H.265 7.4.7.3): none under
+    // high_precision_offsets_enabled_flag
+    int scale = sps->high_precision_offsets ? 1 : 1 << (bd - 8);
+    if (pu.dir == 3) {
+      int w0 = pu.wp_w[0][c], w1 = pu.wp_w[1][c];
+      int64_t o0 = int64_t(pu.wp_o[0][c]) * scale;
+      int64_t o1 = int64_t(pu.wp_o[1][c]) * scale;
+      int shift = (denom + 1) + hr;
+      int64_t rnd = int64_t(1) << (shift - 1);
+      int64_t off = o0 + o1;
+      for (int j = 0; j < h; j++)
+        for (int i = 0; i < w; i++) {
+          int64_t v = (int64_t(w0) * (q[0][size_t(j) * w + i] + kIfOffs) +
+                       int64_t(w1) * (q[1][size_t(j) * w + i] + kIfOffs) +
+                       rnd + (off << (shift - 1))) >> shift;
+          out[j * ostride + i] = clip3(0, maxv, int(v));
+        }
+    } else {
+      int l = have[0] ? 0 : 1;
+      const T* p = q[l];
+      int wl = pu.wp_w[l][c];
+      int64_t ol = int64_t(pu.wp_o[l][c]) * scale;
+      int shift = denom + hr;
+      int64_t rnd = shift > 0 ? int64_t(1) << (shift - 1) : 0;
+      for (int j = 0; j < h; j++)
+        for (int i = 0; i < w; i++) {
+          int64_t v = ((int64_t(wl) * (p[size_t(j) * w + i] + kIfOffs) +
+                        rnd) >> shift) + ol;
+          out[j * ostride + i] = clip3(0, maxv, int(v));
+        }
+    }
+  }
+
   void interStage() {
     if (pic->inter_list.empty()) return;
     std::vector<int16_t>& p0 = s_p0; std::vector<int16_t>& p1 = s_p1;
@@ -1060,6 +1182,39 @@ struct ReconCtx {
         int refW = compW(c), refH = compH(c);
         Pel* out = &pic->plane[c][int64_t(y) * planeW(c) + x];
         int64_t ostride = planeW(c);
+        if (bd > kNarrowBd) {
+          int32_t* wq[2] = {s_w0.data(), s_w1.data()};
+          bool have[2] = {false, false};
+          for (int l = 0; l < 2; l++) {
+            if (!(pu.dir & (1 << l))) continue;
+            Picture* rp = lookupRef(pu.ref_poc[l]);
+            if (!rp) continue;
+            interpWide(rp->plane[c].data(), refW, refH, planeW(c), x, y, w,
+                       h, pu.mv[l][0], pu.mv[l][1], fbx, fby, taps, c == 0,
+                       bd, isLast, wq[l]);
+            have[l] = true;
+          }
+          if (useWp) {
+            const int32_t* const q[2] = {wq[0], wq[1]};
+            weightedPred(pu, c, bd, q, have, w, h, out, ostride);
+          } else if (bi) {
+            // default bi average, shift Max(3, 15 - bd) (8.5.3.3.4.2)
+            int shift = std::max(2, kIfPrec - bd) + 1;
+            int off = (1 << (shift - 1)) + 2 * kIfOffs;
+            for (int j = 0; j < h; j++)
+              for (int i = 0; i < w; i++)
+                out[j * ostride + i] = Pel(clip3(
+                    0, maxv, (wq[0][j * w + i] + wq[1][j * w + i] + off) >>
+                                 shift));
+          } else {
+            for (int l = 0; l < 2; l++)
+              if (have[l])
+                for (int j = 0; j < h; j++)
+                  for (int i = 0; i < w; i++)
+                    out[j * ostride + i] = Pel(wq[l][j * w + i]);
+          }
+          continue;
+        }
 #if defined(__AVX2__)
         // fused fast path: integer-MV bi-prediction fully inside the plane
         // reduces algebraically to a rounding average of the two ref blocks
@@ -1082,9 +1237,9 @@ struct ReconCtx {
                 const Pel* b = r1->plane[c].data() +
                                int64_t(iy1) * planeW(c) + ix1;
                 for (int j = 0; j < h; j++)
-                  simd::avgRound(a + int64_t(j) * planeW(c),
-                                 b + int64_t(j) * planeW(c), w,
-                                 out + j * ostride);
+                  simd::avgRound(s16(a + int64_t(j) * planeW(c)),
+                                 s16(b + int64_t(j) * planeW(c)), w,
+                                 s16(out + j * ostride));
                 continue;
               }
             }
@@ -1100,7 +1255,7 @@ struct ReconCtx {
           const Pel* ref = rp->plane[c].data();
           // single-list final-stage prediction writes straight into the
           // picture plane (skips the staging copy)
-          int16_t* d = isLast ? out : preds[l];
+          int16_t* d = isLast ? s16(out) : preds[l];
           int ds = isLast ? int(ostride) : w;
           interpBlock(ref, refW, refH, planeW(c), x, y, w, h,
                       pu.mv[l][0], pu.mv[l][1], fbx, fby, taps, c == 0, bd,
@@ -1108,6 +1263,7 @@ struct ReconCtx {
           have[l] = true;
         }
         if (bi && !useWp) {
+          // shift Max(3, 15 - bd) is 15 - bd here, at kNarrowBd and below
           int shift = kIfPrec + 1 - bd;
           int off = (1 << (shift - 1)) + 2 * kIfOffs;
           for (int j = 0; j < h; j++) {
@@ -1115,48 +1271,17 @@ struct ReconCtx {
             const int16_t* b = p1.data() + size_t(j) * w;
             Pel* o = out + j * ostride;
 #if defined(__AVX2__)
-            simd::biAvg(a, b, w, off, shift, maxv, o);
+            simd::biAvg(a, b, w, off, shift, maxv, s16(o));
 #else
             for (int i = 0; i < w; i++)
               o[i] = Pel(clip3(0, maxv, (a[i] + b[i] + off) >> shift));
 #endif
           }
-        } else if (!useWp) {
-          // single-list prediction already written straight into the plane
-        } else {
-          int denom = c == 0 ? pu.wp_denom_l : pu.wp_denom_c;
-          // WpOffsetBdShift (H.265 7.4.7.3): none under
-          // high_precision_offsets_enabled_flag
-          int scale = sps->high_precision_offsets ? 1 : 1 << (bd - 8);
-          if (bi) {
-            int w0 = pu.wp_w[0][c], w1 = pu.wp_w[1][c];
-            int64_t o0 = int64_t(pu.wp_o[0][c]) * scale;
-            int64_t o1 = int64_t(pu.wp_o[1][c]) * scale;
-            int shift = (denom + 1) + std::max(2, kIfPrec - bd);
-            int64_t rnd = int64_t(1) << (shift - 1);
-            int64_t off = o0 + o1;
-            for (int j = 0; j < h; j++)
-              for (int i = 0; i < w; i++) {
-                int64_t v = (int64_t(w0) * (p0[size_t(j) * w + i] + kIfOffs) +
-                             int64_t(w1) * (p1[size_t(j) * w + i] + kIfOffs) +
-                             rnd + (off << (shift - 1))) >> shift;
-                out[j * ostride + i] = clip3(0, maxv, int(v));
-              }
-          } else {
-            int l = have[0] ? 0 : 1;
-            const int16_t* p = preds[l];
-            int wl = pu.wp_w[l][c];
-            int64_t ol = int64_t(pu.wp_o[l][c]) * scale;
-            int shift = denom + std::max(2, kIfPrec - bd);
-            int64_t rnd = shift > 0 ? int64_t(1) << (shift - 1) : 0;
-            for (int j = 0; j < h; j++)
-              for (int i = 0; i < w; i++) {
-                int64_t v = ((int64_t(wl) * (p[size_t(j) * w + i] + kIfOffs) +
-                              rnd) >> shift) + ol;
-                out[j * ostride + i] = clip3(0, maxv, int(v));
-              }
-          }
+        } else if (useWp) {
+          const int16_t* const q[2] = {p0.data(), p1.data()};
+          weightedPred(pu, c, bd, q, have, w, h, out, ostride);
         }
+        // else: the single-list prediction is already in the plane
       }
     }
     // add inter residuals
@@ -1176,11 +1301,13 @@ struct ReconCtx {
         Pel* row = pl + (int64_t(t.y) + j) * stride + t.x;
         const int16_t* rr = r + size_t(j) * t.w;  // flat pool, TU-local raster
 #if defined(__AVX2__)
-        simd::addClip(row, rr, t.w, maxv);
-#else
+        if (bd <= kNarrowBd) {
+          simd::addClip(s16(row), rr, t.w, maxv);
+          continue;
+        }
+#endif
         for (int k = 0; k < t.w; k++)
           row[k] = Pel(clip3(0, maxv, row[k] + rr[k]));
-#endif
       }
     }
   }
@@ -1681,7 +1808,7 @@ struct ReconCtx {
           int lut[32] = {0};
           for (int i = 0; i < 4; i++) lut[(bandPos + i) & 31] = offs[i];
 #if defined(__AVX2__)
-          bool fit8 = true;
+          bool fit8 = bd <= kNarrowBd;
           int16_t lut16[32];
           for (int i = 0; i < 32; i++) {
             lut16[i] = int16_t(lut[i]);
@@ -1689,8 +1816,8 @@ struct ReconCtx {
           }
           if (fit8) {
             for (int yy = y0; yy < y1; yy++)
-              simd::saoBandRow(src + yy * stride + x0, x1 - x0, lut16,
-                               bandShift, maxv, dst + yy * stride + x0);
+              simd::saoBandRow(s16(src + yy * stride + x0), x1 - x0, lut16,
+                               bandShift, maxv, s16(dst + yy * stride + x0));
             continue;
           }
 #endif
@@ -1720,14 +1847,18 @@ struct ReconCtx {
           }
           if (fast) {
 #if defined(__AVX2__)
-            int16_t lut16[5] = {int16_t(lut[0]), int16_t(lut[1]), 0,
-                                int16_t(lut[3]), int16_t(lut[4])};
-            for (int yy = y0; yy < y1; yy++)
-              simd::saoEdgeRow(src + yy * stride + x0,
-                               src + (yy + dy1) * stride + dx1 + x0,
-                               src + (yy + dy2) * stride + dx2 + x0,
-                               x1 - x0, lut16, maxv, dst + yy * stride + x0);
-#else
+            if (bd <= kNarrowBd) {
+              int16_t lut16[5] = {int16_t(lut[0]), int16_t(lut[1]), 0,
+                                  int16_t(lut[3]), int16_t(lut[4])};
+              for (int yy = y0; yy < y1; yy++)
+                simd::saoEdgeRow(s16(src + yy * stride + x0),
+                                 s16(src + (yy + dy1) * stride + dx1 + x0),
+                                 s16(src + (yy + dy2) * stride + dx2 + x0),
+                                 x1 - x0, lut16, maxv,
+                                 s16(dst + yy * stride + x0));
+              continue;
+            }
+#endif
             for (int yy = y0; yy < y1; yy++) {
               const Pel* sr = src + yy * stride;
               const Pel* n1r = src + (yy + dy1) * stride + dx1;
@@ -1740,7 +1871,6 @@ struct ReconCtx {
                 dr[xx] = Pel(clip3(0, maxv, v + lut[s1 + s2 + 2]));
               }
             }
-#endif
           } else {
             for (int yy = y0; yy < y1; yy++)
               for (int xx = x0; xx < x1; xx++) {

@@ -218,7 +218,7 @@ def _materialize(lib, h, i, recon, view_holder=None):
             ow, oh, bps = int(oi[0]), int(oi[1]), int(oi[2])
             if bps == 2 and view_holder is not None:
                 # zero-copy: strided uint16 view straight into the native
-                # plane (Pel is int16 with non-negative samples); the view
+                # plane (Pel is uint16); the view
                 # pins the handle via _PlaneView._holder
                 vi = np.zeros(2, np.int64)
                 lib.hevcdec_output_view(C.c_void_p(h), C.c_int(i),

@@ -22,6 +22,7 @@ Integer arithmetic throughout; signed `>>` is arithmetic, as in JAX.
 import numpy as np
 import torch
 
+from ..hostdec.motion import mc_headroom as _headroom
 from ..kernels.build import I, P, Kernel, check, ptr
 
 IF_PREC = 14
@@ -46,10 +47,6 @@ CHROMA_FILTER = [
 # per-block record of mc_weighted: one int32 row per 4x4 block
 BLK_FIELDS = ("b", "x", "y", "dir", "mv0x", "mv0y", "mv1x", "mv1y",
               "sel0", "sel1", "w0", "w1", "o0", "o1")
-
-
-def _headroom(bd):
-    return max(2, IF_PREC - bd)
 
 
 def predict(refs, sel, y0, x0, mvx, mvy, bh, bw, *, taps, fbx, fby, bd):

@@ -1,11 +1,10 @@
 """Seeded encoder inputs shared by the port's encoder tests and
 chip_smoke.py's encoder phase.
 
-- `recipe_source(cfg)`: the source YUV bytes that the header of a
-  testdata/*.cfg of the repo's 160x96 high-bit-depth streams describes
-  (rext444_16b_intra_160x96, main14_intra_160x96): the bit depth, the
-  chroma subsampling and the seed are read from the recipe, the formula is
-  the recipe's;
+- `recipe_source(cfg)`: the source YUV bytes that the generator in the
+  header of a testdata/*.cfg of the repo's high-bit-depth streams writes
+  (rext444_16b_intra_160x96, main14_intra_160x96, the random-access
+  streams of 13-16 bits), run as written;
 - `frames(...)`: moving synthetic 4:2:0 / 4:2:2 pictures (the content of
   tests/test_enc_native.py) as encode_stream takes them; `pcm_frames`:
   one picture that the encoder codes partly as PCM; `noise_picture`,
@@ -16,8 +15,11 @@ chip_smoke.py's encoder phase.
 - `CASES` and `encode`: the small encoder configurations that the port
   is held on, each with what its in-loop filter must launch.
 """
+import contextlib
+import io
 import os
 import re
+import textwrap
 
 import numpy as np
 
@@ -25,27 +27,27 @@ from libhm_tpu_torch.ops import loopfilter as LF
 
 
 def recipe_source(cfg_path):
-    """(bytes of the source YUV, its frame count) of a cfg's recipe."""
+    """(bytes of the source YUV, its frame count) of a cfg's recipe: the
+    indented comment lines of its header before the encoder's command,
+    run as Python with numpy as np, write src.yuv; the count is the cfg's
+    FramesToBeEncoded."""
     text = open(cfg_path).read()
-    bd, sub = (int(v) for v in re.search(
-        r"#\s+bd, sub = (\d+), (\d+)", text).groups())
-    seed = int(re.search(r"default_rng\((\d+)\)", text).group(1))
-    n = int(re.search(r"for t in range\((\d+)\)", text).group(1))
-    W = int(re.search(r"^SourceWidth\s*:\s*(\d+)", text, re.M).group(1))
-    H = int(re.search(r"^SourceHeight\s*:\s*(\d+)", text, re.M).group(1))
-    rng = np.random.default_rng(seed)
-    out = []
-    for t in range(n):
-        for c in range(3):
-            h, w = (H, W) if c == 0 else (H // sub, W // sub)
-            y, x = np.mgrid[0:h, 0:w]
-            s = np.sin(x / (7 + 3 * c) + t) * np.cos(y / 11 - c)
-            p = (0.5 + 0.45 * s) * (1 << bd) + \
-                rng.normal(0, 1 << (bd - 7), (h, w))
-            p += (rng.random((h, w)) < 0.03) * (1 << (bd - 2))
-            p = np.clip(np.rint(p), 0, (1 << bd) - 1)
-            out.append(p.astype("<u2").tobytes())
-    return b"".join(out), n
+    code = []
+    for line in text.splitlines(keepends=True):
+        if line.startswith("#   python -m"):
+            break
+        if line.startswith("#   "):
+            code.append(line[1:])
+    buf = io.BytesIO()
+
+    @contextlib.contextmanager
+    def sink(name, mode):
+        assert name == "src.yuv" and mode == "wb", (name, mode)
+        yield buf
+    exec(textwrap.dedent("".join(code)), {"np": np, "open": sink})
+    n = int(re.search(r"^FramesToBeEncoded\s*:\s*(\d+)", text,
+                      re.M).group(1))
+    return buf.getvalue(), n
 
 
 def frames(w, h, n, *, bd=8, chroma=1, seed=7, shift=2):

@@ -73,8 +73,10 @@ def _drain(lib, h, pics):
             hh = lib.libHMDEC_get_picture_height(C.c_void_p(pic), comp)
             stride = lib.libHMDEC_get_picture_stride(C.c_void_p(pic), comp)
             ptr = lib.libHMDEC_get_image_plane(C.c_void_p(pic), comp)
+            # short* planes: samples of 2^15 and up come as their 16-bit
+            # pattern, read back unsigned
             arr = np.ctypeslib.as_array(ptr, shape=(hh, stride))[:, :w]
-            planes.append(arr.copy())
+            planes.append(arr.view(np.uint16).copy())
         pics.append((lib.libHMDEC_get_POC(C.c_void_p(pic)), planes))
 
 

@@ -214,12 +214,29 @@ def _hostdec_copies():
 # C13); recon_np.py and native/recon.cpp scale the luma residual of
 # cross-component prediction by the two bit depths (H.265 8.6.6, ROADMAP
 # C4), and with motion.py take weighted-prediction offsets unshifted under
-# high_precision_offsets_enabled_flag (H.265 7.4.7.3, ROADMAP C10)
+# high_precision_offsets_enabled_flag (H.265 7.4.7.3, ROADMAP C10);
+# motion.py, native/recon.cpp and encoder.py predict with H.265's shifts
+# above 12 bits (8.5.3.3.3.1 and 8.5.3.3.4.2: the full-sample
+# intermediate's Max(2, 14 - bd) and the default bi average's
+# Max(3, 15 - bd), ROADMAP C9 and C11), recon.cpp on int32 intermediates
+# there; native/hevcdec.h makes the native recon's samples 16-bit unsigned
+# (ROADMAP C8), so native/libhmdec.cpp casts its planes to the short* of
+# libHMDecoder.h, and native/api.cpp's and native_bridge.py's comments say
+# so; libhmdec.cpp also outputs every picture of a coded video sequence
+# before an IRAP picture with NoRaslOutputFlag starts the next (Rec.
+# C.5.2.2), where the JAX package's interleaves the two by POC; the
+# Makefile builds with -fno-gnu-unique, so a process that has loaded the
+# JAX package's build of these sources (another ReconCtx layout) does not
+# lend it its static locals
 _EDITED = {"decoder.py", "native_bridge.py", "api.py", "dec_app.py",
            "trace.py", "refimpl.py", "recon_np.py", "encoder.py",
            "enc_app.py", "options.py", "stats.py", "slicedec.py",
            "motion.py", os.path.join("native", "sliceparse.cpp"),
-           os.path.join("native", "recon.cpp")}
+           os.path.join("native", "recon.cpp"),
+           os.path.join("native", "hevcdec.h"),
+           os.path.join("native", "libhmdec.cpp"),
+           os.path.join("native", "api.cpp"),
+           os.path.join("native", "Makefile")}
 
 # modules of the JAX package whose counterpart in the port has another name
 _RENAMED = {os.path.join("libhm_tpu", "recon_tpu.py"):

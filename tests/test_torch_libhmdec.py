@@ -6,7 +6,9 @@ NAL unit, push it again when bNewPicture is set, drain
 libHMDec_get_picture when bCheckPicture is set.  The pictures' planes,
 joined in output order, must give each golden's MD5 in
 testdata/golden.json, and the library's own check of the MD5 SEIs must
-pass.
+pass.  Above 12 bits (the streams of testdata/port_streams.json, made
+by the port's encoder) the planes come as short* and are read back as
+uint16: samples of 2^15 and up at 16 bits.
 """
 import json
 import os
@@ -17,6 +19,7 @@ import libhmdec_abi as ABI
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GOLD = json.load(open(os.path.join(ROOT, "testdata", "golden.json")))
+PORT = json.load(open(os.path.join(ROOT, "testdata", "port_streams.json")))
 
 
 @pytest.fixture(scope="module")
@@ -39,6 +42,36 @@ def test_push_protocol_md5(lib, name):
     assert ABI.md5_of(pics, GOLD[name].get("bitdepth", 8)) == \
         GOLD[name]["decoded_yuv_md5"]
     assert hash_ok == 1, "the library's MD5 SEI check failed"
+
+
+@pytest.mark.parametrize("name", ["rext444_16b_intra_160x96",
+                                  "main14_intra_160x96", "mono16_ra_160x96",
+                                  "main14_ra_160x96",
+                                  "rext444_16b_intra_1080p",
+                                  "mono16_ra_1080p"])
+def test_push_protocol_above_12_bits(lib, name):
+    """16-bit 4:4:4 intra, 14-bit intra, Monochrome 16 random access and
+    14-bit random access with weighted prediction (and the 16-bit 1080p
+    streams, intra and random access), each to its MD5 with
+    the library's MD5 SEI check passing, in the output order of the
+    Python decoder.  Each of the intra streams' pictures is an IDR picture
+    of POC 0, and main14_ra_160x96 holds two coded video sequences, of 3
+    and of 5 pictures: every picture of a sequence comes out before any
+    of the next."""
+    from libhm_tpu_torch.hostdec.decoder import Decoder
+    e = PORT[name]
+    data = open(os.path.join(ROOT, "testdata", e["bitstream"]), "rb").read()
+    pics, hash_ok = ABI.decode(lib, data)
+    dec = Decoder(parse="native", recon="collect")
+    dec.decode_annexb(data)
+    pocs = [dp.poc for dp in dec.output_records]
+    assert [poc for poc, _ in pics] == pocs
+    if name == "main14_ra_160x96":
+        assert pocs == [0, 1, 2] + list(range(5))
+    assert ABI.md5_of(pics, e["bitdepth"]) == e["decoded_yuv_md5"]
+    assert hash_ok == 1, "the library's MD5 SEI check failed"
+    if e["bitdepth"] == 16:
+        assert max(int(p.max()) for _, pl in pics for p in pl) >= 1 << 15
 
 
 def test_version_string(lib):

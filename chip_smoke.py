@@ -2625,6 +2625,11 @@ def encoder_phase(gold, card):
     loop-filter kernel, K8 where PCM is restored):
     - the 16-bit 4:4:4 160x96 stream re-encoded from its cfg's recipe
       through enc_app (--device cuda): the bytes of the committed stream;
+    - the Monochrome 16 random-access recipe of RA16 through IntraEncoder
+      on the card, its motion search in the native search's int32 form
+      (ROADMAP C14; the int16 form never called): the MD5 of the Python
+      search's bytes, decode_batch on the card with every hash SEI OK and
+      to the encoder's reconstructions;
     - a picture coded partly as PCM with pcm_loop_filter_disabled (K8 on
       the encoder's path): the bytes that the encode on the CPU writes;
     - two pictures of STREAM (1920x1080 Main10, decoded by the port's
@@ -2637,13 +2642,15 @@ def encoder_phase(gold, card):
     rows (Results) and launches."""
     import numpy as np
     sys.path.insert(0, os.path.join(ROOT, "tests"))
-    from enc_cases import (C3_CASES, c3_config, noise_picture, pcm_frames,
+    from enc_cases import (C3_CASES, RA16, RA16_MD5, c3_config,
+                           noise_picture, pcm_frames, recipe_input,
                            recipe_source)
     from libhm_tpu_torch.apps import enc_app
     from libhm_tpu_torch.encoder import encoder as EN
     from libhm_tpu_torch.encoder.encoder import EncoderConfig
     from libhm_tpu_torch.hostdec import loopfilter_np as NP
     from libhm_tpu_torch.hostdec.decoder import Decoder
+    from libhm_tpu_torch.hostdec.native_bridge import try_load
     from libhm_tpu_torch.kernels import build as KB
     from libhm_tpu_torch.parallel import dag_decode as DD
     from libhm_tpu_torch.utils import xfer
@@ -2675,6 +2682,63 @@ def encoder_phase(gold, card):
         f"bytes, equal to testdata/{ENC16}.bin; loop-filter launches "
         f"{counts['loop_filter_level']} (deblocking and SAO of {n16} "
         "pictures)")
+
+    # ROADMAP C14: the 16-bit random-access recipe, its motion search in
+    # the native search's int32 form, its in-loop filter on the card
+    cfg16, pics = recipe_input(os.path.join(ROOT, "testdata", f"{RA16}.cfg"))
+    lib = try_load()             # the encoder's (one library a process)
+    if lib is None:
+        raise AssertionError(f"{RA16}: the native search did not load")
+    calls = dict.fromkeys(("enc_me_search", "enc_bi_refine",
+                           "enc_me_search32", "enc_bi_refine32"), 0)
+
+    def call_counter(name, fn):
+        def run(*a):
+            calls[name] += 1
+            return fn(*a)
+        return run
+    real_search = {nm: getattr(lib, nm) for nm in calls}
+    for nm, fn in real_search.items():
+        setattr(lib, nm, call_counter(nm, fn))
+    cap = EncoderCapture()
+    try:
+        (stream, enc, secs), counts = run_path(
+            f"{RA16} encode", lambda: _encode(cfg16, pics, DEV),
+            ["loop_filter_level"])
+    finally:
+        cap.remove()
+        for nm, fn in real_search.items():
+            setattr(lib, nm, fn)
+    md5 = hashlib.md5(stream).hexdigest()
+    if md5 != RA16_MD5 or counts["loop_filter_level"] != 2 * len(pics) or \
+            not calls["enc_me_search32"] or not calls["enc_bi_refine32"] or \
+            calls["enc_me_search"] or calls["enc_bi_refine"]:
+        raise AssertionError(f"{RA16} on the card: {len(stream)} bytes, MD5 "
+                             f"{md5} (want {RA16_MD5}), launches {counts}, "
+                             f"native search calls {calls}")
+    cap.check(f"{RA16} encode", card)
+    (outs, statuses), _ = run_path(
+        f"{RA16} encoded, decode_batch",
+        lambda: _with_statuses(lambda: DD.decode_batch(
+            stream, device=DEV, check_sei_hash=True)),
+        K1_K4 + ["mc_grid"])
+    recon = {s[2]: s[3] for s in enc.stats}
+    same = len(outs) == len(pics) and all(
+        np.array_equal(np.asarray(a), b) for poc, pic in enumerate(outs)
+        for a, b in zip(pic, recon[poc]))
+    if statuses != ["OK"] * len(pics) or not same:
+        raise AssertionError(f"{RA16} encoded, decoded on the card: hash "
+                             f"SEIs {statuses}, equal to the "
+                             f"reconstructions {same}")
+    log(f"{RA16} (Monochrome 16, random access, {len(pics)} pictures) "
+        f"encoded from its recipe by IntraEncoder(cfg, device={DEV!r}) in "
+        f"{secs:.3f} s wall: {len(stream)} bytes, "
+        f"{8 * len(stream) * cfg16.fps / len(pics) / 1000:.4f} kbps, MD5 "
+        f"{md5}, equal to the Python search's (tests/enc_cases.py "
+        f"RA16_MD5); native search calls {calls}; loop-filter launches "
+        f"{counts['loop_filter_level']}; decode_batch on the card: every "
+        f"hash SEI ({len(pics)}) OK, pictures equal to the encoder's "
+        f"reconstructions ({card})")
 
     # PCM with pcm_loop_filter_disabled: the restore (K8)
     pics = pcm_frames(128, 64)

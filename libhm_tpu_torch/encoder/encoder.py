@@ -830,7 +830,7 @@ class IntraEncoder:
 
         self.slice_type = slice_type
         self._ts_flags = {}
-        self._pad16_cache = {}
+        self._padded_cache = {}
         self._refplane_cache = {}
         self._wplane_cache = {}   # per-picture: WP weights change per slice
         self._i16ref_cache = {}   # int16 ref-plane copies (native inter)
@@ -1479,7 +1479,8 @@ class IntraEncoder:
                         planes16.append(None)
                     # ME runs on the pre-weighted plane under WP (the
                     # exact plane _motion_search_rect would pad)
-                    padded = self._padded_i16(self._search_plane(l, r), R)
+                    padded = self._padded(self._search_plane(l, r), R,
+                                          np.int16)
                     if wp_any:
                         tab = self.cur_wp if l == 0 else \
                             getattr(self, "cur_wp_l1", None)
@@ -1570,20 +1571,28 @@ class IntraEncoder:
         banks = [self.bank[k] for k in _NATIVE_BANK_KEYS]
         return _NativeRecOps(kind, a, b, marks, banks)
 
-    def _padded_i16(self, plane, R):
-        """Edge-padded int16 copy of a reference plane (pad = R + 8),
-        cached per plane object for the current picture."""
-        cache = getattr(self, "_pad16_cache", None)
+    def _padded(self, plane, R, dtype):
+        """Edge-padded copy of a reference plane (pad = R + 8) in dtype,
+        cached per plane object and dtype for the current picture."""
+        cache = getattr(self, "_padded_cache", None)
         if cache is None:
-            cache = self._pad16_cache = {}
-        key = id(plane)
+            cache = self._padded_cache = {}
+        key = (id(plane), np.dtype(dtype).str)
         hit = cache.get(key)
         if hit is not None and hit[0] is plane and hit[1] == R:
             return hit[2]
         padded = np.ascontiguousarray(
-            np.pad(plane, R + 8, mode="edge"), np.int16)
+            np.pad(plane, R + 8, mode="edge"), dtype)
         cache[key] = (plane, R, padded)
         return padded
+
+    def _native_search(self, lib, name):
+        """(entry point, sample type) of encsearch.cpp's `name`: the int16
+        form up to 12 bits, where it holds every sample and intermediate,
+        and the int32 form (`name`32) above."""
+        if self.cfg.bit_depth > 12:
+            return getattr(lib, name + "32"), np.int32
+        return getattr(lib, name), np.int16
 
     def _ref_plane(self, comp, l, ref_idx=0):
         # cached per picture so the returned slice has a stable identity —
@@ -1970,12 +1979,13 @@ class IntraEncoder:
         if lib is not None:
             # native window SAD + HAD frac refine (encsearch.cpp biRefine)
             R = cfg.search_range
-            padded = self._padded_i16(plane, R)
-            t16 = np.ascontiguousarray(target, np.int16)  # fits for bd<=14
+            refine, dt = self._native_search(lib, "enc_bi_refine")
+            padded = self._padded(plane, R, dt)
+            tmpl = np.ascontiguousarray(target, dt)
             out = np.zeros(3, np.int64)
-            lib.enc_bi_refine(
+            refine(
                 padded.ctypes.data, padded.shape[1], padded.shape[0],
-                R + 8, t16.ctypes.data, px, py, w, h, R,
+                R + 8, tmpl.ctypes.data, px, py, w, h, R,
                 int(pred_mv[0]), int(pred_mv[1]),
                 float(self._lam_motion), cfg.bit_depth,
                 int(start_mv[0]), int(start_mv[1]),
@@ -2444,12 +2454,13 @@ class IntraEncoder:
             # reference plane (see _search_plane) — interpolation is linear
             # and the 8-tap kernels sum to 64, so the affine map passes
             # through the fractional stages unchanged up to rounding.
-            padded = self._padded_i16(plane, R)
-            o16 = np.ascontiguousarray(orig, np.int16)
+            search, dt = self._native_search(lib, "enc_me_search")
+            padded = self._padded(plane, R, dt)
+            blk = np.ascontiguousarray(orig, dt)
             out = np.zeros(3, np.int64)
-            lib.enc_me_search(
+            search(
                 padded.ctypes.data, padded.shape[1],
-                padded.shape[0], R + 8, o16.ctypes.data,
+                padded.shape[0], R + 8, blk.ctypes.data,
                 px, py, w, h, R, int(pred_mv[0]), int(pred_mv[1]),
                 float(self._lam_motion), cfg.bit_depth,
                 1 if getattr(cfg, "fast_search", 1) else 0,

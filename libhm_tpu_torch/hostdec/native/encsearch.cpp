@@ -157,12 +157,18 @@ static inline int mvBits(int dx, int dy) {
 // ---------------------------------------------------------------------------
 // Luma qpel interpolation over an unpadded plane, clamped gathers — exact
 // mirror of hostdec/motion.py _interp (taps=8) for is_last both ways.
-// dst receives w*h int16 samples (clipped Pel when isLast, IF-precision
-// intermediates otherwise).
+// dst receives w*h samples of T (clipped Pel when isLast, IF-precision
+// intermediates otherwise).  T = int16_t holds them at bit depths up to 12
+// (AVX2 rows); T = int32_t at every depth 8-16, on int32 intermediates with
+// H.265's shifts (8.5.3.3.3.1: shift1 = 6 - hr = Min(4, bd - 8), shift3 =
+// hr = Max(2, 14 - bd)) and scalar loops, as recon.cpp's interpWide: from
+// 13 bits on the first stage passes 2^15 on hard edges.
 // ---------------------------------------------------------------------------
-static void interpLuma(const int16_t* ref, int W, int H, long long stride,
+template <typename T>
+static void interpLuma(const T* ref, int W, int H, long long stride,
                        int x, int y, int w, int h, int mvx, int mvy,
-                       int bd, bool isLast, int16_t* dst) {
+                       int bd, bool isLast, T* dst) {
+  constexpr bool kWide = std::is_same<T, int32_t>::value;
   int fx = mvx & 3, fy = mvy & 3;
   int ix = x + (mvx >> 2), iy = y + (mvy >> 2);
   int headroom = kIfPrec - bd;
@@ -177,10 +183,12 @@ static void interpLuma(const int16_t* ref, int W, int H, long long stride,
   const int* fv = kLumaF[fy];
   bool interior = ix - 3 >= 0 && ix + w + 3 < W && iy - 3 >= 0 && iy + h + 3 < H;
   if (fx == 0 && fy == 0) {
+    // the int16 form keeps 14 - bd, which equals hr up to 12 bits
+    int up = kWide ? hr : headroom;
     for (int j = 0; j < h; j++)
       for (int i = 0; i < w; i++) {
         int v = S(iy + j, ix + i);
-        dst[j * w + i] = (int16_t)(isLast ? v : (v << headroom) - kIfOffs);
+        dst[j * w + i] = (T)(isLast ? v : (v << up) - kIfOffs);
       }
     return;
   }
@@ -192,29 +200,31 @@ static void interpLuma(const int16_t* ref, int W, int H, long long stride,
     else { shift -= hr; offset = -(kIfOffs << shift); }
     for (int j = 0; j < h; j++) {
       if (interior) {
-        const int16_t* row = ref + (long long)(iy + j) * stride + ix - 3;
+        const T* row = ref + (long long)(iy + j) * stride + ix - 3;
 #if defined(__AVX2__)
-        hevc::simd::hfilt<8>(row, w, fh, acc32);
-        if (isLast)
-          hevc::simd::shiftClipStore(acc32, w, offset, shift, maxv,
-                                     dst + (long long)j * w);
-        else
-          hevc::simd::shiftNarrow(acc32, w, offset, shift,
-                                  dst + (long long)j * w);
-#else
+        if constexpr (!kWide) {
+          hevc::simd::hfilt<8>(row, w, fh, acc32);
+          if (isLast)
+            hevc::simd::shiftClipStore(acc32, w, offset, shift, maxv,
+                                       dst + (long long)j * w);
+          else
+            hevc::simd::shiftNarrow(acc32, w, offset, shift,
+                                    dst + (long long)j * w);
+          continue;
+        }
+#endif
         for (int i = 0; i < w; i++) {
           int acc = 0;
           for (int k = 0; k < 8; k++) acc += fh[k] * row[i + k];
           int v = (acc + offset) >> shift;
-          dst[j * w + i] = (int16_t)(isLast ? clip3(0, maxv, v) : v);
+          dst[j * w + i] = (T)(isLast ? clip3(0, maxv, v) : v);
         }
-#endif
       } else {
         for (int i = 0; i < w; i++) {
           int acc = 0;
           for (int k = 0; k < 8; k++) acc += fh[k] * S(iy + j, ix + i + k - 3);
           int v = (acc + offset) >> shift;
-          dst[j * w + i] = (int16_t)(isLast ? clip3(0, maxv, v) : v);
+          dst[j * w + i] = (T)(isLast ? clip3(0, maxv, v) : v);
         }
       }
     }
@@ -226,29 +236,31 @@ static void interpLuma(const int16_t* ref, int W, int H, long long stride,
     else { shift -= hr; offset = -(kIfOffs << shift); }
     for (int j = 0; j < h; j++) {
       if (interior) {
-        const int16_t* col = ref + (long long)(iy + j - 3) * stride + ix;
+        const T* col = ref + (long long)(iy + j - 3) * stride + ix;
 #if defined(__AVX2__)
-        hevc::simd::vfilt<8>(col, stride, w, fv, acc32);
-        if (isLast)
-          hevc::simd::shiftClipStore(acc32, w, offset, shift, maxv,
-                                     dst + (long long)j * w);
-        else
-          hevc::simd::shiftNarrow(acc32, w, offset, shift,
-                                  dst + (long long)j * w);
-#else
+        if constexpr (!kWide) {
+          hevc::simd::vfilt<8>(col, stride, w, fv, acc32);
+          if (isLast)
+            hevc::simd::shiftClipStore(acc32, w, offset, shift, maxv,
+                                       dst + (long long)j * w);
+          else
+            hevc::simd::shiftNarrow(acc32, w, offset, shift,
+                                    dst + (long long)j * w);
+          continue;
+        }
+#endif
         for (int i = 0; i < w; i++) {
           int acc = 0;
           for (int k = 0; k < 8; k++) acc += fv[k] * col[k * stride + i];
           int v = (acc + offset) >> shift;
-          dst[j * w + i] = (int16_t)(isLast ? clip3(0, maxv, v) : v);
+          dst[j * w + i] = (T)(isLast ? clip3(0, maxv, v) : v);
         }
-#endif
       } else {
         for (int i = 0; i < w; i++) {
           int acc = 0;
           for (int k = 0; k < 8; k++) acc += fv[k] * S(iy + j + k - 3, ix + i);
           int v = (acc + offset) >> shift;
-          dst[j * w + i] = (int16_t)(isLast ? clip3(0, maxv, v) : v);
+          dst[j * w + i] = (T)(isLast ? clip3(0, maxv, v) : v);
         }
       }
     }
@@ -257,26 +269,28 @@ static void interpLuma(const int16_t* ref, int W, int H, long long stride,
   // two stages: H (is_first, not last) then V (not first)
   int sh1 = 6 - hr;
   int off1 = -(kIfOffs << sh1);
-  static thread_local std::vector<int16_t> tmp;
+  static thread_local std::vector<T> tmp;
   tmp.resize((size_t)(h + 7) * w);
   for (int j = 0; j < h + 7; j++) {
     if (interior) {
-      const int16_t* row = ref + (long long)(iy + j - 3) * stride + ix - 3;
+      const T* row = ref + (long long)(iy + j - 3) * stride + ix - 3;
 #if defined(__AVX2__)
-      hevc::simd::hfilt<8>(row, w, fh, acc32);
-      hevc::simd::shiftNarrow(acc32, w, off1, sh1, &tmp[(size_t)j * w]);
-#else
+      if constexpr (!kWide) {
+        hevc::simd::hfilt<8>(row, w, fh, acc32);
+        hevc::simd::shiftNarrow(acc32, w, off1, sh1, &tmp[(size_t)j * w]);
+        continue;
+      }
+#endif
       for (int i = 0; i < w; i++) {
         int acc = 0;
         for (int k = 0; k < 8; k++) acc += fh[k] * row[i + k];
-        tmp[(size_t)j * w + i] = (int16_t)((acc + off1) >> sh1);
+        tmp[(size_t)j * w + i] = (T)((acc + off1) >> sh1);
       }
-#endif
     } else {
       for (int i = 0; i < w; i++) {
         int acc = 0;
         for (int k = 0; k < 8; k++) acc += fh[k] * S(iy + j - 3, ix + i + k - 3);
-        tmp[(size_t)j * w + i] = (int16_t)((acc + off1) >> sh1);
+        tmp[(size_t)j * w + i] = (T)((acc + off1) >> sh1);
       }
     }
   }
@@ -285,20 +299,22 @@ static void interpLuma(const int16_t* ref, int W, int H, long long stride,
   else { sh2 = 6; off2 = 0; }
   for (int j = 0; j < h; j++) {
 #if defined(__AVX2__)
-    hevc::simd::vfilt<8>(tmp.data() + (size_t)j * w, w, w, fv, acc32);
-    if (isLast)
-      hevc::simd::shiftClipStore(acc32, w, off2, sh2, maxv,
-                                 dst + (long long)j * w);
-    else
-      hevc::simd::shiftNarrow(acc32, w, off2, sh2, dst + (long long)j * w);
-#else
+    if constexpr (!kWide) {
+      hevc::simd::vfilt<8>(tmp.data() + (size_t)j * w, w, w, fv, acc32);
+      if (isLast)
+        hevc::simd::shiftClipStore(acc32, w, off2, sh2, maxv,
+                                   dst + (long long)j * w);
+      else
+        hevc::simd::shiftNarrow(acc32, w, off2, sh2, dst + (long long)j * w);
+      continue;
+    }
+#endif
     for (int i = 0; i < w; i++) {
       int acc = 0;
       for (int k = 0; k < 8; k++) acc += fv[k] * tmp[(size_t)(j + k) * w + i];
       int v = (acc + off2) >> sh2;
-      dst[j * w + i] = (int16_t)(isLast ? clip3(0, maxv, v) : v);
+      dst[j * w + i] = (T)(isLast ? clip3(0, maxv, v) : v);
     }
-#endif
   }
 }
 
@@ -307,10 +323,15 @@ static void interpLuma(const int16_t* ref, int W, int H, long long stride,
 // edge-padded plane) then two-stage half/quarter refinement (SATD-costed
 // predictions through the exact MC interpolator above).
 // ---------------------------------------------------------------------------
-struct MeArgs {
-  const int16_t* padded;  // (H+2p) x (W+2p) edge-padded reference plane
+// T is the sample type of the plane and the block: int16_t up to 12 bits
+// (the int16 exports and encctu.cpp), int32_t at 8-16 bits (the *32
+// exports).  A template difference is under 2^17 at 16 bits, so a row's
+// SAD over 64 samples and satdBlock's int32 sums keep their headroom.
+template <typename T>
+struct MeArgsT {
+  const T* padded;        // (H+2p) x (W+2p) edge-padded reference plane
   int pw, ph, pad;        // padded dims + pad
-  const int16_t* orig;    // w*h block (or bi template 2*orig - predOther)
+  const T* orig;          // w*h block (or bi template 2*orig - predOther)
   int px, py, w, h;       // PU position in unpadded coords, size
   int R;                  // integer search range
   int pmx, pmy;           // AMVP predictor (qpel)
@@ -319,17 +340,34 @@ struct MeArgs {
   int fast;               // 1 = TZ, 0 = exhaustive
   int subShift = 0;       // FEN subsampled SAD: rows stepped 1<<subShift
 };
+using MeArgs = MeArgsT<int16_t>;
 
 long long g_sadCalls = 0, g_hadCalls = 0, g_meCalls = 0, g_sadPels = 0;
-static long long sadAt(const MeArgs& a, int dx, int dy) {
+template <typename T>
+static long long sadAt(const MeArgsT<T>& a, int dx, int dy) {
   g_sadCalls++; g_sadPels += (long long)a.w * (a.h >> a.subShift);
-  const int16_t* p =
-      a.padded + (long long)(a.py + dy + a.pad) * a.pw + a.px + dx + a.pad;
+  int y0 = a.py + dy + a.pad, x0 = a.px + dx + a.pad;
   long long s = 0;
   int step = 1 << a.subShift;   // FEN: every other row for tall blocks
+  if (y0 < 0 || x0 < 0 || y0 + a.h > a.ph || x0 + a.w > a.pw) {
+    // a window past the padding (biRefine's int32 form): clamped gathers,
+    // which read what the Python search's clipped ones read
+    for (int j = 0; j < a.h; j += step) {
+      const T* row = a.padded + (long long)clip3(0, a.ph - 1, y0 + j) * a.pw;
+      const T* o = a.orig + (long long)j * a.w;
+      int acc = 0;
+      for (int i = 0; i < a.w; i++) {
+        int d = row[clip3(0, a.pw - 1, x0 + i)] - o[i];
+        acc += d < 0 ? -d : d;
+      }
+      s += acc;
+    }
+    return s << a.subShift;
+  }
+  const T* p = a.padded + (long long)y0 * a.pw + x0;
   for (int j = 0; j < a.h; j += step) {
-    const int16_t* row = p + (long long)j * a.pw;
-    const int16_t* o = a.orig + (long long)j * a.w;
+    const T* row = p + (long long)j * a.pw;
+    const T* o = a.orig + (long long)j * a.w;
     int acc = 0;
     for (int i = 0; i < a.w; i++) {
       int d = row[i] - o[i];
@@ -343,7 +381,8 @@ static long long sadAt(const MeArgs& a, int dx, int dy) {
 static const int kDiamond[8][2] = {{0, -1}, {0, 1},  {-1, 0}, {1, 0},
                                    {-1, -1}, {1, -1}, {-1, 1}, {1, 1}};
 
-void meSearch(const MeArgs& a, int64_t out[3]) {
+template <typename T>
+void meSearch(const MeArgsT<T>& a, int64_t out[3]) {
   g_meCalls++;
   int dsh = a.bd - 8;
   int side = 2 * a.R + 1;
@@ -417,7 +456,7 @@ void meSearch(const MeArgs& a, int64_t out[3]) {
 
   // fractional refinement, Hadamard-costed.  The padded plane doubles as
   // the reference: every gather stays inside pad = R + 8.
-  static thread_local std::vector<int16_t> pred;
+  static thread_local std::vector<T> pred;
   pred.resize((size_t)a.w * a.h);
   static thread_local std::vector<int32_t> diff;
   diff.resize((size_t)a.w * a.h);
@@ -451,13 +490,18 @@ void meSearch(const MeArgs& a, int64_t out[3]) {
 // encoder.py _bi_window_search): +-4 integer SAD window around the
 // current MV against the 2*orig - predOther template, then the same
 // two-stage Hadamard fractional refine as meSearch.  orig holds the
-// template (fits int16 for bit depths <= 14).
-void biRefine(const MeArgs& a, int startMvX, int startMvY, int64_t out[3]) {
+// template, which needs int32 samples above 12 bits.
+template <typename T>
+void biRefine(const MeArgsT<T>& a, int startMvX, int startMvY,
+              int64_t out[3]) {
   int dsh = a.bd - 8;
-  // clamp the window center into the padded plane's safe range (the MV
-  // can drift past R over repeated template passes; sadAt doesn't clamp)
-  int cx = clip3(-a.R, a.R, startMvX >> 2);
-  int cy = clip3(-a.R, a.R, startMvY >> 2);
+  // The MV can drift past R over repeated template passes.  The int16 form
+  // clamps the window center into +-R, where every window lies inside the
+  // padded plane (the 8-12-bit streams' bytes hold that); the int32 form
+  // centers it where the Python search does (sadAt clamps its gathers).
+  constexpr bool kWide = std::is_same<T, int32_t>::value;
+  int cx = kWide ? startMvX >> 2 : clip3(-a.R, a.R, startMvX >> 2);
+  int cy = kWide ? startMvY >> 2 : clip3(-a.R, a.R, startMvY >> 2);
   double best = -1.0;
   int bx = cx, by = cy;
   for (int dy = -4; dy <= 4; dy++)
@@ -467,7 +511,7 @@ void biRefine(const MeArgs& a, int startMvX, int startMvY, int64_t out[3]) {
                                 ((cy + dy) << 2) - a.pmy);
       if (best < 0 || c < best) { best = c; bx = cx + dx; by = cy + dy; }
     }
-  static thread_local std::vector<int16_t> pred;
+  static thread_local std::vector<T> pred;
   pred.resize((size_t)a.w * a.h);
   static thread_local std::vector<int32_t> diff;
   diff.resize((size_t)a.w * a.h);
@@ -540,6 +584,33 @@ void enc_bi_refine(const int16_t* padded, int pw, int ph, int pad,
 void enc_interp_luma(const int16_t* plane, int W, int H, long long stride,
                      int x, int y, int w, int h, int mvx, int mvy,
                      int bd, int isLast, int16_t* dst) {
+  hevc::enc::interpLuma(plane, W, H, stride, x, y, w, h, mvx, mvy, bd,
+                        isLast != 0, dst);
+}
+
+// The same search on int32 planes, blocks and templates: exact at 8-16
+// bits (the int16 forms above hold samples up to 12 bits).
+void enc_me_search32(const int32_t* padded, int pw, int ph, int pad,
+                     const int32_t* orig, int px, int py, int w, int h,
+                     int R, int pmx, int pmy, double lam, int bd, int fast,
+                     int sub, int64_t* out) {
+  hevc::enc::MeArgsT<int32_t> a{padded, pw, ph, pad, orig, px, py, w, h,
+                                R, pmx, pmy, lam, bd, fast, sub};
+  hevc::enc::meSearch(a, out);
+}
+
+void enc_bi_refine32(const int32_t* padded, int pw, int ph, int pad,
+                     const int32_t* target, int px, int py, int w, int h,
+                     int R, int pmx, int pmy, double lam, int bd,
+                     int startMvX, int startMvY, int sub, int64_t* out) {
+  hevc::enc::MeArgsT<int32_t> a{padded, pw, ph, pad, target, px, py, w, h,
+                                R, pmx, pmy, lam, bd, 1, sub};
+  hevc::enc::biRefine(a, startMvX, startMvY, out);
+}
+
+void enc_interp_luma32(const int32_t* plane, int W, int H, long long stride,
+                       int x, int y, int w, int h, int mvx, int mvy,
+                       int bd, int isLast, int32_t* dst) {
   hevc::enc::interpLuma(plane, W, H, stride, x, y, w, h, mvx, mvy, bd,
                         isLast != 0, dst);
 }

@@ -98,6 +98,10 @@ def _load():
         C.c_void_p, C.c_int, C.c_int, C.c_longlong,
         C.c_int, C.c_int, C.c_int, C.c_int, C.c_int, C.c_int,
         C.c_int, C.c_int, C.c_void_p]
+    # their int32 forms, exact at 8-16 bits (the int16 ones up to 12)
+    lib.enc_me_search32.argtypes = lib.enc_me_search.argtypes
+    lib.enc_bi_refine32.argtypes = lib.enc_bi_refine.argtypes
+    lib.enc_interp_luma32.argtypes = lib.enc_interp_luma.argtypes
     lib.enc_residual_bits.restype = C.c_double
     lib.enc_residual_bits.argtypes = [
         C.c_void_p, C.c_int, C.c_int, C.c_int, C.c_int, C.c_int, C.c_int,

@@ -10,6 +10,12 @@ chip_smoke.py's encoder phase.
   one picture that the encoder codes partly as PCM; `noise_picture`,
   `C3_CASES` and `c3_config`: the pictures on which a rejected PCM trial
   left its marks (ROADMAP C3);
+- `recipe_input(cfg)`: the EncoderConfig and pictures of a cfg's recipe
+  as the port's enc_app reads them; `RA16` and `RA16_MD5`: the stream
+  that the port's encoder writes for mono16_ra_160x96's recipe;
+- `edge_frames(...)`: `frames` with a moving texture of 0/max blocks on
+  the right half of the luma, whose qpel intermediates pass 2^15 from 13
+  bits on;
 - `decode_statuses`: the port's decode_batch of a stream with every
   checked hash SEI's status;
 - `CASES` and `encode`: the small encoder configurations that the port
@@ -48,6 +54,75 @@ def recipe_source(cfg_path):
     n = int(re.search(r"^FramesToBeEncoded\s*:\s*(\d+)", text,
                       re.M).group(1))
     return buf.getvalue(), n
+
+
+# The port's encoder on mono16_ra_160x96's recipe (Monochrome 16, random
+# access, search range 64) on the CPU, with IntraEncoder._motion_search_rect
+# and _bi_window_search on their Python path: 1217 bytes of this MD5, made
+# once by `enc_app.main(["-c", "testdata/mono16_ra_160x96.cfg", "-i",
+# "src.yuv", "-b", "out.bin", "--device", "cpu"])` on `recipe_source`'s
+# src.yuv, with each of the two methods wrapped to set
+# IntraEncoder._ENC_NATIVE to (None,) for the length of its call (the
+# encoder's other native kernels on).  The native search's int32 form
+# writes the same bytes.  testdata/mono16_ra_160x96.bin (1318 bytes) was
+# made before, with the int16 form that narrowed 16-bit samples (ROADMAP
+# C14).
+RA16 = "mono16_ra_160x96"
+RA16_MD5 = "621399c6a11a1698e47dc7dda2aa3e64"
+
+
+def recipe_input(cfg_path):
+    """(EncoderConfig, pictures) of a cfg whose recipe writes its source
+    at the internal bit depth, read as the port's enc_app reads them."""
+    from libhm_tpu_torch.encoder.options import HmConfig, parse_cfg_files
+    hm = HmConfig(parse_cfg_files([cfg_path]))
+    cfg = hm.to_encoder_config()
+    assert hm.get("input_bit_depth", cfg.bit_depth) == cfg.bit_depth
+    src, n = recipe_source(cfg_path)
+    w, h = cfg.width, cfg.height
+    shapes = [(h, w)]
+    if cfg.chroma_format_idc:
+        sx = 1 if cfg.chroma_format_idc in (1, 2) else 0
+        sy = 1 if cfg.chroma_format_idc == 1 else 0
+        shapes += [(h >> sy, w >> sx)] * 2
+    dt = np.uint8 if cfg.bit_depth <= 8 else np.dtype("<u2")
+    raw = np.frombuffer(src, dt).astype(
+        np.uint8 if cfg.bit_depth <= 8 else np.uint16)
+    pics, at = [], 0
+    for _ in range(n):
+        pic = []
+        for sh in shapes:
+            pic.append(raw[at:at + sh[0] * sh[1]].reshape(sh))
+            at += sh[0] * sh[1]
+        pics.append(tuple(pic))
+    return cfg, pics
+
+
+def edge_frames(w, h, n, *, bd, seed=7):
+    """`frames(w, h, n, bd=bd)` with the right half of each luma plane
+    replaced by seeded noise, each sample 0 or (1 << bd) - 1, moved 1.25
+    samples right and 0.75 down a picture by H.265's 8-tap luma filters
+    (one rounding, clipped): its best matches lie at fractional MVs, where
+    the first filter stage, (sum c * s) >> Min(4, bd - 8), reaches up to
+    88 * ((1 << bd) - 1) >> 4, past 2^15 from 13 bits on."""
+    taps = np.array([[0, 0, 0, 64, 0, 0, 0, 0],
+                     [-1, 4, -10, 58, 17, -5, 1, 0],
+                     [-1, 4, -11, 40, 40, -11, 4, -1],
+                     [0, 1, -5, 17, 58, -10, 4, -1]], np.int64)
+    rng = np.random.default_rng(seed)
+    m = 8 + 2 * n                     # margin of the texture, in samples
+    tex = rng.integers(0, 2, (h + 2 * m, w // 2 + 2 * m)) * ((1 << bd) - 1)
+    out = []
+    for t, (y, u, v) in enumerate(frames(w, h, n, bd=bd, seed=seed)):
+        # the texture at (row - 0.75 t, column - 1.25 t), in quarters
+        iy, fy, ix, fx = -3 * t >> 2, -3 * t & 3, -5 * t >> 2, -5 * t & 3
+        blk = tex[m + iy - 3:m + iy + h + 4, m + ix - 3:m + ix + w // 2 + 4]
+        r = sum(taps[fx][k] * blk[:, k:k + w // 2] for k in range(8))
+        r = sum(taps[fy][k] * r[k:k + h] for k in range(8))
+        y = y.copy()
+        y[:, w // 2:] = np.clip((r + 2048) >> 12, 0, (1 << bd) - 1)
+        out.append((y, u, v))
+    return out
 
 
 def frames(w, h, n, *, bd=8, chroma=1, seed=7, shift=2):

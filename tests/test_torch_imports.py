@@ -227,7 +227,10 @@ def _hostdec_copies():
 # C.5.2.2), where the JAX package's interleaves the two by POC; the
 # Makefile builds with -fno-gnu-unique, so a process that has loaded the
 # JAX package's build of these sources (another ReconCtx layout) does not
-# lend it its static locals
+# lend it its static locals; native/encsearch.cpp adds an int32 form of the
+# motion search (enc_me_search32, enc_bi_refine32, enc_interp_luma32) that
+# the encoder runs above 12 bits, where the int16 form narrowed samples,
+# templates and first-stage intermediates (ROADMAP C14)
 _EDITED = {"decoder.py", "native_bridge.py", "api.py", "dec_app.py",
            "trace.py", "refimpl.py", "recon_np.py", "encoder.py",
            "enc_app.py", "options.py", "stats.py", "slicedec.py",
@@ -236,7 +239,8 @@ _EDITED = {"decoder.py", "native_bridge.py", "api.py", "dec_app.py",
            os.path.join("native", "hevcdec.h"),
            os.path.join("native", "libhmdec.cpp"),
            os.path.join("native", "api.cpp"),
-           os.path.join("native", "Makefile")}
+           os.path.join("native", "Makefile"),
+           os.path.join("native", "encsearch.cpp")}
 
 # modules of the JAX package whose counterpart in the port has another name
 _RENAMED = {os.path.join("libhm_tpu", "recon_tpu.py"):

@@ -15,6 +15,7 @@ from .params import parse_sps, parse_pps, parse_vps, parse_slice_header, \
 from .picture import PicSyntax
 from .slicedec import SliceDecoder
 from .recon_np import PictureRecon
+from ..utils import obs
 
 
 class DecodedPicture:
@@ -104,15 +105,18 @@ class Decoder:
 
     # ------------------------------------------------------------------
     def decode_annexb(self, data: bytes):
-        if self.parse == "native":
-            from . import native_bridge
-            self._native_queue = list(native_bridge.parse_stream(
-                data, recon=(self.recon == "native")))
-            self._native_pos = 0
-            self._native_whole = True
-        for ebsp in N.split_annexb(data):
-            self.decode_nal(N.parse_nal(ebsp))
-        self.flush()
+        with obs.span("parse"):
+            if self.parse == "native":
+                from . import native_bridge
+                self._native_queue = list(native_bridge.parse_stream(
+                    data, recon=(self.recon == "native")))
+                self._native_pos = 0
+                self._native_whole = True
+            with obs.span("parse.control") as s:
+                for ebsp in N.split_annexb(data):
+                    self.decode_nal(N.parse_nal(ebsp))
+                    s.n += 1
+                self.flush()
         return self.outputs
 
     def decode_nal(self, nalu):

@@ -13,6 +13,7 @@ import numpy as np
 
 from .picture import PicSyntax, TransformUnit, IntraBlock, InterPU
 from . import params as hls
+from ..utils import obs
 
 _DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "native")
 _LIB = None
@@ -73,8 +74,9 @@ def _load():
     global _LIB
     if _LIB is not None:
         return _LIB
-    so = build()
-    lib = C.CDLL(_pick_variant(so))
+    with obs.span("parser.load"):
+        so = build()
+        lib = C.CDLL(_pick_variant(so))
     lib.hevcdec_create.restype = C.c_void_p
     lib.hevcdec_decode.argtypes = [C.c_void_p, C.c_char_p, C.c_size_t]
     lib.hevcdec_feed.argtypes = [C.c_void_p, C.c_char_p, C.c_size_t]
@@ -366,6 +368,8 @@ def parse_stream(data: bytes, recon: bool = False):
     holder = _NativeHandle(lib, h)   # destroys h when the last view dies
     if recon:
         lib.hevcdec_enable_recon(C.c_void_p(h), 1)
-    npic = lib.hevcdec_decode(h, data, len(data))
-    return [_materialize(lib, h, i, recon, view_holder=holder)
-            for i in range(npic)]
+    with obs.span("parse.native") as s:
+        npic = s.n = lib.hevcdec_decode(h, data, len(data))
+    with obs.span("parse.export", npic):
+        return [_materialize(lib, h, i, recon, view_holder=holder)
+                for i in range(npic)]

@@ -23,7 +23,7 @@ from ..hostdec.picture import MODE_INTRA
 
 from ..ops import intra as IK
 from ..ops import transform as TK
-from ..utils import xfer
+from ..utils import obs, xfer
 from .intra_wavefront import prepare_component
 
 
@@ -208,7 +208,9 @@ def _residual_planes_batch_device(items, Bp, device):
         sy = sps0.chroma_shift_y() if c else 0
         res_stacked.append(torch.zeros((Bp, Hp >> sy, Wp >> sx),
                                        dtype=torch.int32, device=device))
-    tables, lists = residual_tables(items)
+    with obs.span("prep.residual") as span:
+        tables, lists = residual_tables(items)
+        span.n = sum(len(rows) for rows, _, _, _ in tables)
     mats = _MatrixTable(lists, device).tables
     # luma first: the chroma launches' CCP rows read its finished residual,
     # scaled by the two bit depths (H.265 8.6.6)
@@ -283,7 +285,9 @@ def intra_table(items, comp):
 def intra_meta(items, comp, device):
     """The uploaded table of one component's intra wavefront (intra_table):
     {"blocks": uint8 [N, 32], "count": int32 [L]} on `device`, or None."""
-    built = intra_table(items, comp)
+    with obs.span("prep.intra") as span:
+        built = intra_table(items, comp)
+        span.n = 0 if built is None else len(built[0])
     if built is None:
         return None
     rows, count = built

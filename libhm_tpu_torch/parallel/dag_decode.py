@@ -31,8 +31,16 @@ port follows H.265: cross-component prediction scales the luma residual
 by the two bit depths (8.6.6), and weighted prediction under
 high_precision_offsets_enabled_flag takes its offsets unshifted
 (7.4.7.3).  Nothing falls back to another backend.
+
+Each entry point is one request of the span recorder (utils/obs.py):
+`decode` holds `parse` (its parts `parse.native`, `parse.export`,
+`parse.control`), `recon` with one `recon.level` a level and shard (the
+host preparation `prep.residual`, `prep.pcm`, `prep.inter`,
+`prep.intra`, `prep.filter`, the copies `upload.<tag>`, the narrowing
+copies `recon.narrow`), and a `download` a picture.
 """
 import contextlib
+import contextvars
 
 import numpy as np
 import torch
@@ -43,7 +51,7 @@ from ..ops import checksum as CK
 from ..ops import interp as IK
 from ..ops import pcm as PK
 from ..recon_torch import _device_plane
-from ..utils import xfer
+from ..utils import obs, xfer
 
 
 # ---------------------------------------------------------------------------
@@ -183,10 +191,13 @@ def _inter_level(items, stacked_all, res_all, device):
     Levels without weighted prediction take the map-driven full-grid path
     (K5); WP levels take per-block arrays with the WP epilogue (K6).
     """
-    if not any(getattr(pu, "wp", None) is not None
-               for it in items for pu in it["pic"].inter_list):
-        return _inter_level_grid(items, stacked_all, res_all, device)
-    return _inter_level_gathered(items, stacked_all, res_all, device)
+    with obs.span("prep.inter", sum(
+            int(np.count_nonzero(np.asarray(it["pic"].pred_mode) ==
+                                 MODE_INTER)) for it in items)):
+        if not any(getattr(pu, "wp", None) is not None
+                   for it in items for pu in it["pic"].inter_list):
+            return _inter_level_grid(items, stacked_all, res_all, device)
+        return _inter_level_gathered(items, stacked_all, res_all, device)
 
 
 def _tile_nonzero(mask):
@@ -309,14 +320,17 @@ def _inter_level_gathered(items, stacked_all, res_all, device):
 def _pcm_level(items, stacked, device):
     """PCM samples of a level into its zeroed planes, before MC: one packed
     upload and one K9 launch for every component's blocks."""
-    blocks = []
-    for b, it in enumerate(items):
-        sps = it["sps"]
-        for (c, x, y, w, h, samples, bits) in it["pic"].pcm_list:
-            bd = sps.bit_depth_luma if c == 0 else sps.bit_depth_chroma
-            blocks.append((c, b, x, y, w, h, bd - bits, samples))
+    with obs.span("prep.pcm") as span:
+        blocks = []
+        for b, it in enumerate(items):
+            sps = it["sps"]
+            for (c, x, y, w, h, samples, bits) in it["pic"].pcm_list:
+                bd = sps.bit_depth_luma if c == 0 else sps.bit_depth_chroma
+                blocks.append((c, b, x, y, w, h, bd - bits, samples))
+        span.n = len(blocks)
+        if blocks:
+            buf, counts = PK.pcm_pack(blocks)
     if blocks:
-        buf, counts = PK.pcm_pack(blocks)
         PK.pcm_level(stacked, PK.pcm_table(xfer.up(buf, "pcm", device),
                                            counts))
 
@@ -361,12 +375,14 @@ def _recon_levels(items, devices, download=True):
     devices = [_as_device(d) for d in devices]
     sps0 = items[0]["sps"]
     pending = []
-    for lv_items in reference_levels(items):
-        for k, shard in _shards(lv_items, len(devices)):
-            with _on(devices[k]):
-                pending += _recon_shard(shard, sps0, devices[k], download)
-            for it in shard:
-                it["device_index"] = k
+    with obs.span("recon", len(items)):
+        for lv_items in reference_levels(items):
+            for k, shard in _shards(lv_items, len(devices)):
+                with _on(devices[k]), obs.span("recon.level", len(shard)):
+                    pending += _recon_shard(shard, sps0, devices[k],
+                                            download)
+                for it in shard:
+                    it["device_index"] = k
     return pending
 
 
@@ -391,20 +407,21 @@ def _recon_shard(items, sps0, device, download):
                                   device)
     stacked = filter_level(items, stacked, sps0, device)
     pending = []
-    for b, it in enumerate(items):
-        sps = it["sps"]
-        cache = {}
-        small = []
-        for c in range(ncomp):
-            sx, sy, _, Wc, Hc = _comp_geometry(sps, c)
-            cache[(c, Hc, Wc)] = stacked[c][b, :Hc, :Wc]
-            if download:
-                # two bytes a sample: the low 16 bits of samples of up to
-                # 16 bits, in an int16 (torch's uint16 support is thin);
-                # _download reads them back unsigned
-                small.append(stacked[c][b].to(torch.int16))
-        it["dp"]._device_planes = cache
-        pending.append((it["dp"], it, small))
+    with obs.span("recon.narrow", B if download else 0):
+        for b, it in enumerate(items):
+            sps = it["sps"]
+            cache = {}
+            small = []
+            for c in range(ncomp):
+                sx, sy, _, Wc, Hc = _comp_geometry(sps, c)
+                cache[(c, Hc, Wc)] = stacked[c][b, :Hc, :Wc]
+                if download:
+                    # two bytes a sample: the low 16 bits of samples of up
+                    # to 16 bits, in an int16 (torch's uint16 support is
+                    # thin); _download reads them back unsigned
+                    small.append(stacked[c][b].to(torch.int16))
+            it["dp"]._device_planes = cache
+            pending.append((it["dp"], it, small))
     return pending
 
 
@@ -412,10 +429,12 @@ def _download(small):
     """Host int32 planes of one picture's int16 device planes, whose bits
     are uint16 samples (D2H counted)."""
     planes = []
-    for s in small:
-        a = s.cpu().numpy()
-        xfer.count_d2h(a.nbytes)
-        planes.append(a.view(np.uint16).astype(np.int32))
+    with obs.span("download") as span:
+        for s in small:
+            a = s.cpu().numpy()
+            xfer.count_d2h(a.nbytes)
+            span.n += a.nbytes
+            planes.append(a.view(np.uint16).astype(np.int32))
     return planes
 
 
@@ -488,15 +507,18 @@ def decode_batch(data, *, device=None, devices=None, parse="native",
     from ..hostdec.decoder import Decoder
 
     devices = _check_devices(device, devices, "decode_batch")
-    dec = Decoder(parse=parse, recon="collect",
-                  check_sei_hash=check_sei_hash)
-    dec.decode_annexb(data)
-    items = getattr(dec, "collected", [])
-    if not items:
-        return []
-    _check_geometry(items, "decode_batch")
-    pending = _recon_levels(items, devices)
-    return _materialize(dec, pending, check_sei_hash)
+    with obs.request() as call:
+        dec = Decoder(parse=parse, recon="collect",
+                      check_sei_hash=check_sei_hash)
+        dec.decode_annexb(data)
+        items = getattr(dec, "collected", [])
+        if not items:
+            return []
+        _check_geometry(items, "decode_batch")
+        pending = _recon_levels(items, devices)
+        outs = _materialize(dec, pending, check_sei_hash)
+        call.n = len(outs)
+    return outs
 
 
 def decode_batch_device(data, *, device=None, devices=None, parse="native"):
@@ -512,52 +534,56 @@ def decode_batch_device(data, *, device=None, devices=None, parse="native"):
     each device over the pictures it reconstructed, and the host adds the
     partial sums mod 2^32 (4 bytes down per device that holds a picture).
 
-    Returns (parse_seconds, compute_seconds, checksum_int, n_pictures).
+    Returns (parse_seconds, compute_seconds, checksum_int, n_pictures),
+    the seconds on time.perf_counter(), the clock of the spans (obs).
     """
     import time
 
     from ..hostdec.decoder import Decoder
 
     devices = _check_devices(device, devices, "decode_batch_device")
-    dec = Decoder(parse=parse, recon="collect")
-    t0 = time.monotonic()
-    dec.decode_annexb(data)
-    t1 = time.monotonic()
-    items = getattr(dec, "collected", [])
-    if not items:
-        return t1 - t0, 0.0, 0, 0
-    _check_geometry(items, "decode_batch_device")
-    pending = _recon_levels(items, devices, download=False)
-    owner = {id(dp): it["device_index"] for dp, it, _ in pending}
-    views = [[] for _ in devices]
-    # sum over the bumped output list so the checksum covers exactly the
-    # pictures (and geometry) that cropped_checksum(Decoder.outputs) sees
-    for dp in dec.output_records:
-        sps = dp.sps
-        ncomp = 3 if sps.chroma_format_idc else 1
-        cl, cr, ct, cb = sps.conf_win
-        for c in range(ncomp):
-            sx = sps.chroma_shift_x() if c else 0
-            sy = sps.chroma_shift_y() if c else 0
-            w = sps.width >> sx
-            h = sps.height >> sy
-            mulx = 1 if c else (1 << sps.chroma_shift_x())
-            muly = 1 if c else (1 << sps.chroma_shift_y())
-            view = dp._device_planes[(c, h, w)]
-            views[owner[id(dp)]].append(view[ct * muly:h - cb * muly,
-                                             cl * mulx:w - cr * mulx])
-    # every device's launch first, then the reads
-    accs = []
-    for dev, vs in zip(devices, views):
-        if vs:
-            with _on(dev):
-                accs.append(CK.plane_checksum(vs))
-    csum = 0
-    for acc in accs:
-        csum = (csum + int(acc.cpu().item())) & 0xFFFFFFFF
-        xfer.count_d2h(4)
-    t2 = time.monotonic()
-    return t1 - t0, t2 - t1, csum, len(pending)
+    with obs.request() as call:
+        dec = Decoder(parse=parse, recon="collect")
+        t0 = time.perf_counter()
+        dec.decode_annexb(data)
+        t1 = time.perf_counter()
+        items = getattr(dec, "collected", [])
+        if not items:
+            return t1 - t0, 0.0, 0, 0
+        _check_geometry(items, "decode_batch_device")
+        pending = _recon_levels(items, devices, download=False)
+        owner = {id(dp): it["device_index"] for dp, it, _ in pending}
+        views = [[] for _ in devices]
+        # sum over the bumped output list so the checksum covers exactly the
+        # pictures (and geometry) that cropped_checksum(Decoder.outputs) sees
+        for dp in dec.output_records:
+            sps = dp.sps
+            ncomp = 3 if sps.chroma_format_idc else 1
+            cl, cr, ct, cb = sps.conf_win
+            for c in range(ncomp):
+                sx = sps.chroma_shift_x() if c else 0
+                sy = sps.chroma_shift_y() if c else 0
+                w = sps.width >> sx
+                h = sps.height >> sy
+                mulx = 1 if c else (1 << sps.chroma_shift_x())
+                muly = 1 if c else (1 << sps.chroma_shift_y())
+                view = dp._device_planes[(c, h, w)]
+                views[owner[id(dp)]].append(view[ct * muly:h - cb * muly,
+                                                 cl * mulx:w - cr * mulx])
+        # every device's launch first, then the reads
+        accs = []
+        for dev, vs in zip(devices, views):
+            if vs:
+                with _on(dev):
+                    accs.append(CK.plane_checksum(vs))
+        csum = 0
+        with obs.span("download", 4 * len(accs)):
+            for acc in accs:
+                csum = (csum + int(acc.cpu().item())) & 0xFFFFFFFF
+                xfer.count_d2h(4)
+        t2 = time.perf_counter()
+        call.n = len(pending)
+        return t1 - t0, t2 - t1, csum, len(pending)
 
 
 def decode_streams(datas, *, device=None, devices=None, parse="native",
@@ -577,29 +603,36 @@ def decode_streams(datas, *, device=None, devices=None, parse="native",
     from ..hostdec.decoder import Decoder
 
     devices = _check_devices(device, devices, "decode_streams")
-    decs = [Decoder(parse=parse, recon="collect",
-                    check_sei_hash=check_sei_hash) for _ in datas]
-    if threads and len(datas) > 1:
-        from concurrent.futures import ThreadPoolExecutor
-        with ThreadPoolExecutor(max_workers=threads) as ex:
-            list(ex.map(lambda p: p[0].decode_annexb(p[1]),
-                        zip(decs, datas)))
-    else:
-        for dec, data in zip(decs, datas):
-            dec.decode_annexb(data)
-    items_all = [it for dec in decs for it in getattr(dec, "collected", [])]
-    if not items_all:
-        return [[] for _ in datas]
-    _check_geometry(items_all, "decode_streams")
-    pending = _recon_levels(items_all, devices)
-    # split the pending downloads back to their owning stream
-    own = {id(it["dp"]): si for si, dec in enumerate(decs)
-           for it in getattr(dec, "collected", [])}
-    per_stream = [[] for _ in decs]
-    for entry in pending:
-        per_stream[own[id(entry[0])]].append(entry)
-    return [_materialize(dec, pend, check_sei_hash)
-            for dec, pend in zip(decs, per_stream)]
+    with obs.request() as call:
+        decs = [Decoder(parse=parse, recon="collect",
+                        check_sei_hash=check_sei_hash) for _ in datas]
+        if threads and len(datas) > 1:
+            from concurrent.futures import ThreadPoolExecutor
+            # each parse runs in a copy of this context, so that its spans
+            # carry the call's request id
+            with ThreadPoolExecutor(max_workers=threads) as ex:
+                list(ex.map(lambda p: p[2].run(p[0].decode_annexb, p[1]),
+                            zip(decs, datas, [contextvars.copy_context()
+                                              for _ in datas])))
+        else:
+            for dec, data in zip(decs, datas):
+                dec.decode_annexb(data)
+        items_all = [it for dec in decs
+                     for it in getattr(dec, "collected", [])]
+        if not items_all:
+            return [[] for _ in datas]
+        _check_geometry(items_all, "decode_streams")
+        pending = _recon_levels(items_all, devices)
+        # split the pending downloads back to their owning stream
+        own = {id(it["dp"]): si for si, dec in enumerate(decs)
+               for it in getattr(dec, "collected", [])}
+        per_stream = [[] for _ in decs]
+        for entry in pending:
+            per_stream[own[id(entry[0])]].append(entry)
+        outs = [_materialize(dec, pend, check_sei_hash)
+                for dec, pend in zip(decs, per_stream)]
+        call.n = sum(len(o) for o in outs)
+    return outs
 
 
 def cropped_checksum(outs):

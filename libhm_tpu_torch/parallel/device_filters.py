@@ -26,7 +26,7 @@ from ..hostdec.tables import CHROMA_QP_SCALE
 from ..ops import deblock as DK
 from ..ops import loopfilter as LF
 from ..ops import pcm as PK
-from ..utils import xfer
+from ..utils import obs, xfer
 
 _TC_NP = np.asarray(DK.TC_TABLE)
 
@@ -209,8 +209,9 @@ def filter_level(items, stacked, sps, device):
     (K8), which reads the unfiltered input planes.  Returns the filtered
     planes.
     """
-    mb, kw, restore = level_maps(items, sps, int(stacked[0].shape[0]),
-                                 device)
+    with obs.span("prep.filter", len(items)):
+        mb, kw, restore = level_maps(items, sps, int(stacked[0].shape[0]),
+                                     device)
     out = LF.loop_filter_level(stacked, mb, **kw)
     # ---- PCM / transquant-bypass restoration ----
     if restore:

@@ -8,9 +8,12 @@ Counters are process-global plain ints; reset() before a run, then read
 H2D/D2H (bytes), BY_TAG (bytes by tag) and UPLOADS (copies by tag).
 Copies between two devices (a reference plane that a multi-device decode
 reads on another device than the one that made it) count under tag
-"peer" in BY_TAG and UPLOADS, and not in H2D.
+"peer" in BY_TAG and UPLOADS, and not in H2D.  Each copy is also a span
+(utils/obs.py), "upload.<tag>" or "upload.peer", whose n is its bytes.
 """
 import torch
+
+from . import obs
 
 H2D = 0
 D2H = 0
@@ -32,7 +35,8 @@ def up(a, tag, device):
     H2D += a.nbytes
     BY_TAG[tag] = BY_TAG.get(tag, 0) + a.nbytes
     UPLOADS[tag] = UPLOADS.get(tag, 0) + 1
-    return torch.from_numpy(a).to(device)
+    with obs.span("upload." + tag, a.nbytes):
+        return torch.from_numpy(a).to(device)
 
 
 def count_d2h(n):
@@ -48,4 +52,5 @@ def peer(t, device):
         return t
     BY_TAG["peer"] = BY_TAG.get("peer", 0) + t.nbytes
     UPLOADS["peer"] = UPLOADS.get("peer", 0) + 1
-    return t.to(device)
+    with obs.span("upload.peer", t.nbytes):
+        return t.to(device)

@@ -566,7 +566,7 @@ def check_k2(items, card, rng, rt_us, bd=None, comps=(0, 1, 2), res_bits=6,
                   H=sps.height >> sy)
         table = intra_meta([it], comp, DEV)
         rows = IK.block_rows(table)
-        per_level = table["count"].cpu().numpy()
+        per_level = np.bincount(rows["level"])
         depth[comp] = len(per_level)
         res = torch.from_numpy(rng.integers(
             -(1 << res_bits), (1 << res_bits) + 1, (1, Hp, Wp))

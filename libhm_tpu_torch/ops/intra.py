@@ -5,9 +5,10 @@ in one "vals" row in spec scan order (bottom-left .. corner .. top-right,
 Rec. H.265 8.4.4.2.2): left[k] = vals[2n-k], top[k] = vals[2n+k].  The
 plain functions keep the JAX semantics on int32 tensors; `intra_wavefront`
 is the kernel wrapper that reconstructs every intra block of one component
-(gather -> substitute -> filter -> predict -> + residual -> clip -> store,
-level after level) as one persistent CUDA launch (csrc/intra.cu) for CUDA
-planes, and through the plain functions for CPU planes.
+(gather -> substitute -> filter -> predict -> + residual -> clip -> store)
+as one persistent CUDA launch (csrc/intra.cu) for CUDA planes, one CTA a
+CTU row walking its row level by level, and through the plain functions,
+level after level, for CPU planes.
 """
 import functools
 
@@ -266,18 +267,77 @@ def intra_level_plain(plane, res_plane, meta, level, *, n, is_luma, bd, W,
 #
 # One row of the flat block table, 32 bytes, as csrc/intra.cu reads it:
 # picture, position, intra mode (after any 4:2:2 mapping), log2 of the size
-# in the low nibble of `nf` and the flags (1 filt, 2 strong, 4 dbf) in the
-# high one, the dependency level (0-based, dense) and the availability bits
-# of the 4n+1 border samples, little-endian, padded to (4 * 32 + 8) >> 3
-# bytes.  Rows are sorted by level.
+# in the low nibble of `nf` and the flags (1 filt, 2 strong, 4 dbf, 8
+# cross: reads the CTU row above, which another CTA writes) in the high
+# one, the dependency level (0-based, dense over the launch), the
+# availability bits of the 4n+1 border samples, little-endian, padded to
+# (4 * 32 + 8) >> 3 bytes, and on the first row of each chunk its block
+# count.  Rows are sorted by (picture, CTU row, level); `row_start` gives
+# the first row of each (picture, CTU row) work unit.  A chunk is what the
+# kernel reconstructs at once: the next blocks of one level of one unit,
+# at most CHUNK_BLOCKS of them and CHUNK_SAMPLES samples.
 AV_BYTES = (4 * 32 + 8) >> 3
 BLOCK_DTYPE = np.dtype({
-    "names": ["b", "x", "y", "mode", "nf", "level", "av"],
-    "formats": ["<i2", "<i2", "<i2", "i1", "u1", "<i4", ("u1", AV_BYTES)],
-    "offsets": [0, 2, 4, 6, 7, 8, 12], "itemsize": 32})
+    "names": ["b", "x", "y", "mode", "nf", "level", "av", "chunk"],
+    "formats": ["<i2", "<i2", "<i2", "i1", "u1", "<i4", ("u1", AV_BYTES),
+                "u1"],
+    "offsets": [0, 2, 4, 6, 7, 8, 12, 29], "itemsize": 32})
+F_CROSS = 8
+CHUNK_BLOCKS, CHUNK_SAMPLES = 8, 8 * 256     # csrc/intra.cu kWarps, kChunk
 
-_K2 = Kernel("intra_wavefront", [P, P, P, P, P, I, I, I, I, I, I, I, I])
-_DONE_STRIDE = 32            # ints between done counters (csrc/intra.cu)
+_K2 = Kernel("intra_wavefront", [P, P, P, P, P] + [I] * 7)
+_STRIDE = 32                 # ints between progress counters (csrc/intra.cu)
+
+# K2's work, summed over its calls beside _K2.launches (CPU calls too),
+# from the host table (`work`): CTU-row work units, steps (a level of a
+# row: a barrier inside an SM) and cross steps (steps holding an F_CROSS
+# block: the ones that can wait on another SM)
+WORK = {"rows": 0, "steps": 0, "cross_steps": 0}
+
+
+def _steps(rows, row_start):
+    """True on the first row of each step (a level of a unit) of a sorted
+    table."""
+    level = rows["level"]
+    first = np.ones(len(rows), bool)
+    first[1:] = level[1:] != level[:-1]
+    first[row_start[:-1]] = True
+    return first
+
+
+def work(rows, row_start):
+    """The work of one K2 call on a sorted table: {"rows": units, "steps":
+    distinct levels summed over units, "cross_steps": steps holding an
+    F_CROSS block}."""
+    first = _steps(rows, row_start)
+    sid = np.cumsum(first) - 1
+    cross = ((rows["nf"] >> 4) & F_CROSS) != 0
+    return {"rows": len(row_start) - 1, "steps": int(first.sum()),
+            "cross_steps": len(np.unique(sid[cross]))}
+
+
+def mark_chunks(rows, row_start):
+    """Set rows["chunk"]: the block count on the first row of each chunk
+    (greedy over each step of each unit), 0 elsewhere."""
+    starts = np.flatnonzero(_steps(rows, row_start))
+    ends = np.r_[starts[1:], len(rows)]
+    size = 1 << (2 * (rows["nf"] & 15).astype(np.int64))
+    csum = np.r_[0, np.cumsum(size)]
+    chunk = np.zeros(len(rows), np.uint8)
+    small = (ends - starts <= CHUNK_BLOCKS) & \
+        (csum[ends] - csum[starts] <= CHUNK_SAMPLES)
+    chunk[starts[small]] = (ends - starts)[small]
+    for s, e in zip(starts[~small], ends[~small]):
+        i = s
+        while i < e:
+            j, tot = i, 0
+            while j < e and j - i < CHUNK_BLOCKS and \
+                    tot + size[j] <= CHUNK_SAMPLES:
+                tot += size[j]
+                j += 1
+            chunk[i] = j - i
+            i = j
+    rows["chunk"] = chunk
 
 
 def block_rows(table):
@@ -291,13 +351,12 @@ def intra_wavefront_plain(plane, res_plane, table, *, is_luma, bd, W, H):
     by level, each level's blocks through the vectorized plain steps, one
     size at a time."""
     rows = block_rows(table)
+    rows = rows[np.argsort(rows["level"], kind="stable")]
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a)).to(plane.device)
-    start = 0
-    for cnt in table["count"].tolist():
-        lv = rows[start:start + cnt]
-        start += cnt
+    ends = np.flatnonzero(np.diff(rows["level"])) + 1
+    for lv in np.split(rows, ends):
         log2n = lv["nf"] & 15
         for l2 in np.unique(log2n):
             n = 1 << int(l2)
@@ -317,24 +376,31 @@ def intra_wavefront_plain(plane, res_plane, table, *, is_luma, bd, W, H):
 def intra_wavefront(plane, res_plane, table, *, is_luma, bd, W, H,
                     _ctas=0):
     """Reconstruct every intra block of one component of every picture, in
-    place, level after level: one CUDA launch for CUDA planes.
+    place: one CUDA launch for CUDA planes, in which one CTA at a time owns
+    a CTU row of a picture and walks its blocks level by level, waiting on
+    the row above only before blocks that read it.
 
     plane, res_plane: [Bp, Hc, Wc] int32 (plane updated).
-    table: {"blocks": uint8 [N, 32] rows of BLOCK_DTYPE sorted by level,
-    "count": int32 [L] blocks per level, none 0}, on the planes' device.
-    W, H: the component's picture size (the border clamp).
+    table: intra_meta's {"blocks": uint8 [N, 32] rows of BLOCK_DTYPE
+    sorted by (picture, CTU row, level), "row_start": int32 [U + 1] first
+    row of each work unit, then N, "log2h": log2 of the CTU row's height,
+    "work": work()}, on the planes' device.
+    W, H: the component's picture size (the plain version's border clamp;
+    the kernel reads available samples only, all inside the picture).
     _ctas: the grid's CTAs (0: every CTA the card holds at once); a test
-    sets 1 to show that the ticket order alone orders the levels.
+    sets 1 to show that the ticket order alone orders the rows.
     """
+    for k, v in table["work"].items():
+        WORK[k] += v
     if not plane.is_cuda:
         return intra_wavefront_plain(plane, res_plane, table,
                                      is_luma=is_luma, bd=bd, W=W, H=H)
     dev = plane.device
     check(plane, "plane", torch.int32, 3)
     check(res_plane, "res_plane", torch.int32, 3, dev)
-    blocks, count = table["blocks"], table["count"]
+    blocks, row_start = table["blocks"], table["row_start"]
     check(blocks, "blocks", torch.uint8, 2, dev)
-    check(count, "count", torch.int32, 1, dev)
+    check(row_start, "row_start", torch.int32, 1, dev)
     if res_plane.shape != plane.shape:
         raise ValueError("intra_wavefront: plane/res_plane shapes differ")
     if blocks.shape[1] != BLOCK_DTYPE.itemsize:
@@ -344,11 +410,11 @@ def intra_wavefront(plane, res_plane, table, *, is_luma, bd, W, H,
     if not 8 <= bd <= 16 or W > Wc or H > Hc or max(Wc, Hc) > 32767:
         raise ValueError(f"intra_wavefront: unsupported bd={bd} W={W} H={H} "
                          f"planes {Hc}x{Wc}")
-    N, L = blocks.shape[0], count.shape[0]
-    if N:
-        # the ticket counter, then one done counter per level
-        sync = torch.zeros((L + 1) * _DONE_STRIDE, dtype=torch.int32,
-                           device=dev)
-        _K2(ptr(plane), ptr(res_plane), ptr(blocks), ptr(count), ptr(sync),
-            N, int(_ctas), int(is_luma), bd, W, H, Hc, Wc)
+    U = row_start.shape[0] - 1
+    if U > 0:
+        # the ticket counter, then one progress counter per unit
+        sync = torch.zeros((U + 1) * _STRIDE, dtype=torch.int32, device=dev)
+        _K2(ptr(plane), ptr(res_plane), ptr(blocks), ptr(row_start),
+            ptr(sync), U, int(_ctas), int(is_luma), bd, Hc, Wc,
+            table["log2h"])
     return plane

@@ -12,9 +12,10 @@ Port of the device-resident half of libhm_tpu/parallel/batch_decode.py:
    finished luma residual to the TUs that carry an alpha, before their
    one store (K1's epilogue);
  - intra wavefront: each picture's levelized blocks (intra_wavefront.
-   prepare_component) go into one flat table sorted by dependency level,
-   every picture and block size mixed, and one K2 launch per component
-   (ops/intra.py intra_wavefront) reconstructs them level after level.
+   prepare_component) go into one flat table sorted by (picture, CTU row,
+   dependency level), every block size mixed, and one K2 launch per
+   component (ops/intra.py intra_wavefront) reconstructs them, one CTA a
+   CTU row walking its row level by level.
 """
 import numpy as np
 import torch
@@ -228,7 +229,7 @@ def _intra_batch(items, comp, stacked, res_stacked, device):
 
     stacked: device [Bp, Hc, Wc] planes (updated in place and returned);
     res_stacked: device [Bp, Hc, Wc] residual planes, read by the kernel.
-    One K2 launch over every level of every picture.
+    One K2 launch over every CTU row of every picture.
     """
     sps = items[0]["sps"]
     ssx = sps.chroma_shift_x() if comp else 0
@@ -243,14 +244,22 @@ def _intra_batch(items, comp, stacked, res_stacked, device):
 
 def intra_table(items, comp):
     """The flat block table of one component's intra wavefront over the
-    pictures `items` (picture b = its index): a numpy array of
-    IK.BLOCK_DTYPE rows, real blocks only, sorted stably by dependency
-    level, the levels renumbered densely from 0, and the block count of
-    each level; None when no picture has an intra block."""
+    pictures `items` (picture b = its index), as K2 reads it: a numpy
+    array of IK.BLOCK_DTYPE rows, real blocks only, sorted by (picture,
+    CTU row, dependency level), the levels renumbered densely from 0 over
+    the launch; the int32 first row of each work unit (one per (picture,
+    CTU row) that holds an intra block) with the row count at the end; log2
+    of the CTU row's height, the component's (1 << log2_ctb) >> the
+    vertical chroma shift; and the work of the call, IK.work(rows,
+    row_start).  A block whose top edge is its CTU row's top edge while the
+    row above is a unit of the table gets IK.F_CROSS: it reads samples that
+    another CTA writes.  The first row of each chunk carries its block
+    count (IK.mark_chunks).  None when no picture has an intra block."""
     if len(items) > 32767:
         raise ValueError("intra_table: more pictures than an int16 holds")
     sps = items[0]["sps"]
     W = sps.width >> (sps.chroma_shift_x() if comp else 0)
+    log2h = sps.log2_ctb - (sps.chroma_shift_y() if comp else 0)
     parts = []
     for b, it in enumerate(items):
         levels, _ = prepare_component(
@@ -273,27 +282,39 @@ def intra_table(items, comp):
     if not parts:
         return None
     rows = np.concatenate(parts)
-    # (concatenating and indexing drop the padding of the row layout)
-    rows = rows[np.argsort(rows["level"], kind="stable")] \
-        .astype(IK.BLOCK_DTYPE)
-    _, level, count = np.unique(rows["level"], return_inverse=True,
-                                return_counts=True)
+    _, level = np.unique(rows["level"], return_inverse=True)
     rows["level"] = level.reshape(-1)
-    return rows, count.astype(np.int32)
+    crow = rows["y"].astype(np.int64) >> log2h
+    # (concatenating and indexing drop the padding of the row layout)
+    order = np.lexsort((rows["level"], crow, rows["b"]))
+    rows = rows[order].astype(IK.BLOCK_DTYPE)
+    unit = (rows["b"].astype(np.int64) << 16) | crow[order]
+    first = np.r_[True, unit[1:] != unit[:-1]]
+    starts = np.flatnonzero(first)
+    # the unit before a unit is the row above it when its key is one less
+    above = np.r_[False, unit[starts][1:] == unit[starts][:-1] + 1]
+    top = (rows["y"] & ((1 << log2h) - 1)) == 0
+    cross = top & above[np.cumsum(first) - 1]
+    rows["nf"] |= np.where(cross, IK.F_CROSS << 4, 0).astype(np.uint8)
+    row_start = np.r_[starts, len(rows)].astype(np.int32)
+    IK.mark_chunks(rows, row_start)
+    return rows, row_start, log2h, IK.work(rows, row_start)
 
 
 def intra_meta(items, comp, device):
     """The uploaded table of one component's intra wavefront (intra_table):
-    {"blocks": uint8 [N, 32], "count": int32 [L]} on `device`, or None."""
+    {"blocks": uint8 [N, 32], "row_start": int32 [U + 1]} on `device`,
+    "log2h" and the call's "work" (IK.work), or None."""
     with obs.span("prep.intra") as span:
         built = intra_table(items, comp)
         span.n = 0 if built is None else len(built[0])
     if built is None:
         return None
-    rows, count = built
+    rows, row_start, log2h, work = built
     return {"blocks": xfer.up(rows.view(np.uint8).reshape(len(rows), -1),
                               "intra_blocks", device),
-            "count": xfer.up(count, "intra_count", device)}
+            "row_start": xfer.up(row_start, "intra_rows", device),
+            "log2h": log2h, "work": work}
 
 
 # ---------------------------------------------------------------------------

@@ -268,7 +268,8 @@ def _dag_levels(name):
     return len(reference_levels(_items(name)))
 
 
-@pytest.mark.parametrize("name", ["intra_main10_416x240", "intra_416x240"])
+@pytest.mark.parametrize("name", ["intra_main10_416x240", "intra_416x240",
+                                  "tiles_832x480"])
 def test_decode_on_gpu(gpu, name):
     """Every kernel launches, K2 at most once per component and DAG level,
     the loop-filter kernel once per level (and no single-pass K3/K4 entry
@@ -291,25 +292,40 @@ def test_decode_on_gpu(gpu, name):
     assert LF._LF.launches == _dag_levels(name)
 
 
-@pytest.mark.parametrize("comp", [0, 1])
-def test_intra_wavefront_kernel(gpu, comp):
-    """K2 == its plain version over the whole wavefront of each picture of
-    intra_main10_416x240 and of both as one batch, 20 times in a row (a
-    race shows as a rare mismatch), and once with a grid of one CTA (the
-    ticket order alone orders the levels)."""
+# K2's streams: tiles, slices, 4:2:2, 4:4:4, 12 bits, constrained intra
+# (inter pictures around the intra blocks) and a one-CTU-row picture
+K2_STREAMS = ("intra_main10_416x240", "tiles_832x480", "slices_416x240",
+              "rext422_intra_416x240", "intra_rext444_416x240",
+              "main12_intra_416x240", "cip_ra_160x96", "intra_64x64")
+
+
+@pytest.mark.parametrize("comp", [0, 1, 2])
+@pytest.mark.parametrize("name", K2_STREAMS)
+def test_intra_wavefront_kernel(gpu, name, comp):
+    """K2 == its plain version over the whole wavefront of picture 0 and of
+    every picture of the stream as one batch, 20 times in a row (a race
+    shows as a rare mismatch), and once each with grids of one and two
+    CTAs (the ticket order alone orders the rows; a row waits on another
+    CTA's)."""
     from libhm_tpu_torch.ops import intra as IK
     from libhm_tpu_torch.parallel.batch_decode import intra_meta
-    items = _items("intra_main10_416x240")
+    items = _items(name)
     sps = items[0]["sps"]
-    sh = 1 if comp else 0
-    shape = (len(items), 256 >> sh, 448 >> sh)
-    kw = dict(is_luma=comp == 0, bd=10, W=sps.width >> sh,
-              H=sps.height >> sh)
-    rng = np.random.default_rng(2 + comp)
-    base = torch.from_numpy(rng.integers(0, 1024, shape).astype(np.int32)).to(gpu)
-    res = torch.from_numpy(rng.integers(-64, 65, shape).astype(np.int32)).to(gpu)
-    for pics in ([0], [1], [0, 1]):
+    sx = sps.chroma_shift_x() if comp else 0
+    sy = sps.chroma_shift_y() if comp else 0
+    bd = sps.bit_depth_chroma if comp else sps.bit_depth_luma
+    shape = (len(items), (sps.pic_height_ctbs << sps.log2_ctb) >> sy,
+             (sps.pic_width_ctbs << sps.log2_ctb) >> sx)
+    kw = dict(is_luma=comp == 0, bd=bd, W=sps.width >> sx,
+              H=sps.height >> sy)
+    rng = np.random.default_rng(2 + comp + len(name))
+    base = torch.from_numpy(rng.integers(0, 1 << bd, shape)
+                            .astype(np.int32)).to(gpu)
+    res = torch.from_numpy(rng.integers(-64, 65, shape)
+                           .astype(np.int32)).to(gpu)
+    for pics in ([0], list(range(len(items)))):
         table = intra_meta([items[b] for b in pics], comp, gpu)
+        assert table is not None
         b0, r0 = base[pics].contiguous(), res[pics].contiguous()
         want = IK.intra_wavefront_plain(b0.clone(), r0, table, **kw)
         assert not torch.equal(want, b0)
@@ -319,9 +335,10 @@ def test_intra_wavefront_kernel(gpu, comp):
             torch.cuda.synchronize()
             assert torch.equal(got, want), (pics, int((got != want).sum()))
         assert IK._K2.launches == n0 + 20
-        got = IK.intra_wavefront(b0.clone(), r0, table, _ctas=1, **kw)
-        torch.cuda.synchronize()
-        assert torch.equal(got, want), pics
+        for ctas in (1, 2):
+            got = IK.intra_wavefront(b0.clone(), r0, table, _ctas=ctas, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (pics, ctas)
 
 
 def _mc_inputs(rng, bd, B=3, R=4, Hp=96, Wp=128, H=88, W=120, sx=0, sy=0):

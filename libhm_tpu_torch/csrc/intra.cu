@@ -586,14 +586,14 @@ __global__ void __launch_bounds__(kThreads) intra_wavefront_kernel(
 
 // The lattice covers columns [0, Wl): all of them where the CTA's shared
 // memory holds ch x Wc bytes of it, else as many as it holds (the rest of
-// the row is read from the plane).  The CTAs the grid holds when `ctas` <=
-// 0: SMs x resident CTAs per SM at that size.  The shared memory limit is
-// raised once on each device.
+// the row is read from the plane).  *lattice receives the Wl of the launch.
+// The CTAs the grid holds when `ctas` <= 0: SMs x resident CTAs per SM at
+// that size.  The shared memory limit is raised once on each device.
 extern "C" int intra_wavefront(void* plane, const void* res,
                                const void* table, const void* row_start,
                                void* sync, int U, int ctas, int is_luma,
                                int bd, int Hc, int Wc, int log2h,
-                               void* stream) {
+                               int* lattice, void* stream) {
   if (U == 0) return 0;
   constexpr int kDevices = 64;
   static int sms[kDevices], optin[kDevices], stat[kDevices];
@@ -621,6 +621,7 @@ extern "C" int intra_wavefront(void* plane, const void* res,
   const int room = optin[dev] - stat[dev] - 64;
   int Wl = room > 0 ? (room / ch) & ~3 : 0;
   if (Wl > Wc) Wl = Wc;
+  *lattice = Wl;
   const size_t dyn = (size_t)ch * Wl;
   if (ctas <= 0) {
     int per_sm = 0;

@@ -10,6 +10,7 @@ as one persistent CUDA launch (csrc/intra.cu) for CUDA planes, one CTA a
 CTU row walking its row level by level, and through the plain functions,
 level after level, for CPU planes.
 """
+import ctypes
 import functools
 
 import numpy as np
@@ -18,6 +19,7 @@ import torch
 from ..hostdec.refimpl import ANG_TABLE
 
 from ..kernels.build import I, P, Kernel, check, ptr
+from ..utils import obs
 
 _INV_ANGLE = {-2: 4096, -5: 1638, -9: 910, -13: 630, -17: 482,
               -21: 390, -26: 315, -32: 256}
@@ -285,14 +287,23 @@ BLOCK_DTYPE = np.dtype({
 F_CROSS = 8
 CHUNK_BLOCKS, CHUNK_SAMPLES = 8, 8 * 256     # csrc/intra.cu kWarps, kChunk
 
-_K2 = Kernel("intra_wavefront", [P, P, P, P, P] + [I] * 7)
+_K2 = Kernel("intra_wavefront", [P, P, P, P, P] + [I] * 7 +
+            [ctypes.POINTER(ctypes.c_int)])
 _STRIDE = 32                 # ints between progress counters (csrc/intra.cu)
 
 # K2's work, summed over its calls beside _K2.launches (CPU calls too),
 # from the host table (`work`): CTU-row work units, steps (a level of a
 # row: a barrier inside an SM) and cross steps (steps holding an F_CROSS
-# block: the ones that can wait on another SM)
-WORK = {"rows": 0, "steps": 0, "cross_steps": 0}
+# block: the ones that can wait on another SM); blocks, and plane_blocks,
+# those with a sample at or past the lattice's width that the launch
+# reported (0 on the CPU, which has no lattice); and the chain terms
+# (`chain`) summed over pictures: levels and hand-overs between CTU rows.
+# Each call also records them per launch through utils/obs.py: a span
+# "k2" (n = blocks) around the launch, holding the counts
+# "k2.lattice" (the lattice's columns; CUDA only), "k2.plane_blocks" and,
+# per picture in order, "k2.levels" then "k2.handovers".
+WORK = {"rows": 0, "steps": 0, "cross_steps": 0, "blocks": 0,
+        "plane_blocks": 0, "levels": 0, "handovers": 0}
 
 
 def _steps(rows, row_start):
@@ -314,6 +325,49 @@ def work(rows, row_start):
     cross = ((rows["nf"] >> 4) & F_CROSS) != 0
     return {"rows": len(row_start) - 1, "steps": int(first.sum()),
             "cross_steps": len(np.unique(sid[cross]))}
+
+
+def chain(rows, row_start, log2h):
+    """The dependency chain of each picture of a sorted table, in picture
+    order: [(L, R)], L its levels (prepare_component's: each picture's
+    levels run densely from 0, so L is its highest plus one) and R its
+    hand-overs, the units whose row above is a unit too (its CTU rows less
+    one where every row holds an intra block)."""
+    b = rows["b"]
+    L = np.maximum.reduceat(rows["level"],
+                            np.flatnonzero(np.r_[True, b[1:] != b[:-1]])) + 1
+    ub = b[row_start[:-1]]
+    crow = rows["y"][row_start[:-1]].astype(np.int64) >> log2h
+    above = np.r_[False, (ub[1:] == ub[:-1]) & (crow[1:] == crow[:-1] + 1)]
+    R = np.add.reduceat(above.astype(np.int64),
+                        np.flatnonzero(np.r_[True, ub[1:] != ub[:-1]]))
+    return list(zip(L.tolist(), R.tolist()))
+
+
+def plane_blocks(rows, lattice):
+    """The blocks of a table with a sample at x >= lattice: they write past
+    K2's shared-memory lattice, and their borders there are read from the
+    plane."""
+    right = rows["x"].astype(np.int64) + \
+        (1 << (rows["nf"] & 15).astype(np.int64))
+    return int(np.count_nonzero(right > lattice))
+
+
+def _count(table, lattice, plane):
+    """Add one call's work to WORK and record it under the open "k2"
+    span."""
+    for k, v in table["work"].items():
+        WORK[k] += v
+    WORK["blocks"] += len(table["rows"])
+    WORK["plane_blocks"] += plane
+    if lattice is not None:
+        obs.count("k2.lattice", lattice)
+    obs.count("k2.plane_blocks", plane)
+    for levels, handovers in table["chain"]:
+        WORK["levels"] += levels
+        WORK["handovers"] += handovers
+        obs.count("k2.levels", levels)
+        obs.count("k2.handovers", handovers)
 
 
 def mark_chunks(rows, row_start):
@@ -383,18 +437,28 @@ def intra_wavefront(plane, res_plane, table, *, is_luma, bd, W, H,
     plane, res_plane: [Bp, Hc, Wc] int32 (plane updated).
     table: intra_meta's {"blocks": uint8 [N, 32] rows of BLOCK_DTYPE
     sorted by (picture, CTU row, level), "row_start": int32 [U + 1] first
-    row of each work unit, then N, "log2h": log2 of the CTU row's height,
-    "work": work()}, on the planes' device.
+    row of each work unit, then N, on the planes' device; "log2h": log2 of
+    the CTU row's height; on the host, "rows": the N rows, "work": work()
+    and "chain": chain()}.
     W, H: the component's picture size (the plain version's border clamp;
     the kernel reads available samples only, all inside the picture).
     _ctas: the grid's CTAs (0: every CTA the card holds at once); a test
     sets 1 to show that the ticket order alone orders the rows.
     """
-    for k, v in table["work"].items():
-        WORK[k] += v
-    if not plane.is_cuda:
-        return intra_wavefront_plain(plane, res_plane, table,
-                                     is_luma=is_luma, bd=bd, W=W, H=H)
+    with obs.span("k2", len(table["rows"])):
+        if not plane.is_cuda:
+            intra_wavefront_plain(plane, res_plane, table, is_luma=is_luma,
+                                  bd=bd, W=W, H=H)
+            _count(table, None, 0)
+        else:
+            lattice = _launch(plane, res_plane, table, is_luma, bd, W, H,
+                              _ctas)
+            _count(table, lattice, plane_blocks(table["rows"], lattice))
+    return plane
+
+
+def _launch(plane, res_plane, table, is_luma, bd, W, H, ctas):
+    """K2 on CUDA planes; returns the lattice's width the launch chose."""
     dev = plane.device
     check(plane, "plane", torch.int32, 3)
     check(res_plane, "res_plane", torch.int32, 3, dev)
@@ -411,10 +475,11 @@ def intra_wavefront(plane, res_plane, table, *, is_luma, bd, W, H,
         raise ValueError(f"intra_wavefront: unsupported bd={bd} W={W} H={H} "
                          f"planes {Hc}x{Wc}")
     U = row_start.shape[0] - 1
+    lattice = ctypes.c_int(Wc)
     if U > 0:
         # the ticket counter, then one progress counter per unit
         sync = torch.zeros((U + 1) * _STRIDE, dtype=torch.int32, device=dev)
         _K2(ptr(plane), ptr(res_plane), ptr(blocks), ptr(row_start),
-            ptr(sync), U, int(_ctas), int(is_luma), bd, Hc, Wc,
-            table["log2h"])
-    return plane
+            ptr(sync), U, int(ctas), int(is_luma), bd, Hc, Wc,
+            table["log2h"], ctypes.byref(lattice))
+    return lattice.value

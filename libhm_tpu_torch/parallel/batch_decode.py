@@ -304,7 +304,8 @@ def intra_table(items, comp):
 def intra_meta(items, comp, device):
     """The uploaded table of one component's intra wavefront (intra_table):
     {"blocks": uint8 [N, 32], "row_start": int32 [U + 1]} on `device`,
-    "log2h" and the call's "work" (IK.work), or None."""
+    "log2h", and on the host the rows, the call's "work" (IK.work) and
+    each picture's "chain" (IK.chain), or None."""
     with obs.span("prep.intra") as span:
         built = intra_table(items, comp)
         span.n = 0 if built is None else len(built[0])
@@ -314,7 +315,8 @@ def intra_meta(items, comp, device):
     return {"blocks": xfer.up(rows.view(np.uint8).reshape(len(rows), -1),
                               "intra_blocks", device),
             "row_start": xfer.up(row_start, "intra_rows", device),
-            "log2h": log2h, "work": work}
+            "log2h": log2h, "rows": rows, "work": work,
+            "chain": IK.chain(rows, row_start, log2h)}
 
 
 # ---------------------------------------------------------------------------

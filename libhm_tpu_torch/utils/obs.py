@@ -7,12 +7,15 @@
         ...
         r.n = len(pictures)
 
+    obs.count("k2.plane_blocks", n)     # a count, under the open span
     obs.spans(since=t0, until=t1)       # the entries that ran in [t0, t1]
 
 Each span closed is one entry: span id, parent span id, request id, name,
 start and end on time.perf_counter(), the thread that ran it, and `n`,
 the work items it processed (pictures, blocks, TUs, bytes or NAL units;
 each call site says which), counted at the same boundary as the time.
+A count is an entry of no duration (t0 == t1) under the open span: a
+number taken at one point, which a reader finds through its parent.
 
 A span opened under another inherits its request id; the open span is a
 contextvars variable, so each thread has its own stack, and work handed
@@ -87,6 +90,17 @@ def span(name, n=0):
     """A context manager that records one span called `name` with `n`
     work items (settable as .n inside the block)."""
     return _Open(name, n, False)
+
+
+def count(name, n):
+    """Record `n` under `name` as an entry of no duration under the open
+    span (its parent), at this point of the host clock."""
+    if not _on:
+        return
+    parent, request_id = _current.get()
+    t = time.perf_counter()
+    _record(Span(next(_ids), parent, request_id, name, t, t,
+                 threading.get_ident(), n))
 
 
 def request(n=0):

@@ -230,7 +230,8 @@ def test_row_units(name, comp):
 def test_row_walk_equals_level_walk(name, comp):
     """Reconstructing unit after unit, each unit level by level (one CTA
     doing every row, `_ctas=1`), gives the plain version's planes; and
-    intra_wavefront adds the table's work to TI.WORK."""
+    intra_wavefront adds the table's work, its blocks, no plane blocks
+    (the CPU has no lattice) and its pictures' chain terms to TI.WORK."""
     items = _stream_items(name)
     sps = items[0]["sps"]
     W, H, Hp, Wp, bd = _geometry(sps, comp)
@@ -242,7 +243,10 @@ def test_row_walk_equals_level_walk(name, comp):
     before = dict(TI.WORK)
     want = TI.intra_wavefront(torch.from_numpy(base.copy()), res, table,
                               is_luma=comp == 0, bd=bd, W=W, H=H)
-    assert {k: TI.WORK[k] - before[k] for k in before} == table["work"]
+    assert {k: TI.WORK[k] - before[k] for k in before} == {
+        **table["work"], "blocks": len(table["rows"]), "plane_blocks": 0,
+        "levels": sum(L for L, _ in table["chain"]),
+        "handovers": sum(R for _, R in table["chain"])}
     rows = TI.block_rows(table)
     got = torch.from_numpy(base.copy())
     starts = table["row_start"].tolist()
@@ -308,3 +312,37 @@ def test_restore_plain_equals_jax_formula(sx, sy):
     want = np.stack(want)
     assert np.array_equal(got.numpy(), want)
     assert not np.array_equal(want[:, -1], planes[:, -1])  # clamp exercised
+
+
+@pytest.mark.parametrize("comp", [0, 1, 2])
+@pytest.mark.parametrize("name", ROW_STREAMS)
+def test_chain_terms(name, comp):
+    """TI.chain gives each picture of the table, in order, the levels
+    prepare_component gave its blocks and the number of its units whose
+    row above is a unit too; TI.plane_blocks counts the blocks reaching a
+    column."""
+    from libhm_tpu_torch.parallel.intra_wavefront import prepare_component
+    items = _stream_items(name)
+    sps = items[0]["sps"]
+    W, _, _, _, _ = _geometry(sps, comp)
+    rows, row_start, log2h, _ = TB.intra_table(items, comp)
+    want = []
+    for it in items:
+        lv, _ = prepare_component(it["sps"], it["pic"], it["zmap"],
+                                  it["tile_map"], comp, None,
+                                  bool(it["pps"].constrained_intra_pred))
+        if lv is None:
+            continue
+        levels = 1 + max(int(np.nonzero(d["xs"] < W)[0].max(initial=-1))
+                         for d in lv.values())
+        ys = {blk.y >> log2h for blk in it["pic"].intra_list
+              if blk.comp == comp}
+        want.append((levels, sum(1 for r in ys if r - 1 in ys)))
+    assert TI.chain(rows, row_start, log2h) == want
+    n = 1 << (rows["nf"] & 15).astype(np.int64)
+    right = rows["x"].astype(np.int64) + n
+    assert TI.plane_blocks(rows, W) == 0
+    assert TI.plane_blocks(rows, 0) == len(rows)
+    for col in (4, W // 2, W - 4):
+        assert TI.plane_blocks(rows, col) == sum(
+            1 for r in right.tolist() if r > col)

@@ -169,3 +169,40 @@ def test_the_parser_load_is_one_span(monkeypatch):
     native_bridge._load()
     loads = [s for s in obs.spans() if s.name == "parser.load"]
     assert len(loads) == 1 and loads[0].t1 > loads[0].t0
+
+
+def test_a_count_is_an_entry_of_no_duration():
+    with obs.span("outer"):
+        obs.count("inside", 5)
+    obs.count("loose", 2)
+    obs.enable(False)
+    obs.count("off", 1)
+    obs.enable(True)
+    by = {s.name: s for s in obs.spans()}
+    assert set(by) == {"outer", "inside", "loose"}
+    inside, outer = by["inside"], by["outer"]
+    assert inside.parent == outer.id and inside.n == 5
+    assert outer.t0 <= inside.t0 == inside.t1 <= outer.t1
+    assert by["loose"].parent is None and by["loose"].n == 2
+
+
+def test_k2_records_each_launch(decoded):
+    """Every K2 call is a span "k2" whose n is its blocks, holding its
+    plane blocks (0 on the CPU, and no lattice width) and then each
+    picture's levels and hand-overs, in that order."""
+    spans, _, _, _, items = decoded
+    k2 = [s for s in spans if s.name == "k2"]
+    assert sum(s.n for s in k2) == sum(len(it["pic"].intra_list)
+                                       for it in items)
+    for s in k2:
+        kids = sorted((c for c in spans if c.parent == s.id),
+                      key=lambda c: c.id)
+        names = [c.name for c in kids]
+        pictures = (len(names) - 1) // 2
+        assert pictures >= 1
+        assert names == ["k2.plane_blocks"] + \
+            ["k2.levels", "k2.handovers"] * pictures
+        assert kids[0].n == 0
+        assert all(c.n >= 1 for c in kids[1::2])
+        assert all(c.n >= 0 for c in kids[2::2])
+        assert all(s.t0 <= c.t0 == c.t1 <= s.t1 for c in kids)

@@ -543,11 +543,12 @@ def check_k2(items, card, rng, rt_us, bd=None, comps=(0, 1, 2), res_bits=6,
     """K2 over the whole wavefront of each component of picture 0 (row 14,
     the per-picture path; luma alone is K2's own line): one launch per
     component, five kernel runs each equal to one plain run, the kernel
-    timed; luma also with a grid of one CTA.  bd: the components at this
-    bit depth instead of the stream's; residuals are seeded in
-    +-2^res_bits; warm=False leaves out the plain version's warm-up run
-    (its ops are warm from an earlier call).  Returns (luma Result, row 14
-    Result over `comps`)."""
+    timed; luma also with a grid of one CTA; then one launch over every
+    component (as the decode paths launch it), equal and timed.  bd: the
+    components at this bit depth instead of the stream's; residuals are
+    seeded in +-2^res_bits; warm=False leaves out the plain version's
+    warm-up run (its ops are warm from an earlier call).  Returns (luma
+    Result, row 14 Result over `comps`)."""
     import numpy as np
     import torch
     from libhm_tpu_torch.ops import intra as IK
@@ -555,7 +556,7 @@ def check_k2(items, card, rng, rt_us, bd=None, comps=(0, 1, 2), res_bits=6,
     it = items[0]
     sps = it["sps"]
     luma, row14 = Result(), Result()
-    depth = {}
+    depth, kept = {}, {}
     for comp in comps:
         sx = sps.chroma_shift_x() if comp else 0
         sy = sps.chroma_shift_y() if comp else 0
@@ -614,6 +615,7 @@ def check_k2(items, card, rng, rt_us, bd=None, comps=(0, 1, 2), res_bits=6,
             r1 = f", one CTA {one:.4f} ms"
             luma.add(e, bms, pms, nbytes, ops)
         row14.add(e, bms, pms, nbytes, ops)
+        kept[comp] = (zero, res, want, kw)
         log(f"K2 intra_wavefront picture 0 comp {comp} bd={cbd}: "
             f"{len(rows)} blocks "
             f"{sizes}, {depth[comp]} levels (blocks per level median "
@@ -623,6 +625,23 @@ def check_k2(items, card, rng, rt_us, bd=None, comps=(0, 1, 2), res_bits=6,
             f"; kernel {bms:.4f} ms{r1}, plain {pms:.4f} ms; bound: bytes "
             f"{nbytes / HBM_BPS * 1e3:.6f} ms, chain {depth[comp]} x "
             f"{rt_us:.4f} us = {depth[comp] * rt_us / 1e3:.4f} ms ({card})")
+    if len(comps) > 1:
+        table = intra_meta([it], tuple(comps), DEV)
+        kws = [kept[c][3] for c in comps]
+        args = {k: [kw[k] for kw in kws] for k in kws[0]}
+        got = IK.intra_wavefronts([kept[c][0].clone() for c in comps],
+                                  [kept[c][1] for c in comps], table, **args)
+        torch.cuda.synchronize()
+        bad = sum(int((g != kept[c][2]).sum()) for g, c in zip(got, comps))
+        planes = [kept[c][0].clone() for c in comps]
+        fms = cuda_ms(lambda: IK.intra_wavefronts(
+            planes, [kept[c][1] for c in comps], table, **args), 5)
+        log(f"row 14 K2 over picture 0's {len(comps)} wavefronts in ONE "
+            f"launch: mismatches={bad}; kernel {fms:.4f} ms against "
+            f"{row14.ms:.4f} ms in {len(comps)} launches ({card})")
+        if bad:
+            raise AssertionError(f"K2 one launch over {comps}: {bad} samples "
+                                 "differ from the plain version")
     chain = sum(depth.values()) * rt_us / 1e3
     sets = "chain" if chain > row14.bound()[0] else row14.bound()[1]
     log(f"row 14 (_scan_fn per picture) K2 over picture 0's "
@@ -1828,10 +1847,11 @@ def predicted_launches(items, m):
     from the parse: each level splits into contiguous shards of
     ceil(B / m) pictures (sliced here, not by dag_decode._shards, so the
     count does not lean on the code under test), each making one K1
-    launch per component with a TU, one K2 launch per component with an
-    intra block, one K5 launch per component where a picture has an inter
-    PU (streams without WP) and one loop-filter launch.  Returns
-    (launches by kernel name, shards, entries that get a picture)."""
+    launch per component with a TU, one K2 launch over every component
+    where a picture has an intra block, one K5 launch per component where
+    a picture has an inter PU (streams without WP) and one loop-filter
+    launch.  Returns (launches by kernel name, shards, entries that get a
+    picture)."""
     from libhm_tpu_torch.parallel import dag_decode as DD
     ncomp = 3 if items[0]["sps"].chroma_format_idc else 1
     want = dict.fromkeys(K1_K4 + ["mc_grid"], 0)
@@ -1844,8 +1864,7 @@ def predicted_launches(items, m):
             holders.add(k)
             want["residual_scatter"] += len({tu.comp for p in pics
                                              for tu in p.tu_list})
-            want["intra_wavefront"] += len({b.comp for p in pics
-                                            for b in p.intra_list})
+            want["intra_wavefront"] += any(p.intra_list for p in pics)
             want["mc_grid"] += ncomp * any(p.inter_list for p in pics)
             want["loop_filter_level"] += 1
     return want, shards, len(holders)

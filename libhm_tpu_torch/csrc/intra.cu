@@ -1,4 +1,4 @@
-// K2: the whole intra wavefront of one component, every picture of a
+// K2: the whole intra wavefront of every component of every picture of a
 // reference-DAG level, as ONE persistent launch: one CTA per CTU row.
 //
 // Replaces: libhm_tpu/parallel/batch_decode.py _scan_fn_batched
@@ -21,25 +21,51 @@
 //   tiles and slices they are unavailable anyway), so a row depends only
 //   on itself and on the row above.  The host marks the blocks that read
 //   the row above while it is part of the launch (flag 8, "cross").
-// Why it cannot deadlock: CTAs take work units (picture, CTU row) from a
-//   ticket counter in (picture, row) order.  A unit waits only on the unit
-//   before it, the row above in the same picture, which was ticketed
-//   earlier: it holds a CTA or has finished, and never waits on a later
-//   unit.  So any grid size works; a grid of one CTA finishes each row
-//   before it takes the next.  A row with no intra block in the launch
-//   gets no unit; nobody writes it during the launch.
+// Why the components share a launch: intra prediction of one component
+//   reads no sample of another (cross-component prediction acts on the
+//   residual, which K1 has finished), so the luma, Cb and Cr chains are
+//   independent and run side by side instead of in three launches.  A
+//   work unit is a (picture, component, CTU row); the kernel takes one
+//   parameter block per component (its planes, size, bit depth, CTU-row
+//   height and lattice width) and reads a unit's component from byte 30
+//   of the unit's first table row.
+// Why it cannot deadlock: CTAs take units from a ticket counter in the
+//   order the host lays them out, (component, CTU row, picture): luma's
+//   units first.  A unit waits only on the unit of the row above in the
+//   same picture and component (the host gives its index, `above`), which
+//   sorts earlier, so it was ticketed earlier: it holds a CTA or has
+//   finished, and it never waits on a later unit.  So any grid size works;
+//   a grid of one CTA finishes each unit before it takes the next.  A row
+//   with no intra block in the launch gets no unit; nobody writes it
+//   during the launch.
+// Why that order keeps the grid busy when units outnumber CTAs (five
+//   1080p pictures: 255 units, 132 CTAs): a unit's first level comes about
+//   two CTUs after the row above's, so a chain uses its rows one after
+//   another.  Luma's chains are the longest (about twice a chroma chain's
+//   levels): their units take CTAs first, row by row across the pictures,
+//   so every luma chain starts at once; the chroma units fill the CTAs
+//   left over and those that luma's first rows free, and finish inside
+//   luma's time.  Picture-major would hold the last pictures' luma chains
+//   back until the first pictures' rows end, adding most of a chain to
+//   the launch (an event model of the five pictures' units at c = 1.27
+//   us a chunk: 2.28 ms against 3.18 ms, luma alone 2.28 ms).
 // What the design does:
-//   - the host sends the flat block table sorted by (picture, CTU row,
-//     level), 32 bytes a block, the first row of each unit, and on the
-//     first row of each chunk its block count: a chunk is the next blocks
-//     of one level of the row, at most 8 of them and 2048 samples;
+//   - the host sends the flat block table, unit after unit, each unit's
+//     blocks by level, 32 bytes a block, the first row of each unit and
+//     the unit of its row above, and on the first row of each chunk its
+//     block count: a chunk is the next blocks of one level of the unit,
+//     at most 8 of them and 2048 samples;
 //   - a CTA has 8 compute warps, 4 prepare warps and a publisher warp.
 //     The row's own samples that borders read are the columns x = 4k + 3
 //     and the rows y = 4k + 3 (every block starts on a multiple of 4): the
 //     CTA keeps them in shared memory as uint16 (the lattice), copied from
 //     the plane when it takes the row and written as it reconstructs;
 //     columns past what shared memory holds (a 4K luma row) are read from
-//     the plane, which only this CTA writes (L1 is coherent within an SM);
+//     the plane, which only this CTA writes (L1 is coherent within an SM).
+//     The shared memory is sized by the largest component's lattice; each
+//     component's lattice width Wl is what that memory holds of its own
+//     rows (a 1080p chroma row whole, a 4K luma row in part), and a unit
+//     of a smaller component uses the front of it;
 //   - while chunk k runs, the prepare warps prepare chunk k + 1 in the other
 //     slot: for each border sample the source after substitution (one warp
 //     a block; the availability words and clz, no scan) and where it lives
@@ -64,11 +90,11 @@
 //     saw them released (L1 is not coherent across SMs): past L1 (__ldcg)
 //     right after the wait, or copied ahead by the prepare warps once the
 //     progress in shared memory covers them.
-//   Cost of a call: about L*c + R*h (L levels, R rows, c one chunk inside
-//   an SM, h one hand-over between SMs).  Blocks of one level are
-//   independent by construction (prepare_component levels all sizes on one
-//   map), so they write the plane in place; unavailable border samples are
-//   never read.
+//   Cost of a call: about max over chains of L*c + R*h (L levels, R rows,
+//   c one chunk inside an SM, h one hand-over between SMs), while the
+//   units fit the grid.  Blocks of one level are independent by
+//   construction (prepare_component levels all sizes on one map), so they
+//   write the plane in place; unavailable border samples are never read.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -111,6 +137,7 @@ constexpr int kStride = 32;                 // ints between counters
 constexpr int kFinished = 0x7fffffff;
 constexpr int kMaxPolls = 1 << 25;          // > 8 s of L2 round trips
 constexpr int kCross = 8;                   // table flag: reads the row above
+constexpr int kComps = 3;                   // components a launch holds
 // flags of a prepared block
 constexpr int kFilt = 1, kStrong = 2, kDbf = 4, kWait = 8, kNone = 16;
 constexpr int kLdcg = 1 << 29;              // a global source in the row above
@@ -119,7 +146,21 @@ constexpr int kLdcg = 1 << 29;              // a global source in the row above
 // b int16 @0, x int16 @2, y int16 @4, mode int8 @6, log2n | flags << 4
 // uint8 @7 (flags: 1 filt, 2 strong, 4 dbf, 8 cross), level int32 @8, av
 // 17 bytes @12 (bit t of the 4n+1 border samples in scan order), chunk
-// uint8 @29 (on a chunk's first row its block count, else 0).
+// uint8 @29 (on a chunk's first row its block count, else 0), comp uint8
+// @30 (the row's component: its index into the launch's Comps).
+
+// One component of a launch: its planes [pictures, Hc, Wc], log2 of its
+// CTU row's height, its bit depth, whether it is luma, and the columns
+// [0, Wl) of its rows that the lattice holds.
+struct Comp {
+  int32_t* plane;
+  const int32_t* res;
+  int Hc, Wc, log2h, bd, is_luma, Wl;
+};
+
+struct Comps {
+  Comp c[kComps];
+};
 
 // A block as the prepare warps leave it for the chunk's other phases.
 struct alignas(16) Blk {
@@ -205,18 +246,15 @@ __device__ __forceinline__ int row_level(const uint8_t* rw) {
 }
 
 __global__ void __launch_bounds__(kThreads) intra_wavefront_kernel(
-    int32_t* plane, const int32_t* __restrict__ res,
-    const uint8_t* __restrict__ table, const int* __restrict__ row_start,
-    int* ticket, int* progress, int U, int is_luma, int bd, int Hc, int Wc,
-    int log2h, int Wl) {
+    const Comps P, const uint8_t* __restrict__ table,
+    const int* __restrict__ row_start, const int* __restrict__ above_of,
+    int* ticket, int* progress, int U) {
   // the row's lattice: col[ly][x >> 2] holds column x = 4k + 3, row[ly >>
   // 2][x] holds row ly = 4k + 3 (ly from the row's top), for x < Wl: the
   // only samples of the row a border reads, copied from the plane when the
   // CTA takes the row and kept up to date as it writes them
   extern __shared__ __align__(16) uint8_t s_dyn[];
-  const int ch = 1 << log2h;
   uint16_t* s_lat = (uint16_t*)s_dyn;
-  uint16_t* s_row = s_lat + ch * (Wl >> 2);
   __shared__ __align__(16) uint8_t s_tab[kWin * kRec];
   __shared__ Slot s_slot[2];
   // filtered border of each block, then its DC value at kMaxT
@@ -225,8 +263,6 @@ __global__ void __launch_bounds__(kThreads) intra_wavefront_kernel(
   __shared__ volatile int s_pub;           // progress handed to publisher
   __shared__ volatile int s_above;         // progress acquired, row above
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int maxv = (1 << bd) - 1;
-  const long long plane_sz = (long long)Hc * Wc;
 
   for (;;) {
     if (tid == 0) {
@@ -238,6 +274,16 @@ __global__ void __launch_bounds__(kThreads) intra_wavefront_kernel(
     const int u = s_unit;                  // uniform over the CTA
     if (u >= U) return;
     const int beg = row_start[u], end = row_start[u + 1];
+    // the unit's component (uniform over the CTA, as is all that follows)
+    const int ci = table[(long long)beg * kRec + 30];
+    const Comp C = ci == 0 ? P.c[0] : ci == 1 ? P.c[1] : P.c[2];
+    int32_t* const plane = C.plane;
+    const int32_t* const res = C.res;
+    const int Hc = C.Hc, Wc = C.Wc, bd = C.bd, is_luma = C.is_luma;
+    const int log2h = C.log2h, Wl = C.Wl, ch = 1 << log2h;
+    uint16_t* const s_row = s_lat + ch * (Wl >> 2);
+    const int maxv = (1 << bd) - 1;
+    const long long plane_sz = (long long)Hc * Wc;
 
     if (warp == kThreads / 32 - 1) {
       // the publisher: release each progress value the chunk warps hand
@@ -429,7 +475,7 @@ __global__ void __launch_bounds__(kThreads) intra_wavefront_kernel(
               // wait until the row above has finished every level below
               // ours (s_above: the last progress this CTA acquired)
               if (lane == 0) {
-                const int* d = progress + (long long)(u - 1) * kStride;
+                const int* d = progress + (long long)above_of[u] * kStride;
                 int seen, polls = 0;
                 while ((seen = ld_acquire(d)) < B.level) {
                   // a table whose rows disagree with its units would wait
@@ -584,16 +630,22 @@ __global__ void __launch_bounds__(kThreads) intra_wavefront_kernel(
 
 }  // namespace
 
-// The lattice covers columns [0, Wl): all of them where the CTA's shared
-// memory holds ch x Wc bytes of it, else as many as it holds (the rest of
-// the row is read from the plane).  *lattice receives the Wl of the launch.
-// The CTAs the grid holds when `ctas` <= 0: SMs x resident CTAs per SM at
-// that size.  The shared memory limit is raised once on each device.
-extern "C" int intra_wavefront(void* plane, const void* res,
-                               const void* table, const void* row_start,
-                               void* sync, int U, int ctas, int is_luma,
-                               int bd, int Hc, int Wc, int log2h,
-                               int* lattice, void* stream) {
+// comps: ncomp (1-3) host entries of 8 int64 each, in the order of the
+// table rows' comp byte: plane, res (device pointers), Hc, Wc, log2h, bd,
+// is_luma, 0.  units: row_start [U + 1] (the first table row of each
+// unit, then the row count), then above [U] (the unit of each unit's row
+// above, -1 where there is none).  Component i's lattice covers columns
+// [0, Wl_i): all of them where the CTA's shared memory holds ch_i x Wc_i
+// bytes of it, else as many as it holds (the rest of the row is read from
+// the plane); lattice[i] receives Wl_i.  The dynamic shared memory is the
+// largest ch_i x Wl_i.  The CTAs the grid holds when `ctas` <= 0: SMs x
+// resident CTAs per SM at that size.  The shared memory limit is raised
+// once on each device.
+extern "C" int intra_wavefront(const long long* comps, int ncomp,
+                               const void* table, const void* units,
+                               void* sync, int U, int ctas, int* lattice,
+                               void* stream) {
+  if (ncomp < 1 || ncomp > kComps) return (int)cudaErrorInvalidValue;
   if (U == 0) return 0;
   constexpr int kDevices = 64;
   static int sms[kDevices], optin[kDevices], stat[kDevices];
@@ -617,12 +669,19 @@ extern "C" int intra_wavefront(void* plane, const void* res,
                                  dev);
     if (e != cudaSuccess) return (int)e;
   }
-  const int ch = 1 << log2h;
   const int room = optin[dev] - stat[dev] - 64;
-  int Wl = room > 0 ? (room / ch) & ~3 : 0;
-  if (Wl > Wc) Wl = Wc;
-  *lattice = Wl;
-  const size_t dyn = (size_t)ch * Wl;
+  Comps P = {};
+  size_t dyn = 0;
+  for (int i = 0; i < ncomp; ++i) {
+    const long long* c = comps + 8 * i;
+    const int Wc = (int)c[3], log2h = (int)c[4], ch = 1 << log2h;
+    int Wl = room > 0 ? (room / ch) & ~3 : 0;
+    if (Wl > Wc) Wl = Wc;
+    lattice[i] = Wl;
+    P.c[i] = Comp{(int32_t*)c[0], (const int32_t*)c[1], (int)c[2], Wc,
+                  log2h, (int)c[5], (int)c[6], Wl};
+    if ((size_t)ch * Wl > dyn) dyn = (size_t)ch * Wl;
+  }
   if (ctas <= 0) {
     int per_sm = 0;
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -631,10 +690,9 @@ extern "C" int intra_wavefront(void* plane, const void* res,
     ctas = sms[dev] * (per_sm > 0 ? per_sm : 1);
   }
   const int grid = ctas < U ? ctas : U;
+  const int* rs = (const int*)units;
   int* s = (int*)sync;           // ticket at 0, progress[u] at (u + 1) * 32
   intra_wavefront_kernel<<<grid, kThreads, dyn, (cudaStream_t)stream>>>(
-      (int32_t*)plane, (const int32_t*)res, (const uint8_t*)table,
-      (const int*)row_start, s, s + kStride, U, is_luma, bd, Hc, Wc, log2h,
-      Wl);
+      P, (const uint8_t*)table, rs, rs + U + 1, s, s + kStride, U);
   return (int)cudaGetLastError();
 }

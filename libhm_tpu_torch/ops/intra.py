@@ -4,11 +4,13 @@ Port of libhm_tpu/ops/intra.py.  The 4n+1 border samples of a block live
 in one "vals" row in spec scan order (bottom-left .. corner .. top-right,
 Rec. H.265 8.4.4.2.2): left[k] = vals[2n-k], top[k] = vals[2n+k].  The
 plain functions keep the JAX semantics on int32 tensors; `intra_wavefront`
-is the kernel wrapper that reconstructs every intra block of one component
-(gather -> substitute -> filter -> predict -> + residual -> clip -> store)
-as one persistent CUDA launch (csrc/intra.cu) for CUDA planes, one CTA a
-CTU row walking its row level by level, and through the plain functions,
-level after level, for CPU planes.
+(one component) and `intra_wavefronts` (every component of a level) are
+the kernel wrappers that reconstruct every intra block (gather ->
+substitute -> filter -> predict -> + residual -> clip -> store) as one
+persistent CUDA launch (csrc/intra.cu) for CUDA planes, one CTA a
+(picture, component, CTU row) walking its row level by level, and through
+the plain functions, component by component and level after level, for
+CPU planes.
 """
 import ctypes
 import functools
@@ -265,45 +267,52 @@ def intra_level_plain(plane, res_plane, meta, level, *, n, is_luma, bd, W,
 
 
 # ---------------------------------------------------------------------------
-# K2: the whole wavefront of one component, every picture, one launch
+# K2: the whole wavefront of every component, every picture, one launch
 #
 # One row of the flat block table, 32 bytes, as csrc/intra.cu reads it:
 # picture, position, intra mode (after any 4:2:2 mapping), log2 of the size
 # in the low nibble of `nf` and the flags (1 filt, 2 strong, 4 dbf, 8
 # cross: reads the CTU row above, which another CTA writes) in the high
-# one, the dependency level (0-based, dense over the launch), the
-# availability bits of the 4n+1 border samples, little-endian, padded to
-# (4 * 32 + 8) >> 3 bytes, and on the first row of each chunk its block
-# count.  Rows are sorted by (picture, CTU row, level); `row_start` gives
-# the first row of each (picture, CTU row) work unit.  A chunk is what the
-# kernel reconstructs at once: the next blocks of one level of one unit,
-# at most CHUNK_BLOCKS of them and CHUNK_SAMPLES samples.
+# one, the dependency level (0-based, dense over the component's blocks of
+# the launch), the availability bits of the 4n+1 border samples,
+# little-endian, padded to (4 * 32 + 8) >> 3 bytes, on the first row of
+# each chunk its block count, and the row's component: its index among the
+# launch's components.  A work unit is the blocks of one (picture,
+# component, CTU row), by level; units follow one another in ticket order
+# (`fuse`), `row_start` gives the first row of each and `above` the unit of
+# its row above.  A chunk is what the kernel reconstructs at once: the next
+# blocks of one level of one unit, at most CHUNK_BLOCKS of them and
+# CHUNK_SAMPLES samples.
 AV_BYTES = (4 * 32 + 8) >> 3
 BLOCK_DTYPE = np.dtype({
-    "names": ["b", "x", "y", "mode", "nf", "level", "av", "chunk"],
+    "names": ["b", "x", "y", "mode", "nf", "level", "av", "chunk", "comp"],
     "formats": ["<i2", "<i2", "<i2", "i1", "u1", "<i4", ("u1", AV_BYTES),
-                "u1"],
-    "offsets": [0, 2, 4, 6, 7, 8, 12, 29], "itemsize": 32})
+                "u1", "u1"],
+    "offsets": [0, 2, 4, 6, 7, 8, 12, 29, 30], "itemsize": 32})
 F_CROSS = 8
 CHUNK_BLOCKS, CHUNK_SAMPLES = 8, 8 * 256     # csrc/intra.cu kWarps, kChunk
+MAX_COMPONENTS = 3                           # csrc/intra.cu kComps
 
-_K2 = Kernel("intra_wavefront", [P, P, P, P, P] + [I] * 7 +
-            [ctypes.POINTER(ctypes.c_int)])
+_K2 = Kernel("intra_wavefront", [P, I, P, P, P, I, I,
+                                 ctypes.POINTER(ctypes.c_int)])
 _STRIDE = 32                 # ints between progress counters (csrc/intra.cu)
 
 # K2's work, summed over its calls beside _K2.launches (CPU calls too),
-# from the host table (`work`): CTU-row work units, steps (a level of a
-# row: a barrier inside an SM) and cross steps (steps holding an F_CROSS
-# block: the ones that can wait on another SM); blocks, and plane_blocks,
-# those with a sample at or past the lattice's width that the launch
-# reported (0 on the CPU, which has no lattice); and the chain terms
-# (`chain`) summed over pictures: levels and hand-overs between CTU rows.
-# Each call also records them per launch through utils/obs.py: a span
-# "k2" (n = blocks) around the launch, holding the counts
-# "k2.lattice" (the lattice's columns; CUDA only), "k2.plane_blocks" and,
-# per picture in order, "k2.levels" then "k2.handovers".
+# from the host table (`work`): work units (picture, component, CTU row),
+# steps (a level of a unit: a barrier inside an SM) and cross steps (steps
+# holding an F_CROSS block: the ones that can wait on another SM); blocks,
+# and plane_blocks, those with a sample at or past the lattice's width
+# that the launch reported for their component (0 on the CPU, which has
+# no lattice); the chain terms (`chain`) summed over (picture, component)
+# chains: levels and hand-overs between CTU rows; and components, the
+# components each call covers.  Each call also records them per launch
+# through utils/obs.py: a span "k2" (n = blocks) around the launch,
+# holding the counts "k2.components", then per component in the launch's
+# order (luma first) "k2.lattice" (its lattice's columns; CUDA only) and
+# "k2.plane_blocks", then per (picture, component) chain in order,
+# "k2.levels" then "k2.handovers".
 WORK = {"rows": 0, "steps": 0, "cross_steps": 0, "blocks": 0,
-        "plane_blocks": 0, "levels": 0, "handovers": 0}
+        "plane_blocks": 0, "levels": 0, "handovers": 0, "components": 0}
 
 
 def _steps(rows, row_start):
@@ -353,16 +362,62 @@ def plane_blocks(rows, lattice):
     return int(np.count_nonzero(right > lattice))
 
 
-def _count(table, lattice, plane):
+def fuse(parts):
+    """One launch's table from the tables of its components: parts[i] =
+    (rows, row_start, log2h) of component i, each sorted by (picture, CTU
+    row, level) with one unit per (picture, CTU row) (as
+    batch_decode.intra_table builds them).  Returns (rows, row_start,
+    above): the rows with their comp byte set to i, unit after unit in
+    ticket order, (component, CTU row, picture); the first row of each
+    unit, then the row count; and the unit of each unit's row above (the
+    same picture and component, one CTU row up), -1 where there is none.
+    Every unit's row above comes earlier (csrc/intra.cu: why it cannot
+    deadlock); its levels, chunks and F_CROSS marks are its component
+    table's."""
+    if not 1 <= len(parts) <= MAX_COMPONENTS:
+        raise ValueError(f"fuse: {len(parts)} components, expected 1 to "
+                         f"{MAX_COMPONENTS}")
+    codes, starts, lens, off = [], [], [], 0
+    for i, (rows, row_start, log2h) in enumerate(parts):
+        s = row_start[:-1].astype(np.int64)
+        crow = rows["y"][s].astype(np.int64) >> log2h
+        # (component, CTU row, picture) as one sortable key
+        codes.append((i << 48) | (crow << 16) | rows["b"][s].astype(np.int64))
+        starts.append(s + off)
+        lens.append(np.diff(row_start).astype(np.int64))
+        off += len(rows)
+    code, start, n = (np.concatenate(a) for a in (codes, starts, lens))
+    order = np.argsort(code, kind="stable")
+    code, start, n = code[order], start[order], n[order]
+    first = np.r_[0, np.cumsum(n)]
+    idx = np.repeat(start - first[:-1], n) + np.arange(first[-1])
+    # (concatenating and indexing drop the padding of the row layout)
+    rows = np.concatenate([r for r, _, _ in parts])
+    rows["comp"] = np.repeat(np.arange(len(parts)),
+                             [len(r) for r, _, _ in parts])
+    rows = rows[idx].astype(BLOCK_DTYPE)
+    up = code - (1 << 16)
+    j = np.minimum(np.searchsorted(code, up), len(code) - 1)
+    above = np.where(code[j] == up, j, -1).astype(np.int32)
+    return rows, first.astype(np.int32), above
+
+
+def _count(table, lattices):
     """Add one call's work to WORK and record it under the open "k2"
-    span."""
+    span; lattices: each component's lattice width (None on the CPU)."""
+    rows, comps = table["rows"], table["comps"]
     for k, v in table["work"].items():
         WORK[k] += v
-    WORK["blocks"] += len(table["rows"])
-    WORK["plane_blocks"] += plane
-    if lattice is not None:
-        obs.count("k2.lattice", lattice)
-    obs.count("k2.plane_blocks", plane)
+    WORK["blocks"] += len(rows)
+    WORK["components"] += len(comps)
+    obs.count("k2.components", len(comps))
+    for i in range(len(comps)):
+        plane = 0
+        if lattices is not None:
+            obs.count("k2.lattice", lattices[i])
+            plane = plane_blocks(rows[rows["comp"] == i], lattices[i])
+        WORK["plane_blocks"] += plane
+        obs.count("k2.plane_blocks", plane)
     for levels, handovers in table["chain"]:
         WORK["levels"] += levels
         WORK["handovers"] += handovers
@@ -430,56 +485,88 @@ def intra_wavefront_plain(plane, res_plane, table, *, is_luma, bd, W, H):
 def intra_wavefront(plane, res_plane, table, *, is_luma, bd, W, H,
                     _ctas=0):
     """Reconstruct every intra block of one component of every picture, in
-    place: one CUDA launch for CUDA planes, in which one CTA at a time owns
-    a CTU row of a picture and walks its blocks level by level, waiting on
-    the row above only before blocks that read it.
+    place: intra_wavefronts with one component.
 
     plane, res_plane: [Bp, Hc, Wc] int32 (plane updated).
-    table: intra_meta's {"blocks": uint8 [N, 32] rows of BLOCK_DTYPE
-    sorted by (picture, CTU row, level), "row_start": int32 [U + 1] first
-    row of each work unit, then N, on the planes' device; "log2h": log2 of
-    the CTU row's height; on the host, "rows": the N rows, "work": work()
-    and "chain": chain()}.
+    table: batch_decode.intra_meta's table of that component.
     W, H: the component's picture size (the plain version's border clamp;
     the kernel reads available samples only, all inside the picture).
-    _ctas: the grid's CTAs (0: every CTA the card holds at once); a test
-    sets 1 to show that the ticket order alone orders the rows.
     """
-    with obs.span("k2", len(table["rows"])):
-        if not plane.is_cuda:
-            intra_wavefront_plain(plane, res_plane, table, is_luma=is_luma,
-                                  bd=bd, W=W, H=H)
-            _count(table, None, 0)
-        else:
-            lattice = _launch(plane, res_plane, table, is_luma, bd, W, H,
-                              _ctas)
-            _count(table, lattice, plane_blocks(table["rows"], lattice))
+    intra_wavefronts([plane], [res_plane], table, is_luma=[is_luma],
+                     bd=[bd], W=[W], H=[H], _ctas=_ctas)
     return plane
 
 
-def _launch(plane, res_plane, table, is_luma, bd, W, H, ctas):
-    """K2 on CUDA planes; returns the lattice's width the launch chose."""
-    dev = plane.device
-    check(plane, "plane", torch.int32, 3)
-    check(res_plane, "res_plane", torch.int32, 3, dev)
-    blocks, row_start = table["blocks"], table["row_start"]
+def intra_wavefronts(planes, res_planes, table, *, is_luma, bd, W, H,
+                     _ctas=0):
+    """Reconstruct every intra block of the table's components of every
+    picture, in place: one CUDA launch for CUDA planes, in which one CTA
+    at a time owns a (picture, component, CTU row) and walks its blocks
+    level by level, waiting on the row above only before blocks that read
+    it; the plain version, component by component, for CPU planes.
+
+    planes, res_planes, is_luma, bd, W, H: one entry per component of the
+    table, in its order (table["comps"]): [Bp, Hc, Wc] int32 planes (each
+    updated) and residual planes, luma or not, bit depth and picture size.
+    table: batch_decode.intra_meta's {"blocks": uint8 [N, 32] rows of
+    BLOCK_DTYPE in unit order (fuse), "units": int32 [2U + 1], the first
+    row of each work unit, then N, then the unit of each unit's row above
+    (fuse's row_start and above, viewed as "row_start" and "above"), on
+    the planes' device; "log2h": log2 of each component's CTU-row height;
+    "comps": the components; on the host, "rows": the N rows, "work":
+    work() and "chain": chain() of each component, in order}.
+    _ctas: the grid's CTAs (0: every CTA the card holds at once); a test
+    sets 1 to show that the ticket order alone orders the rows.
+    """
+    k = len(table["comps"])
+    if not all(len(a) == k for a in (planes, res_planes, is_luma, bd, W, H)):
+        raise ValueError(f"intra_wavefronts: the table has {k} components")
+    with obs.span("k2", len(table["rows"])):
+        if not planes[0].is_cuda:
+            rows = table["rows"]
+            for i in range(k):
+                mine = rows[rows["comp"] == i]
+                sub = {"blocks": torch.from_numpy(np.ascontiguousarray(mine)
+                                                  .view(np.uint8)
+                                                  .reshape(len(mine), -1))}
+                intra_wavefront_plain(planes[i], res_planes[i], sub,
+                                      is_luma=is_luma[i], bd=bd[i], W=W[i],
+                                      H=H[i])
+            _count(table, None)
+        else:
+            _count(table, _launch(planes, res_planes, table, is_luma, bd, W,
+                                  H, _ctas))
+    return planes
+
+
+def _launch(planes, res_planes, table, is_luma, bd, W, H, ctas):
+    """K2 on CUDA planes; returns each component's lattice width, as the
+    launch chose it."""
+    dev = planes[0].device
+    blocks, units = table["blocks"], table["units"]
     check(blocks, "blocks", torch.uint8, 2, dev)
-    check(row_start, "row_start", torch.int32, 1, dev)
-    if res_plane.shape != plane.shape:
-        raise ValueError("intra_wavefront: plane/res_plane shapes differ")
+    check(units, "units", torch.int32, 1, dev)
     if blocks.shape[1] != BLOCK_DTYPE.itemsize:
         raise ValueError("intra_wavefront: table rows are not "
                          f"{BLOCK_DTYPE.itemsize} bytes")
-    _, Hc, Wc = plane.shape
-    if not 8 <= bd <= 16 or W > Wc or H > Hc or max(Wc, Hc) > 32767:
-        raise ValueError(f"intra_wavefront: unsupported bd={bd} W={W} H={H} "
-                         f"planes {Hc}x{Wc}")
-    U = row_start.shape[0] - 1
-    lattice = ctypes.c_int(Wc)
+    U = (units.shape[0] - 1) // 2
+    comps = np.zeros((len(planes), 8), np.int64)
+    for i, (plane, res_plane) in enumerate(zip(planes, res_planes)):
+        check(plane, "plane", torch.int32, 3, dev)
+        check(res_plane, "res_plane", torch.int32, 3, dev)
+        if res_plane.shape != plane.shape:
+            raise ValueError("intra_wavefront: plane/res_plane shapes differ")
+        _, Hc, Wc = plane.shape
+        if not 8 <= bd[i] <= 16 or W[i] > Wc or H[i] > Hc or \
+                max(Wc, Hc) > 32767:
+            raise ValueError(f"intra_wavefront: unsupported bd={bd[i]} "
+                             f"W={W[i]} H={H[i]} planes {Hc}x{Wc}")
+        comps[i] = (plane.data_ptr(), res_plane.data_ptr(), Hc, Wc,
+                    table["log2h"][i], bd[i], int(bool(is_luma[i])), 0)
+    lattice = (ctypes.c_int * len(planes))(*[p.shape[2] for p in planes])
     if U > 0:
         # the ticket counter, then one progress counter per unit
         sync = torch.zeros((U + 1) * _STRIDE, dtype=torch.int32, device=dev)
-        _K2(ptr(plane), ptr(res_plane), ptr(blocks), ptr(row_start),
-            ptr(sync), U, int(ctas), int(is_luma), bd, Hc, Wc,
-            table["log2h"], ctypes.byref(lattice))
-    return lattice.value
+        _K2(comps.ctypes.data, len(planes), ptr(blocks), ptr(units),
+            ptr(sync), U, int(ctas), lattice)
+    return list(lattice)

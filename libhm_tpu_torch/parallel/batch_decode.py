@@ -12,10 +12,11 @@ Port of the device-resident half of libhm_tpu/parallel/batch_decode.py:
    finished luma residual to the TUs that carry an alpha, before their
    one store (K1's epilogue);
  - intra wavefront: each picture's levelized blocks (intra_wavefront.
-   prepare_component) go into one flat table sorted by (picture, CTU row,
-   dependency level), every block size mixed, and one K2 launch per
-   component (ops/intra.py intra_wavefront) reconstructs them, one CTA a
-   CTU row walking its row level by level.
+   prepare_component) go into one flat table per component sorted by
+   (picture, CTU row, dependency level), every block size mixed; the
+   components' tables join into one (ops/intra.py fuse), and one K2 launch
+   (ops/intra.py intra_wavefronts) reconstructs every component, one CTA a
+   (picture, component, CTU row) walking its row level by level.
 """
 import numpy as np
 import torch
@@ -224,22 +225,41 @@ def _residual_planes_batch_device(items, Bp, device):
 
 
 # ---------------------------------------------------------------------------
-def _intra_batch(items, comp, stacked, res_stacked, device):
-    """Batched intra wavefront over all pictures for one component.
+def _intra_level(items, stacked, res_stacked, device):
+    """Batched intra wavefront over all pictures and every component of a
+    level: ONE K2 launch over every (picture, component, CTU row) that
+    holds an intra block.
 
-    stacked: device [Bp, Hc, Wc] planes (updated in place and returned);
-    res_stacked: device [Bp, Hc, Wc] residual planes, read by the kernel.
-    One K2 launch over every CTU row of every picture.
+    stacked: device [Bp, Hc, Wc] planes of each component (updated in
+    place); res_stacked: the residual planes, read by the kernel.
     """
-    sps = items[0]["sps"]
-    ssx = sps.chroma_shift_x() if comp else 0
-    ssy = sps.chroma_shift_y() if comp else 0
-    bd = sps.bit_depth_luma if comp == 0 else sps.bit_depth_chroma
-    table = intra_meta(items, comp, device)
-    if table is not None:
-        IK.intra_wavefront(stacked, res_stacked, table, is_luma=comp == 0,
-                           bd=bd, W=sps.width >> ssx, H=sps.height >> ssy)
+    _intra(items, range(len(stacked)), stacked, res_stacked, device)
     return stacked
+
+
+def _intra_batch(items, comp, stacked, res_stacked, device):
+    """The intra wavefront of one component over all pictures (one K2
+    launch): stacked, res_stacked its [Bp, Hc, Wc] planes (stacked updated
+    in place and returned)."""
+    _intra(items, (comp,), {comp: stacked}, {comp: res_stacked}, device)
+    return stacked
+
+
+def _intra(items, comps, stacked, res_stacked, device):
+    """One K2 launch over the components `comps` of the pictures `items`
+    (those with an intra block); stacked[c], res_stacked[c]: component
+    c's planes."""
+    sps = items[0]["sps"]
+    table = intra_meta(items, comps, device)
+    if table is None:
+        return
+    es = table["comps"]
+    IK.intra_wavefronts(
+        [stacked[c] for c in es], [res_stacked[c] for c in es], table,
+        is_luma=[c == 0 for c in es],
+        bd=[sps.bit_depth_chroma if c else sps.bit_depth_luma for c in es],
+        W=[sps.width >> (sps.chroma_shift_x() if c else 0) for c in es],
+        H=[sps.height >> (sps.chroma_shift_y() if c else 0) for c in es])
 
 
 def intra_table(items, comp):
@@ -302,21 +322,42 @@ def intra_table(items, comp):
 
 
 def intra_meta(items, comp, device):
-    """The uploaded table of one component's intra wavefront (intra_table):
-    {"blocks": uint8 [N, 32], "row_start": int32 [U + 1]} on `device`,
-    "log2h", and on the host the rows, the call's "work" (IK.work) and
-    each picture's "chain" (IK.chain), or None."""
-    with obs.span("prep.intra") as span:
-        built = intra_table(items, comp)
-        span.n = 0 if built is None else len(built[0])
-    if built is None:
+    """The uploaded table of K2's launch over the components `comp` (one
+    index, or a sequence of them, luma first) of the pictures `items`:
+    each component's intra_table (a span "prep.intra" each), joined into
+    one launch's table by IK.fuse over the components that have an intra
+    block.  {"blocks": uint8 [N, 32] (one upload, "intra_blocks"),
+    "units": int32 [2U + 1], IK.fuse's row_start then above (one upload,
+    "intra_rows"), viewed as "row_start" and "above", on `device`;
+    "comps": the components in the launch, "log2h": each one's CTU-row
+    height; on the host, the rows, the call's "work" (IK.work, summed over
+    the components) and "chain" (IK.chain of each component in turn)}, or
+    None when no component has an intra block."""
+    comps = (comp,) if isinstance(comp, int) else tuple(comp)
+    parts = []
+    for c in comps:
+        with obs.span("prep.intra") as span:
+            built = intra_table(items, c)
+            span.n = 0 if built is None else len(built[0])
+        if built is not None:
+            parts.append((c, built))
+    if not parts:
         return None
-    rows, row_start, log2h, work = built
-    return {"blocks": xfer.up(rows.view(np.uint8).reshape(len(rows), -1),
-                              "intra_blocks", device),
-            "row_start": xfer.up(row_start, "intra_rows", device),
-            "log2h": log2h, "rows": rows, "work": work,
-            "chain": IK.chain(rows, row_start, log2h)}
+    rows, row_start, above = IK.fuse([(r, s, h) for _, (r, s, h, _)
+                                      in parts])
+    blocks = xfer.up(rows.view(np.uint8).reshape(len(rows), -1),
+                     "intra_blocks", device)
+    units = xfer.up(np.r_[row_start, above].astype(np.int32), "intra_rows",
+                    device)
+    U = len(above)
+    work = {k: sum(w[k] for _, (_, _, _, w) in parts)
+            for k in parts[0][1][3]}
+    return {"blocks": blocks, "units": units, "row_start": units[:U + 1],
+            "above": units[U + 1:], "comps": [c for c, _ in parts],
+            "log2h": [h for _, (_, _, h, _) in parts], "rows": rows,
+            "work": work,
+            "chain": [lr for _, (r, s, h, _) in parts
+                      for lr in IK.chain(r, s, h)]}
 
 
 # ---------------------------------------------------------------------------

@@ -391,7 +391,7 @@ def _recon_shard(items, sps0, device, download):
     residuals (K1, CCP), PCM (K9), MC (K5 / K6), intra (K2), the loop
     filter and restore (K8).  sps0: the decode's first SPS, which sets the
     filters' level-wide parameters."""
-    from .batch_decode import _intra_batch, _residual_planes_batch_device
+    from .batch_decode import _intra_level, _residual_planes_batch_device
     from .device_filters import filter_level
 
     ncomp = 3 if sps0.chroma_format_idc else 1
@@ -402,9 +402,9 @@ def _recon_shard(items, sps0, device, download):
     # MC first: intra blocks of inter pictures predict from MC-reconstructed
     # neighbours
     _inter_level(items, stacked, res_stacked, device)
-    for c in range(ncomp):
-        stacked[c] = _intra_batch(items, c, stacked[c], res_stacked[c],
-                                  device)
+    # every component's intra wavefront in one launch: no component's
+    # prediction reads another's samples
+    _intra_level(items, stacked, res_stacked, device)
     stacked = filter_level(items, stacked, sps0, device)
     pending = []
     with obs.span("recon.narrow", B if download else 0):

@@ -27,8 +27,9 @@ def reconstruct_picture(item, device):
     per-picture device programs compute:
 
         intra_wavefront._scan_fn          -> K2 (intra_wavefront), through
-                                             batch_decode._intra_batch
-                                             with one picture
+                                             batch_decode._intra_level
+                                             with one picture (every
+                                             component in one launch)
         recon_tpu._mc_fn                  -> K5 (mc_grid, plain epilogue)
                                              or K6 (mc_weighted, WP)
         recon_tpu._deblock_v_fn /         -> K3 + K4 in one launch of the

@@ -99,6 +99,20 @@ def port_items(blocks, W, H, bd, comp=0, log2_ctb=6, implicit_rdpcm=False):
             "tile_map": np.zeros(wctbs * hctbs, np.int32)}
 
 
+def port_items_420(seed, W, H, bd, log2_ctb=6):
+    """The collect item of one 4:2:0 picture whose three components hold
+    seeded random layouts: luma W x H, each chroma component W/2 x H/2 in
+    CTUs of half the luma CTU's size.  Returns (item, {comp: blocks})."""
+    luma = random_layout(seed, W, H, bd, log2_ctb)
+    item = port_items(luma, W, H, bd, 0, log2_ctb)
+    blocks = {0: luma}
+    for c in (1, 2):
+        blocks[c] = random_layout(seed + c, W // 2, H // 2, bd, log2_ctb - 1)
+        item["pic"].intra_list += [IntraBlock(c, x, y, n, n, mode, False, -1)
+                                   for x, y, n, mode, _, _ in blocks[c]]
+    return item, blocks
+
+
 def port_reconstruct(blocks, W, H, bd, device, comp=0, log2_ctb=6,
                      implicit_rdpcm=False, ctas=0):
     """The port's reconstruction of the layout on `device`: (plane [H, W]

@@ -292,6 +292,27 @@ def test_decode_on_gpu(gpu, name):
     assert LF._LF.launches == _dag_levels(name)
 
 
+@pytest.mark.parametrize("name", ["randomaccess_main10_416x240",
+                                  "intra_416x240", "rext422_intra_416x240",
+                                  "mono_intra_416x240"])
+def test_k2_one_launch_a_level(gpu, name):
+    """decode_batch makes exactly one K2 launch per DAG level with an
+    intra block, over every component that holds one there, and the
+    picture MD5 matches the golden one."""
+    from libhm_tpu_torch.ops import intra as IK
+    from libhm_tpu_torch.parallel.dag_decode import (decode_batch,
+                                                     reference_levels)
+    data = open(os.path.join(ROOT, "testdata", GOLD[name]["bitstream"]),
+                "rb").read()
+    levels = reference_levels(_items(name))
+    IK._K2.launches = 0
+    outs = decode_batch(data, device=gpu)
+    buf = b"".join(p.tobytes() for pic in outs for p in pic)
+    assert hashlib.md5(buf).hexdigest() == GOLD[name]["decoded_yuv_md5"]
+    assert IK._K2.launches == sum(any(it["pic"].intra_list for it in lv)
+                                  for lv in levels) > 0
+
+
 # K2's streams: tiles, slices, 4:2:2, 4:4:4, 12 bits, constrained intra
 # (inter pictures around the intra blocks) and a one-CTU-row picture
 K2_STREAMS = ("intra_main10_416x240", "tiles_832x480", "slices_416x240",

@@ -231,7 +231,8 @@ def test_row_walk_equals_level_walk(name, comp):
     """Reconstructing unit after unit, each unit level by level (one CTA
     doing every row, `_ctas=1`), gives the plain version's planes; and
     intra_wavefront adds the table's work, its blocks, no plane blocks
-    (the CPU has no lattice) and its pictures' chain terms to TI.WORK."""
+    (the CPU has no lattice), its pictures' chain terms and its one
+    component to TI.WORK."""
     items = _stream_items(name)
     sps = items[0]["sps"]
     W, H, Hp, Wp, bd = _geometry(sps, comp)
@@ -246,7 +247,7 @@ def test_row_walk_equals_level_walk(name, comp):
     assert {k: TI.WORK[k] - before[k] for k in before} == {
         **table["work"], "blocks": len(table["rows"]), "plane_blocks": 0,
         "levels": sum(L for L, _ in table["chain"]),
-        "handovers": sum(R for _, R in table["chain"])}
+        "handovers": sum(R for _, R in table["chain"]), "components": 1}
     rows = TI.block_rows(table)
     got = torch.from_numpy(base.copy())
     starts = table["row_start"].tolist()

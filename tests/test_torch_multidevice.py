@@ -109,7 +109,8 @@ def test_level_shards(monkeypatch):
     """Every level splits into contiguous shards of ceil(B / m) pictures,
     shard k for entry k, in reference_levels' order; the kernel wrappers
     run as often as chip_smoke.py's predicted_launches says the kernels
-    launch on the card (K1 where a component has a TU)."""
+    launch on the card (K1 where a component has a TU; K2 once a shard
+    with an intra block, over every component)."""
     from libhm_tpu_torch.hostdec.decoder import Decoder
     from libhm_tpu_torch.ops import interp as MK
     from libhm_tpu_torch.ops import intra as IK
@@ -133,7 +134,7 @@ def test_level_shards(monkeypatch):
     for mod, fn, name, runs in (
             (TK, "residual_table", "residual_scatter",
              lambda planes, table, *a: table.rows.shape[0] > 0),
-            (IK, "intra_wavefront", "intra_wavefront", None),
+            (IK, "intra_wavefronts", "intra_wavefront", None),
             (LF, "loop_filter_level", "loop_filter_level", None),
             (MK, "mc_grid", "mc_grid", None)):
         def counted(*a, _real=getattr(mod, fn), _name=name, _runs=runs,

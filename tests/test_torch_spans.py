@@ -17,7 +17,8 @@ import pytest
 
 from libhm_tpu_torch.hostdec import native_bridge
 from libhm_tpu_torch.hostdec.decoder import Decoder
-from libhm_tpu_torch.parallel.dag_decode import decode_batch, decode_streams
+from libhm_tpu_torch.parallel.dag_decode import (decode_batch, decode_streams,
+                                                 reference_levels)
 from libhm_tpu_torch.utils import obs, xfer
 import torch_threads  # noqa: F401
 
@@ -187,22 +188,28 @@ def test_a_count_is_an_entry_of_no_duration():
 
 
 def test_k2_records_each_launch(decoded):
-    """Every K2 call is a span "k2" whose n is its blocks, holding its
-    plane blocks (0 on the CPU, and no lattice width) and then each
-    picture's levels and hand-overs, in that order."""
+    """Every K2 call is a span "k2" whose n is its blocks, holding the
+    components it covers, each component's plane blocks (0 on the CPU,
+    and no lattice width) and then each (picture, component) chain's
+    levels and hand-overs, in that order; one call a DAG level covers
+    every component with an intra block there."""
     spans, _, _, _, items = decoded
     k2 = [s for s in spans if s.name == "k2"]
     assert sum(s.n for s in k2) == sum(len(it["pic"].intra_list)
                                        for it in items)
+    assert len(k2) == sum(any(it["pic"].intra_list for it in lv)
+                          for lv in reference_levels(items))
     for s in k2:
         kids = sorted((c for c in spans if c.parent == s.id),
                       key=lambda c: c.id)
         names = [c.name for c in kids]
-        pictures = (len(names) - 1) // 2
-        assert pictures >= 1
-        assert names == ["k2.plane_blocks"] + \
-            ["k2.levels", "k2.handovers"] * pictures
-        assert kids[0].n == 0
-        assert all(c.n >= 1 for c in kids[1::2])
-        assert all(c.n >= 0 for c in kids[2::2])
+        comps = kids[0].n
+        assert names[0] == "k2.components" and 1 <= comps <= 3
+        assert names[1:1 + comps] == ["k2.plane_blocks"] * comps
+        chains = (len(names) - 1 - comps) // 2
+        assert chains >= comps
+        assert names[1 + comps:] == ["k2.levels", "k2.handovers"] * chains
+        assert all(c.n == 0 for c in kids[1:1 + comps])
+        assert all(c.n >= 1 for c in kids[1 + comps::2])
+        assert all(c.n >= 0 for c in kids[2 + comps::2])
         assert all(s.t0 <= c.t0 == c.t1 <= s.t1 for c in kids)

@@ -7,11 +7,11 @@ it, against the plain reference of intra reconstruction
 
 decode_batch(STREAM, device="cuda") runs (on the CPU with --device cpu,
 the kernels' plain versions: a rehearsal at a small size) with
-libhm_tpu_torch.parallel.batch_decode._intra_batch wrapped: on the first
+libhm_tpu_torch.parallel.batch_decode._intra_level wrapped: on the first
 reference-DAG level whose pictures are all intra, each component's plane
-before and after K2 and the residual plane K1 wrote are kept, with the
-K2 counts the launch recorded (utils/obs.py: the lattice's width, the
-blocks past it).  The reference then reconstructs each component of the
+before and after K2 (one launch over every component) and the residual
+plane K1 wrote are kept, with the K2 counts the launch recorded for each
+component (utils/obs.py: the lattice's width, the blocks past it).  The reference then reconstructs each component of the
 level's first picture from the timed path's own parse (its intra blocks
 in decoding order, its slice, tile and prediction-mode maps), from the
 plane before K2, with K1's residual.  Prints one JSON line (also written
@@ -101,30 +101,42 @@ def capture(data, device):
     from libhm_tpu_torch.parallel import batch_decode
     from libhm_tpu_torch.parallel.dag_decode import decode_batch
     from libhm_tpu_torch.utils import obs
-    inner = batch_decode._intra_batch
+    inner = batch_decode._intra_level
     kept = {}
 
-    def wrapped(items, comp, stacked, res_stacked, device):
-        take = not any(it["pic"].inter_list for it in items) and \
-            (comp not in kept)
+    def wrapped(items, stacked, res_stacked, device):
+        take = not kept and not any(it["pic"].inter_list for it in items)
         if take:
-            before = stacked[0].to("cpu", copy=True)
+            before = [s[0].to("cpu", copy=True) for s in stacked]
             t0 = time.perf_counter()
-        out = inner(items, comp, stacked, res_stacked, device)
+        out = inner(items, stacked, res_stacked, device)
         if take:
-            out_host = out[0].cpu()
-            counts = {s.name: s.n for s in obs.spans(since=t0)
-                      if s.name.startswith("k2")}
-            kept[comp] = {"item": items[0], "before": before,
-                          "res": res_stacked[0].cpu(),
-                          "after": out_host, "counts": counts}
+            # the launch's counts, one a component in its order (luma
+            # first; the components with an intra block)
+            counts = [s for s in obs.spans(since=t0)
+                      if s.name.startswith("k2.")]
+
+            def of(name):
+                return [s.n for s in counts if s.name == name]
+            comps = [c for c in range(len(stacked))
+                     if any(b.comp == c for it in items
+                            for b in it["pic"].intra_list)]
+            lattice, plane = of("k2.lattice"), of("k2.plane_blocks")
+            for i, c in enumerate(comps):
+                kept[c] = {"item": items[0], "before": before[c],
+                           "res": res_stacked[c][0].cpu(),
+                           "after": out[c][0].cpu(),
+                           "blocks": sum(b.comp == c for it in items
+                                         for b in it["pic"].intra_list),
+                           "lattice": lattice[i] if lattice else None,
+                           "plane_blocks": plane[i]}
         return out
 
-    batch_decode._intra_batch = wrapped
+    batch_decode._intra_level = wrapped
     try:
         pictures = decode_batch(data, device=device)
     finally:
-        batch_decode._intra_batch = inner
+        batch_decode._intra_level = inner
     return pictures, kept
 
 
@@ -169,10 +181,9 @@ def main(argv=None):
         wrong = int((got != want).sum())
         ok &= wrong == 0
         out["components"][comp] = {
-            "blocks": k["counts"].get("k2", 0), "samples": H * W,
-            "samples_wrong": wrong,
-            "lattice": k["counts"].get("k2.lattice"), "width": W,
-            "plane_blocks": k["counts"].get("k2.plane_blocks"),
+            "blocks": k["blocks"], "samples": H * W,
+            "samples_wrong": wrong, "lattice": k["lattice"], "width": W,
+            "plane_blocks": k["plane_blocks"],
             "reference_s": time.perf_counter() - t}
     with open(os.path.join(ROOT, "testdata", "golden.json")) as f:
         gold = {g["bitstream"]: g for g in json.load(f).values()}
